@@ -1,0 +1,49 @@
+"""Hygiene of the port package: it never imports JAX or flax, every module
+imports on its own, and the weight loader is strict."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from vitslam_tpu_torch.io.from_jax import load_jax_params, port_name  # noqa: E402
+from vitslam_tpu_torch.nn.layers import Mlp  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = [
+    "vitslam_tpu_torch", "vitslam_tpu_torch.geometry", "vitslam_tpu_torch.nn",
+    "vitslam_tpu_torch.nn.layers", "vitslam_tpu_torch.ops",
+    "vitslam_tpu_torch.ops.fused_attention", "vitslam_tpu_torch.ops.cuda_build",
+    "vitslam_tpu_torch.models", "vitslam_tpu_torch.slam", "vitslam_tpu_torch.io",
+]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_module_imports_alone_without_jax_or_flax(module):
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_names_and_strict_loading():
+    assert port_name("params.core.aggregator.patch_embed.blocks.3.block.attn.qkv.kernel") \
+        == "core.aggregator.patch_embed.blocks.3.attn.qkv.weight"
+    assert port_name("params.core.aggregator.layers.7.frame_block.attn.q_norm.scale") \
+        == "core.aggregator.layers.7.frame_block.attn.q_norm.weight"
+    m = Mlp(3, 4, 2)
+    flat = {"params.fc1.kernel": torch.ones(4, 3).numpy(), "params.fc1.bias": torch.ones(4).numpy(),
+            "params.fc2.kernel": torch.ones(2, 4).numpy()}
+    with pytest.raises(KeyError):  # fc2.bias unfilled
+        load_jax_params(m, flat)
+    assert load_jax_params(m, flat, strict=False) == ["fc2.bias"]
+    with pytest.raises(KeyError):  # a key with no parameter
+        load_jax_params(m, dict(flat, **{"params.fc2.bias": torch.ones(2).numpy(),
+                                         "params.extra": torch.ones(1).numpy()}))
+    with pytest.raises(ValueError):  # wrong shape
+        load_jax_params(m, dict(flat, **{"params.fc2.bias": torch.ones(3).numpy()}))

@@ -1,0 +1,195 @@
+"""Aggregator — the VGGT-style backbone (port of
+vitslam_tpu/models/aggregator.py).
+
+* DINOv2 ViT patch embedding (patch 14, cls + register tokens, its own
+  transformer depth), giving per-frame patch tokens;
+* 1 camera token + ``num_register_tokens`` register tokens per frame, with
+  separate learned variants for the first frame and the rest;
+* ``depth`` pairs of frame attention (within a frame, batched (B*S, T, C))
+  and global attention (over the chunk's S*T tokens, batched (B, S*T, C)),
+  both with 2-D RoPE (base 100), special tokens at grid position (0, 0);
+* each pair's output is concat(frame_out, global_out) -> (B, S, T, 2C); only
+  the tapped layers are kept.
+
+The reference's ``lax.scan`` stacks are ``nn.ModuleList``s here. The KV
+merge (``merge_pool`` / ``merge_stride``) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..nn.layers import Block, Conv2d, LayerNorm, _param
+from ..nn.rope import patch_grid_positions, rope_cache_2d
+from ..ops.resize import bicubic_matrix, resize_matmul
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def expand_frame_tokens(param: torch.Tensor, B: int, S: int) -> torch.Tensor:
+    """(2, K, C) learned tokens -> (B*S, K, C): frame 0 takes variant 0,
+    every later frame variant 1."""
+    idx = torch.ones(S, dtype=torch.long, device=param.device)
+    idx[0] = 0
+    tokens = param[idx]  # (S, K, C)
+    return tokens[None].expand((B,) + tokens.shape).reshape(B * S, *param.shape[1:])
+
+
+class PatchEmbedViT(nn.Module):
+    """DINOv2 patch embedding: conv projection, cls token + bicubically
+    resized pos embedding, register tokens after the cls token (no pos
+    embedding), transformer blocks over all tokens, final LayerNorm;
+    returns the normed patch tokens only."""
+
+    def __init__(self, img_size: int = 518, patch_size: int = 14,
+                 embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
+                 mlp_ratio: float = 4.0, init_values: float = 1.0,
+                 num_register_tokens: int = 4, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.img_size, self.patch_size, self.embed_dim = img_size, patch_size, embed_dim
+        self.num_register_tokens, self.dtype = num_register_tokens, dtype
+        ng = img_size // patch_size
+        self.proj = Conv2d(3, embed_dim, patch_size, stride=patch_size,
+                           dtype=dtype, device=device)
+        self.pos_embed = _param(1, 1 + ng * ng, embed_dim, device=device)
+        self.cls_token = _param(1, 1, embed_dim, device=device)
+        self.register_tokens = (_param(1, num_register_tokens, embed_dim, device=device)
+                                if num_register_tokens else None)
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio, qk_norm=False,
+                  init_values=init_values, dtype=dtype, device=device)
+            for _ in range(depth))
+        self.norm = LayerNorm(embed_dim, dtype, device=device)
+
+    def init_params(self, g):
+        nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=g)
+        nn.init.normal_(self.cls_token, 0.0, 1e-6, generator=g)
+        if self.register_tokens is not None:
+            nn.init.normal_(self.register_tokens, 0.0, 1e-6, generator=g)
+
+    def _patch_pos(self, gh: int, gw: int) -> torch.Tensor:
+        """(1, gh*gw, C) pos embedding: the native ng x ng grid resized with
+        jax.image.resize's antialiased bicubic, as two matmuls."""
+        ng = self.img_size // self.patch_size
+        patch_pos = self.pos_embed[:, 1:]
+        if (gh, gw) == (ng, ng):
+            return patch_pos
+        grid = patch_pos.reshape(ng, ng, self.embed_dim).permute(2, 0, 1)  # (C, ng, ng)
+        grid = resize_matmul(grid, bicubic_matrix(gh, ng), bicubic_matrix(gw, ng))
+        return grid.permute(1, 2, 0).reshape(1, gh * gw, self.embed_dim)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images (N, 3, H, W) (normalised) -> (N, P, embed_dim)."""
+        n = images.shape[0]
+        x = self.proj(images)  # (n, C, gh, gw)
+        gh, gw = x.shape[-2:]
+        x = x.flatten(2).transpose(1, 2)  # (n, gh*gw, C)
+        x = x + self._patch_pos(gh, gw).to(self.dtype)
+        cls = (self.cls_token + self.pos_embed[:, :1]).to(self.dtype).expand(n, 1, -1)
+        parts = [cls]
+        if self.register_tokens is not None:
+            parts.append(self.register_tokens.to(self.dtype).expand(n, -1, -1))
+        x = torch.cat(parts + [x], dim=1)
+        for blk in self.blocks:
+            x = blk(x)
+        x = self.norm(x)
+        return x[:, 1 + self.num_register_tokens:]
+
+
+class AggregatorLayer(nn.Module):
+    """One frame-attention + global-attention pair."""
+
+    def __init__(self, dim, num_heads, mlp_ratio, qk_norm, init_values,
+                 rope_base, dtype, device=None):
+        super().__init__()
+        kw = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm, init_values=init_values,
+                  rope="2d", rope_base=rope_base, dtype=dtype, device=device)
+        self.frame_block = Block(dim, num_heads, **kw)
+        self.global_block = Block(dim, num_heads, **kw)
+
+    def forward(self, x, pos_frame, pos_global, B: int, S: int):
+        """x (B*S, T, C) -> (x', concat(frame_out, global_out) (B, S, T, 2C))."""
+        T, C = x.shape[1:]
+        x = self.frame_block(x, pos_frame)
+        frame_out = x
+        x = self.global_block(x.reshape(B, S * T, C), pos_global).reshape(B * S, T, C)
+        return x, torch.cat([frame_out, x], dim=-1).reshape(B, S, T, 2 * C)
+
+
+class Aggregator(nn.Module):
+    def __init__(self, img_size: int = 518, patch_size: int = 14,
+                 embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
+                 mlp_ratio: float = 4.0, num_register_tokens: int = 4,
+                 rope_base: float = 100.0, patch_embed_depth: int = 24,
+                 patch_embed_heads: int = 16, qk_norm: bool = True,
+                 init_values: float = 0.01, dtype=torch.bfloat16,
+                 intermediate_layers: Sequence[int] = (4, 11, 17, 23), device=None):
+        super().__init__()
+        self.patch_size, self.embed_dim, self.num_heads = patch_size, embed_dim, num_heads
+        self.num_register_tokens, self.rope_base = num_register_tokens, rope_base
+        self.dtype, self.depth = dtype, depth
+        self.intermediate_layers = tuple(intermediate_layers)
+        self.patch_embed = PatchEmbedViT(
+            img_size=img_size, patch_size=patch_size, embed_dim=embed_dim,
+            depth=patch_embed_depth, num_heads=patch_embed_heads, dtype=dtype,
+            device=device)
+        self.camera_token = _param(2, 1, embed_dim, device=device)
+        self.register_token = _param(2, num_register_tokens, embed_dim, device=device)
+        self.layers = nn.ModuleList(
+            AggregatorLayer(embed_dim, num_heads, mlp_ratio, qk_norm, init_values,
+                            rope_base, dtype, device)
+            for _ in range(depth))
+
+    def init_params(self, g):
+        nn.init.normal_(self.camera_token, 0.0, 1e-6, generator=g)
+        nn.init.normal_(self.register_token, 0.0, 1e-6, generator=g)
+
+    @property
+    def patch_start_idx(self) -> int:
+        return 1 + self.num_register_tokens
+
+    def embed(self, images: torch.Tensor) -> torch.Tensor:
+        """images (B, S, 3, H, W) in [0, 1] -> patch tokens (B, S, P, C)."""
+        B, S, C, H, W = images.shape
+        mean = torch.tensor(IMAGENET_MEAN, device=images.device).reshape(1, 1, 3, 1, 1)
+        std = torch.tensor(IMAGENET_STD, device=images.device).reshape(1, 1, 3, 1, 1)
+        images_n = (images.float() - mean) / std
+        tok = self.patch_embed(images_n.reshape(B * S, C, H, W))
+        return tok.reshape(B, S, tok.shape[1], self.embed_dim)
+
+    def forward(self, images: torch.Tensor, patch_tokens=None):
+        """images (B, S, 3, H, W) in [0, 1]; ``patch_tokens`` (B, S, P, C)
+        from ``embed`` skips the patch embedding (the pipeline embeds each
+        unique frame once). Returns (list of tapped (B, S, T, 2C) outputs,
+        one per ``intermediate_layers`` entry, patch_start_idx)."""
+        B, S, _, H, W = images.shape
+        if patch_tokens is None:
+            patch_tokens = self.embed(images)
+        x = patch_tokens.reshape(B * S, patch_tokens.shape[2], self.embed_dim).to(self.dtype)
+        gh, gw = H // self.patch_size, W // self.patch_size
+        cam = expand_frame_tokens(self.camera_token, B, S).to(self.dtype)
+        reg = expand_frame_tokens(self.register_token, B, S).to(self.dtype)
+        x = torch.cat([cam, reg, x], dim=1)  # (B*S, T, C)
+        T = x.shape[1]
+
+        # RoPE caches, hoisted out of the layer loop and cast to the compute
+        # dtype as the reference does (its caches are head-tiled; the values
+        # are the same)
+        head_dim = self.embed_dim // self.num_heads
+        pos_frame = patch_grid_positions(B * S, gh, gw, self.patch_start_idx, x.device)
+        pos_global = pos_frame.reshape(B, S * T, 2)
+        cos_f, sin_f, nsplit = rope_cache_2d(pos_frame, head_dim, self.rope_base)
+        cos_g, sin_g, _ = rope_cache_2d(pos_global, head_dim, self.rope_base)
+        rope_f = (cos_f.to(self.dtype), sin_f.to(self.dtype), nsplit)
+        rope_g = (cos_g.to(self.dtype), sin_g.to(self.dtype), nsplit)
+
+        wanted = set(self.intermediate_layers)
+        taps = {}
+        for i, layer in enumerate(self.layers):
+            x, concat = layer(x, rope_f, rope_g, B, S)
+            if i in wanted:
+                taps[i] = concat
+        return [taps[i] for i in self.intermediate_layers], self.patch_start_idx

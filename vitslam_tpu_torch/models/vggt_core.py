@@ -1,0 +1,93 @@
+"""VGGTCore — the backbone + decoder-head stack shared by the aligned model
+variants (port of vitslam_tpu/models/vggt_core.py): an Aggregator plus
+optional CameraHead / DPTHead(depth) / DPTHead(point). The TrackHead is not
+ported (every reference config disables it)."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from .aggregator import Aggregator
+from .camera_head import CameraHead
+from .dpt_head import DPTHead
+
+
+class VGGTCore(nn.Module):
+    def __init__(self, img_size: int = 518, patch_size: int = 14,
+                 embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
+                 patch_embed_depth: int = 24, patch_embed_heads: int = 16,
+                 intermediate_layers: Sequence[int] = (4, 11, 17, 23),
+                 enable_camera: bool = True, enable_depth: bool = True,
+                 enable_point: bool = True, enable_track: bool = False,
+                 dpt_features: int = 256,
+                 dpt_out_channels: Sequence[int] = (256, 512, 1024, 1024),
+                 dpt_frames_chunk: int = 0, camera_trunk_depth: int = 4,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        if enable_track:
+            raise NotImplementedError("the TrackHead is not ported yet")
+        self.dpt_frames_chunk = dpt_frames_chunk
+        self.aggregator = Aggregator(
+            img_size=img_size, patch_size=patch_size, embed_dim=embed_dim,
+            depth=depth, num_heads=num_heads, patch_embed_depth=patch_embed_depth,
+            patch_embed_heads=patch_embed_heads,
+            intermediate_layers=intermediate_layers, dtype=dtype, device=device)
+        dim_in = 2 * embed_dim
+        dpt = dict(dim_in=dim_in, features=dpt_features,
+                   out_channels=tuple(dpt_out_channels), patch_size=patch_size,
+                   dtype=dtype, device=device)
+        self.camera_head = (CameraHead(dim_in=dim_in, trunk_depth=camera_trunk_depth,
+                                       num_heads=num_heads, dtype=dtype, device=device)
+                            if enable_camera else None)
+        self.depth_head = (DPTHead(output_dim=2, activation="exp",
+                                   conf_activation="expp1", **dpt)
+                           if enable_depth else None)
+        self.point_head = (DPTHead(output_dim=4, activation="inv_log",
+                                   conf_activation="expp1", **dpt)
+                           if enable_point else None)
+
+    def encode(self, images, patch_tokens=None):
+        """images (B, S, 3, H, W) -> (taps list, patch_start_idx)."""
+        return self.aggregator(images, patch_tokens)
+
+    def embed_frames(self, images):
+        """Per-frame patch embedding only: (B, S, 3, H, W) -> (B, S, P, C)."""
+        return self.aggregator.embed(images)
+
+    def decode_camera(self, taps) -> list[torch.Tensor]:
+        """-> list over refinement iterations of (B, S, 9) fp32 encodings."""
+        return self.camera_head(taps[-1][:, :, 0, :])
+
+    def decode_depth(self, taps, images, patch_start_idx):
+        return self._decode_dpt(self.depth_head, taps, images, patch_start_idx)
+
+    def decode_point(self, taps, images, patch_start_idx):
+        return self._decode_dpt(self.point_head, taps, images, patch_start_idx)
+
+    def _decode_dpt(self, head, taps, images, patch_start_idx):
+        """Run a DPT head over at most ``dpt_frames_chunk`` frames at a time,
+        so each group's full-resolution intermediates die before the next."""
+        S = images.shape[1]
+        fc = self.dpt_frames_chunk
+        if not fc or S <= fc:
+            return head(taps, images, patch_start_idx)
+        fc = max(d for d in range(1, fc + 1) if S % d == 0)
+        outs = [head([t[:, s0:s0 + fc] for t in taps], images[:, s0:s0 + fc],
+                     patch_start_idx) for s0 in range(0, S, fc)]
+        return (torch.cat([o[0] for o in outs], dim=1),
+                torch.cat([o[1] for o in outs], dim=1))
+
+    def forward(self, images):
+        """Plain single-chunk forward: the raw predictions dict."""
+        taps, psi = self.encode(images)
+        out = {}
+        if self.camera_head is not None:
+            out["pose_enc_list"] = self.decode_camera(taps)
+        if self.depth_head is not None:
+            out["depth"], out["depth_conf"] = self.decode_depth(taps, images, psi)
+        if self.point_head is not None:
+            out["world_points"], out["world_points_conf"] = self.decode_point(
+                taps, images, psi)
+        return out

@@ -1,0 +1,381 @@
+"""Transformer building blocks (port of vitslam_tpu/nn/layers.py): Dense,
+LayerNorm, Mlp, LayerScale, qk-norm self- and cross-attention, pre-norm
+blocks with RoPE.
+
+Parameters are fp32; each module has a compute ``dtype`` (bf16 in the
+backbone) and casts its inputs and weights to it at each matmul, as flax
+does. LayerNorm statistics are fp32 with eps 1e-6. Parameters are allocated
+uninitialised on ``device``; ``init_weights`` fills them from a
+``torch.Generator``, or ``io.from_jax.load_jax_params`` loads them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import ROUTE_COUNTS, attention_route, scaled_dot_product_attention
+from ..ops.fused_attention import fused_qkv_attention
+from .rope import apply_rope_1d, apply_rope_2d, apply_rope_cached, apply_rope_flat
+
+# default softmax shift of the bounded-logit path; raised to the provable
+# bound when the learned qk-norm gains exceed it
+QK_STATIC_MAX = 24.0
+LN_EPS = 1e-6
+
+
+def _param(*shape, device=None) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
+    """flax's lecun_normal: truncated normal (+-2 sigma) with variance
+    1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                     generator=generator)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every parameter of ``module`` with the reference's initialisers,
+    drawing from ``generator`` (on the parameters' device). Children are
+    initialised before their parent, so a parent may override them."""
+    with torch.no_grad():
+        for m in reversed(list(module.modules())):
+            if hasattr(m, "init_params"):
+                m.init_params(generator)
+    return module
+
+
+def _is_rope_cache(pos) -> bool:
+    return isinstance(pos, tuple) and len(pos) == 3 and isinstance(pos[2], int)
+
+
+def qk_logit_bound(q_params, k_params, dh: int) -> torch.Tensor:
+    """Provable upper bound on qk-normed attention logits from the LayerNorm
+    affine params (scale, bias): after LayerNorm ||x_hat|| = sqrt(dh), so
+    ||q|| <= max|g_q| sqrt(dh) + ||b_q||, RoPE preserves norms, and
+    |logit| <= bound(q) bound(k) / sqrt(dh)."""
+    sq = math.sqrt(dh)
+
+    def row_bound(p):
+        r = p[0].abs().max() * sq
+        if p[1] is not None:
+            r = r + torch.linalg.vector_norm(p[1])
+        return r
+
+    return (row_bound(q_params) * row_bound(k_params) / sq).float()
+
+
+def qk_shift_from(qp, kp, dh: int) -> torch.Tensor:
+    """Overflow-proof softmax shift max(24, bound) from (scale, bias) pairs."""
+    return qk_logit_bound(qp, kp, dh).detach().clamp_min(QK_STATIC_MAX)
+
+
+def ln_apply(x, scale, bias, dtype, eps: float = LN_EPS):
+    """Functional LayerNorm: fp32 stats, max(0, E[x^2] - E[x]^2), cast to
+    dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(dtype)
+
+
+class Dense(nn.Module):
+    """Linear layer with fp32 params and a compute dtype (flax nn.Dense)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.weight = _param(out_features, in_features, device=device)
+        self.bias = _param(out_features, device=device) if bias else None
+        self.dtype = dtype
+
+    def init_params(self, g):
+        lecun_normal_(self.weight, self.weight.shape[1], g)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class Conv2d(nn.Module):
+    """NCHW convolution with fp32 params and a compute dtype (flax nn.Conv;
+    the weight is in torch's (out, in, kh, kw) layout)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding: int = 0, bias: bool = True, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.weight = _param(cout, cin, kernel, kernel, device=device)
+        self.bias = _param(cout, device=device) if bias else None
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+
+    def init_params(self, g):
+        fan_in = self.weight[0].numel()
+        lecun_normal_(self.weight, fan_in, g)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
+                        stride=self.stride, padding=self.padding)
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm: fp32 stats with the clamped fast variance,
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, cast to dtype."""
+
+    def __init__(self, dim: int, dtype=torch.float32, use_scale: bool = True,
+                 use_bias: bool = True, eps: float = LN_EPS, device=None):
+        super().__init__()
+        self.weight = _param(dim, device=device) if use_scale else None
+        self.bias = _param(dim, device=device) if use_bias else None
+        self.dtype, self.eps = dtype, eps
+
+    def init_params(self, g):
+        if self.weight is not None:
+            self.weight.fill_(1.0)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (xf - mean) * mul
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype)
+
+
+class HeadLayerNorm(nn.Module):
+    """Per-head LayerNorm over ``head_dim`` features, on the (B, H, N, dh)
+    layout or (``flat=True``) on the flat (B, N, H*dh) layout; unclamped
+    E[x^2] - E[x]^2 variance, as the fused kernel computes it."""
+
+    def __init__(self, num_heads: int, head_dim: int, dtype=torch.float32,
+                 eps: float = LN_EPS, device=None):
+        super().__init__()
+        self.num_heads, self.head_dim = num_heads, head_dim
+        self.weight = _param(head_dim, device=device)
+        self.bias = _param(head_dim, device=device)
+        self.dtype, self.eps = dtype, eps
+
+    def init_params(self, g):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x, flat: bool = False):
+        shape = x.shape
+        xf = x.float()
+        if flat:
+            xf = xf.reshape(shape[:-1] + (self.num_heads, self.head_dim))
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(self.dtype).reshape(shape)
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int, init_values: float = 1e-5, device=None):
+        super().__init__()
+        self.gamma = _param(dim, device=device)
+        self.init_values = init_values
+
+    def init_params(self, g):
+        self.gamma.fill_(self.init_values)
+
+    def forward(self, x):
+        return x * self.gamma.to(x.dtype)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact-erf GELU -> fc2."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: int, bias: bool = True, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.fc1 = Dense(in_features, hidden_features, bias, dtype, device)
+        self.fc2 = Dense(hidden_features, out_features, bias, dtype, device)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+def _apply_rope(q, k, pos_q, pos_k, mode: Optional[str], base: float):
+    """RoPE on (B, H, N, D) q/k from integer positions or a cache."""
+    if mode is None or pos_q is None:
+        return q, k
+    if _is_rope_cache(pos_q):
+        return apply_rope_cached(q, pos_q), apply_rope_cached(k, pos_k)
+    fn = apply_rope_1d if mode == "1d" else apply_rope_2d
+    return fn(q, pos_q, base), fn(k, pos_k, base)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with optional per-head qk LayerNorm and
+    RoPE (rope: None | '1d' | '2d', positions or a cache at call time).
+
+    Routing follows ``ops.attention.attention_route``: the fused route hands
+    the packed qkv projection, the LayerNorm params, the RoPE cache and the
+    logit bound to ``fused_qkv_attention`` (kernel K1 on CUDA)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = True,
+                 proj_bias: bool = True, qk_norm: bool = True,
+                 rope: Optional[str] = None, rope_base: float = 100.0,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.qk_norm, self.rope, self.rope_base = qk_norm, rope, rope_base
+        dh = dim // num_heads
+        self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype, device)
+        if qk_norm:
+            self.q_norm = HeadLayerNorm(num_heads, dh, dtype, device=device)
+            self.k_norm = HeadLayerNorm(num_heads, dh, dtype, device=device)
+        self.proj = Dense(dim, dim, proj_bias, dtype, device)
+
+    def forward(self, x, pos=None):
+        B, N, C = x.shape
+        h = self.num_heads
+        dh = C // h
+        qkv = self.qkv(x)
+        fast = self.qk_norm and _is_rope_cache(pos)
+        fusable = fast or (not self.qk_norm and self.rope is None and pos is None)
+        route = attention_route(N, N, fusable=fusable, fast=fast)
+        ROUTE_COUNTS[route] += 1
+        if route == "fused":
+            kwargs = dict(num_heads=h)
+            if fast:
+                qp = (self.q_norm.weight, self.q_norm.bias)
+                kp = (self.k_norm.weight, self.k_norm.bias)
+                cos, sin, nsplit = pos
+                kwargs.update(cos=cos, sin=sin, q_ln=qp, k_ln=kp, nsplit=nsplit,
+                              static_max=qk_shift_from(qp, kp, dh))
+            return self.proj(fused_qkv_attention(qkv, **kwargs))
+        if fast:
+            cos, sin, nsplit = pos
+            q = apply_rope_flat(self.q_norm(qkv[..., :C], flat=True), cos, sin, h, nsplit)
+            k = apply_rope_flat(self.k_norm(qkv[..., C:2 * C], flat=True), cos, sin,
+                                h, nsplit)
+            q, k, v = (t.reshape(B, N, h, dh).transpose(1, 2)
+                       for t in (q, k, qkv[..., 2 * C:]))
+        else:
+            q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(B, N, h, dh).transpose(1, 2)
+                       for i in range(3))
+            if self.qk_norm:
+                q, k = self.q_norm(q), self.k_norm(k)
+            q, k = _apply_rope(q, k, pos, pos, self.rope, self.rope_base)
+        out = scaled_dot_product_attention(q, k, v, route=route)
+        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention with separate q/k/v projections and distinct RoPE
+    position sets for queries and keys."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = True,
+                 proj_bias: bool = True, qk_norm: bool = False,
+                 rope: Optional[str] = None, rope_base: float = 100.0,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.qk_norm, self.rope, self.rope_base = qk_norm, rope, rope_base
+        dh = dim // num_heads
+        self.q = Dense(dim, dim, qkv_bias, dtype, device)
+        self.k = Dense(dim, dim, qkv_bias, dtype, device)
+        self.v = Dense(dim, dim, qkv_bias, dtype, device)
+        if qk_norm:
+            self.q_norm = LayerNorm(dh, dtype, device=device)
+            self.k_norm = LayerNorm(dh, dtype, device=device)
+        self.proj = Dense(dim, dim, proj_bias, dtype, device)
+
+    def forward(self, x, y, pos=None):
+        B, N, C = x.shape
+        M = y.shape[1]
+        h = self.num_heads
+        dh = C // h
+        q = self.q(x).reshape(B, N, h, dh).transpose(1, 2)
+        k = self.k(y).reshape(B, M, h, dh).transpose(1, 2)
+        v = self.v(y).reshape(B, M, h, dh).transpose(1, 2)
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        pos_q, pos_k = pos if pos is not None else (None, None)
+        q, k = _apply_rope(q, k, pos_q, pos_k, self.rope, self.rope_base)
+        route = attention_route(N, M, fusable=False, fast=False)
+        ROUTE_COUNTS[route] += 1
+        out = scaled_dot_product_attention(q, k, v, route=route)
+        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+
+
+class Block(nn.Module):
+    """Pre-norm ViT block: x + ls1(attn(norm1 x)); x + ls2(mlp(norm2 x))."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, proj_bias: bool = True,
+                 qk_norm: bool = True, init_values: Optional[float] = None,
+                 rope: Optional[str] = None, rope_base: float = 100.0,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = LayerNorm(dim, dtype, device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias, proj_bias, qk_norm,
+                              rope, rope_base, dtype, device)
+        self.norm2 = LayerNorm(dim, dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, device=device)
+        if init_values is not None:
+            self.ls1 = LayerScale(dim, init_values, device)
+            self.ls2 = LayerScale(dim, init_values, device)
+        else:
+            self.ls1 = self.ls2 = None
+
+    def forward(self, x, pos=None):
+        a = self.attn(self.norm1(x), pos)
+        if self.ls1 is not None:
+            a = self.ls1(a)
+        x = x + a
+        m = self.mlp(ln_apply(x, self.norm2.weight, self.norm2.bias, self.dtype))
+        if self.ls2 is not None:
+            m = self.ls2(m)
+        return x + m
+
+
+class CrossAttentionBlock(nn.Module):
+    """Pre-norm cross-attention block:
+    x + ls1(cross_attn(norm1 x, norm3 y)); x + ls2(mlp(norm2 x))."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, proj_bias: bool = True,
+                 qk_norm: bool = True, init_values: Optional[float] = None,
+                 rope: Optional[str] = None, rope_base: float = 100.0,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, dtype, device=device)
+        self.norm3 = LayerNorm(dim, dtype, device=device)
+        self.cross_attn = CrossAttention(dim, num_heads, qkv_bias, proj_bias,
+                                         qk_norm, rope, rope_base, dtype, device)
+        self.norm2 = LayerNorm(dim, dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, device=device)
+        if init_values is not None:
+            self.ls1 = LayerScale(dim, init_values, device)
+            self.ls2 = LayerScale(dim, init_values, device)
+        else:
+            self.ls1 = self.ls2 = None
+
+    def forward(self, x, y, pos=None):
+        a = self.cross_attn(self.norm1(x), self.norm3(y), pos)
+        x = x + (self.ls1(a) if self.ls1 is not None else a)
+        m = self.mlp(self.norm2(x))
+        return x + (self.ls2(m) if self.ls2 is not None else m)

@@ -1,0 +1,146 @@
+"""Fused qkv-packed self-attention (port of the K1 part of
+vitslam_tpu/ops/fused_attention.py).
+
+``fused_qkv_attention`` reads q/k/v per head straight out of the packed
+(B, N, 3C) qkv projection, applies the optional per-head LayerNorm and
+RoPE to q and k, and writes the attention output in the flat (B, N, C)
+layout. On a CUDA tensor it launches the hand-written Hopper kernel in
+``csrc/fused_attention.cu`` (or raises); on a CPU tensor it runs
+``fused_qkv_attention_plain``, the plain PyTorch version of the same math.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+LOG2E = 1.4426950408889634  # log2(e): folded into q so the softmax is exp2
+LN_EPS = 1e-6
+KERNEL_HEAD_DIMS = (64,)
+KERNEL_MAX_TOKENS = 4096
+
+
+def fused_qkv_attention_plain(qkv, *, num_heads, cos=None, sin=None, q_ln=None,
+                              k_ln=None, scale=None, static_max=None, nsplit=2):
+    """Plain PyTorch version of the kernel's math (the counterpart of
+    ``_fused_reference``): per-head LayerNorm and RoPE in fp32, q and k cast
+    back to qkv's dtype, S = q k^T accumulated in fp32, softmax in fp32, P
+    cast to qkv's dtype before P V. With fp32 qkv everything is fp32.
+    ``static_max`` does not change the result (softmax is shift-invariant)."""
+    from ..nn.rope import rotate_half_multi  # nn imports ops: bind at call time
+
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    h = num_heads
+    dh = C // h
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+
+    def prep(x, ln):
+        xf = x.float().reshape(B, N, h, dh)
+        if ln is not None:
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+            xf = (xf - mean) * torch.rsqrt(var + LN_EPS)
+            xf = xf * ln[0].float() + ln[1].float()
+        if cos is not None:
+            c = cos[..., :dh].float()[:, :, None]
+            s = sin[..., :dh].float()[:, :, None]
+            xf = xf * c + rotate_half_multi(xf, nsplit) * s
+        return xf.transpose(1, 2).to(qkv.dtype)
+
+    q = prep(qkv[..., :C], q_ln)
+    k = prep(qkv[..., C:2 * C], k_ln)
+    v = qkv[..., 2 * C:].reshape(B, N, h, dh).transpose(1, 2)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    p = torch.softmax(s * scale, dim=-1)
+    o = torch.matmul(p.to(v.dtype), v)
+    return o.transpose(1, 2).reshape(B, N, C)
+
+
+def _shift_tensor(static_max, device) -> torch.Tensor:
+    """The log2-domain softmax shift as a device scalar: the kernel reads it
+    from device memory, so a shift computed on the device never syncs."""
+    t = torch.as_tensor(static_max, dtype=torch.float32, device=device)
+    return (t.reshape(1) * LOG2E).contiguous()
+
+
+def _launch(qkv, *, num_heads, cos, sin, q_ln, k_ln, scale, static_max, nsplit):
+    from .cuda_build import library
+
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    if C3 % 3 or C % num_heads:
+        raise ValueError(f"qkv width {C3} is not 3 * num_heads * dh")
+    dh = C // num_heads
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"fused_qkv_attention kernel takes bf16 qkv, got {qkv.dtype}")
+    if not qkv.is_contiguous():
+        raise ValueError("fused_qkv_attention kernel takes a contiguous qkv")
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"fused_qkv_attention kernel supports head dim "
+                         f"{KERNEL_HEAD_DIMS}, got {dh}")
+    if not 1 <= N <= KERNEL_MAX_TOKENS:
+        raise ValueError(f"fused_qkv_attention kernel takes 1..{KERNEL_MAX_TOKENS} "
+                         f"tokens, got {N}")
+    if nsplit not in (1, 2):
+        raise ValueError(f"RoPE nsplit must be 1 or 2, got {nsplit}")
+    if (cos is None) != (sin is None) or (q_ln is None) != (k_ln is None):
+        raise ValueError("cos/sin and q_ln/k_ln come in pairs")
+    dev = qkv.device
+    # the tables below are stream-ordered allocations: freeing them after
+    # the launch is safe, the allocator reuses them only behind this kernel
+    cos_p = sin_p = ln_p = shift_p = None
+    if cos is not None:
+        tabs = []
+        for t in (cos, sin):
+            if t.shape[:2] != (B, N) or t.shape[-1] not in (dh, C):
+                raise ValueError(f"RoPE table shape {tuple(t.shape)} does not "
+                                 f"match qkv {tuple(qkv.shape)}")
+            tabs.append(t[..., :dh].to(device=dev, dtype=torch.float32).contiguous())
+        cos_p, sin_p = tabs[0].data_ptr(), tabs[1].data_ptr()
+    if q_ln is not None:
+        ln = torch.cat([torch.as_tensor(x, device=dev).float().reshape(dh)
+                        for x in (*q_ln, *k_ln)]).contiguous()
+        ln_p = ln.data_ptr()
+    if static_max is not None:
+        shift = _shift_tensor(static_max, dev)
+        shift_p = shift.data_ptr()
+    out = torch.empty((B, N, C), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        err = library().vitslam_fused_qkv_attention_bf16(
+            qkv.data_ptr(), out.data_ptr(), cos_p, sin_p, ln_p, shift_p,
+            B, N, num_heads, dh, nsplit, float(scale * LOG2E),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_qkv_attention kernel launch failed: CUDA error {err}")
+    fused_qkv_attention.launches += 1
+    return out
+
+
+def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, cos=None, sin=None,
+                        q_ln=None, k_ln=None, scale: float | None = None,
+                        static_max=None, nsplit: int = 2) -> torch.Tensor:
+    """Self-attention straight from the packed qkv projection.
+
+    qkv: (B, N, 3C) laid out [q | k | v]; cos/sin: RoPE tables (B, N, dh) or
+    head-tiled (B, N, C); q_ln/k_ln: per-head LayerNorm (scale, bias), each
+    (dh,); static_max: the qk-norm logit bound (fixed softmax shift), or None
+    for an online row max. Returns (B, N, C).
+
+    CPU tensor: the plain version. CUDA tensor: the kernel (bf16, dh 64,
+    N <= 4096, contiguous), or an error. ``fused_qkv_attention.launches``
+    counts kernel launches."""
+    dh = qkv.shape[-1] // 3 // num_heads
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    kw = dict(num_heads=num_heads, cos=cos, sin=sin, q_ln=q_ln, k_ln=k_ln,
+              scale=scale, static_max=static_max, nsplit=nsplit)
+    if qkv.device.type == "cpu":
+        return fused_qkv_attention_plain(qkv, **kw)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_qkv_attention runs on cpu or cuda, not {qkv.device}")
+    return _launch(qkv, **kw)
+
+
+fused_qkv_attention.launches = 0

@@ -1,0 +1,154 @@
+"""Where the time goes in slice 1 on one GPU: the flagship 5/1 pipeline
+(seeded random weights, a synthetic 17-frame 518x154 sequence) under
+torch.profiler, per driver, plus K1 beside torch's SDPA flash backend as a
+yardstick at the main path's attention shapes.
+
+    python -m vitslam_tpu_torch.profile_slice [--out profile_out]
+
+Prints, per driver: wall seconds of a steady run, device-busy seconds (the
+union of kernel intervals in the trace), the idle share, and the kernels
+grouped by family with their device time. Writes a gzipped Chrome trace
+per driver under --out. Needs CUDA. The profiler slows the host side, so
+its wall times and idle shares are upper bounds; time the drivers
+without it with chip_smoke.py.
+"""
+from __future__ import annotations
+
+import argparse
+import gzip
+import json
+import re
+import statistics
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+FAMILIES = [  # (family, regex on the kernel name), first match wins
+    ("K1 fused_qkv_attention", r"fused_qkv_attention_kernel"),
+    ("conv (cuDNN)", r"fprop|conv|cudnn|implicit|winograd|dgrad"),
+    ("gemm (cuBLAS)", r"gemm|cutlass|xmma|nvjet|cublas|Kernel2"),
+    ("softmax", r"softmax"),
+    ("reduction (mean/norm)", r"reduce|norm"),
+    ("copy / cast", r"copy|cast|Memcpy|Memset|fill"),
+    ("elementwise", r"elementwise|vectorized|unrolled"),
+]
+
+
+def _family(name: str) -> str:
+    for fam, pat in FAMILIES:
+        if re.search(pat, name, re.IGNORECASE):
+            return fam
+    return "other"
+
+
+def _busy_seconds(events) -> float:
+    """Union of the kernel intervals (us) -> seconds."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, -1.0
+    for s, e in spans:
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy * 1e-6
+
+
+def profile_driver(model, batch, encode_batch: int, out: Path, label: str) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from .slam import ChunkedPipeline
+
+    pipe = ChunkedPipeline(model, encode_batch=encode_batch)
+    pipe.run_sequence(batch, chunk_width=5, num_overlap=1)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        pipe.run_sequence(batch, chunk_width=5, num_overlap=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    trace = out / f"trace_{label}.json"
+    prof.export_chrome_trace(str(trace))
+    raw = trace.read_bytes()
+    trace.unlink()
+    (out / f"trace_{label}.json.gz").write_bytes(gzip.compress(raw))
+    events = [e for e in json.loads(raw)["traceEvents"]
+              if e.get("cat") == "kernel" and "dur" in e]
+    by_family: dict = defaultdict(float)
+    by_name: dict = defaultdict(float)
+    for e in events:
+        by_family[_family(e["name"])] += e["dur"] * 1e-6
+        by_name[e["name"][:90]] += e["dur"] * 1e-6
+    busy = _busy_seconds(events)
+    return dict(wall_s=wall, busy_s=busy, idle_share=1.0 - busy / wall,
+                kernels=len(events),
+                families=dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
+                top=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]))
+
+
+def sdpa_yardstick() -> list[dict]:
+    """K1 (no prep, online max) vs torch SDPA's flash backend on the same
+    q/k/v at the main path's shapes; median ms from CUDA events."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from .ops.fused_attention import fused_qkv_attention
+
+    def med(fn, iters=30):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(iters):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts)
+
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for B, N in ((5, 412), (20, 412), (1, 2060), (4, 2060)):
+        qkv = torch.randn((B, N, 3 * 1024), generator=g, device="cuda").to(torch.bfloat16)
+        q, k, v = (qkv[..., i * 1024:(i + 1) * 1024].reshape(B, N, 16, 64).transpose(1, 2)
+                   .contiguous() for i in range(3))
+        k1 = med(lambda: fused_qkv_attention(qkv, num_heads=16))
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            fl = med(lambda: F.scaled_dot_product_attention(q, k, v))
+        flop = 4.0 * B * 16 * N * N * 64
+        rows.append(dict(B=B, N=N, k1_ms=k1, sdpa_flash_ms=fl,
+                         k1_tflops=flop / k1 / 1e9, sdpa_tflops=flop / fl / 1e9))
+    return rows
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="profile_out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice needs a CUDA GPU")
+    from .models import flagship
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.uniform(0, 1, size=(1, 17, 3, 154, 518)).astype(np.float32)}
+    model = flagship(device="cuda", seed=0)
+    import subprocess
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    report = {"device": smi.stdout.strip() or torch.cuda.get_device_name(0)}
+    for label, eb in (("sequential", 1), ("encode_batch4", 4)):
+        report[label] = profile_driver(model, batch, eb, out, label)
+    report["sdpa_yardstick"] = sdpa_yardstick()
+    print(json.dumps(report, indent=1))
+
+
+if __name__ == "__main__":
+    main()

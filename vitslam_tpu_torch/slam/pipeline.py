@@ -1,0 +1,111 @@
+"""ChunkedPipeline — the streaming driver around the per-chunk model step
+(port of vitslam_tpu/slam/pipeline.py, inference only).
+
+Two drivers give the same numbers:
+
+* sequential (``encode_batch=1``): one full model step per chunk;
+* two-stage (``encode_batch > 1``): the chunk-independent encode runs
+  batched over up to ``encode_batch`` chunks stacked along B, then the cheap
+  recurrent alignment runs chunk by chunk. With B == 1 the patch embedding
+  runs once per unique frame of the group (consecutive chunks share their
+  overlap frames). Unlike the JAX driver, the unique frames are not padded
+  to an 8-frame bucket: that padding only saves XLA recompiles.
+
+Each chunk's outputs are fetched to the host (``.cpu()``) as soon as its
+alignment ran; only the fixed-size context state stays on the device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..geometry import pad_to_4x4
+from .chunking import chunk_batch, generate_chunks, merge_chunk_outputs
+
+
+class ChunkedPipeline:
+    """Drives a chunk-aligned model over an arbitrary-length sequence."""
+
+    def __init__(self, model, encode_batch: int = 1):
+        self.model = model
+        self.encode_batch = encode_batch
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def _to_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    @torch.inference_mode()
+    def step(self, images, num_overlap: int, state=None, gt_pose0=None):
+        """One chunk step. images (B, S, 3, H, W)."""
+        return self.model(self._to_device(images), num_overlap, state, gt_pose0)
+
+    @torch.inference_mode()
+    def run_sequence(self, batch: dict, sample_mode: str = "chunk_overlap",
+                     chunk_width: int = 5, num_overlap: int = 1,
+                     gt_alignment_type: str = "none") -> tuple[dict, dict]:
+        """Run the chunk-and-align loop over a batch with 'images'
+        (B, N, 3, H, W) and optional GT keys. Returns (predictions, merged GT
+        batch), merged along frames, on the host."""
+        if gt_alignment_type not in (None, "none"):
+            raise NotImplementedError(
+                f"gt_alignment_type={gt_alignment_type!r} needs slam/gt_alignment, "
+                "which is not ported yet")
+        images = batch["images"]
+        indices = generate_chunks(images.shape[1], sample_mode, chunk_width, num_overlap)
+        chunks = chunk_batch(batch, indices)
+        use_gt = sample_mode in ("chunk_gt", "two_chunks")
+
+        raw_per_chunk = None
+        if self.encode_batch > 1:
+            raw_per_chunk = self._encode_all(chunks, indices, images)
+
+        state = None
+        chunk_outputs: list[dict] = []
+        for i, chunk in enumerate(chunks):
+            gt_poses = None
+            if use_gt and "extrinsics" in chunk:
+                gt_poses = pad_to_4x4(self._to_device(chunk["extrinsics"]).float())
+            if raw_per_chunk is not None:
+                outputs, state = self.model.align_chunk(
+                    raw_per_chunk[i], tuple(chunk["images"].shape), num_overlap,
+                    state, gt_poses)
+            else:
+                outputs, state = self.step(chunk["images"], num_overlap, state, gt_poses)
+            chunk_outputs.append({k: v.cpu() for k, v in outputs.items()})
+
+        mo = 0 if sample_mode in ("chunk_gt", "two_chunks", "all") else num_overlap
+        return merge_chunk_outputs(chunk_outputs, mo), merge_chunk_outputs(chunks, mo)
+
+    def _encode_all(self, chunks: list[dict], indices, seq_images) -> list:
+        """Stage 1 of the two-stage driver: batch same-shape chunks along B,
+        run the chunk-independent encode, split the raw outputs per chunk."""
+        raws: list = [None] * len(chunks)
+        dedup = chunks[0]["images"].shape[0] == 1
+        i = 0
+        while i < len(chunks):
+            shape = tuple(chunks[i]["images"].shape)
+            group = [i]
+            while (len(group) < self.encode_batch and i + len(group) < len(chunks)
+                   and tuple(chunks[i + len(group)]["images"].shape) == shape):
+                group.append(i + len(group))
+            stacked = torch.cat([self._to_device(chunks[g]["images"]) for g in group])
+
+            tokens = None
+            if dedup:
+                ids = np.concatenate([np.asarray(indices[g]) for g in group])
+                uniq, inv = np.unique(ids, return_inverse=True)
+                if len(uniq) < len(ids):
+                    frames = self._to_device(seq_images)[:, torch.as_tensor(uniq)]
+                    emb = self.model.embed_frames(frames)  # (1, F, P, C)
+                    tok = emb[0][torch.as_tensor(inv, device=emb.device)]
+                    tokens = tok.reshape(len(group), shape[1], *tok.shape[1:])
+
+            raw = self.model.encode_chunks(stacked, tokens)
+            B = shape[0]
+            for k, g in enumerate(group):
+                raws[g] = {key: v[k * B:(k + 1) * B] for key, v in raw.items()}
+            i += len(group)
+        return raws
