@@ -3,27 +3,37 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line; any failure raises and exits non-zero:
+Phases, each printing its lines; any failure raises and exits non-zero:
 
-1. device   — needs CUDA; prints torch.version.cuda, nvcc's version and the
-              card's name and power limit (nvidia-smi).
-2. build    — builds the CUDA kernels from csrc/ with nvcc (sm_90a).
-3. kernels  — K1 (fused qkv attention) against its plain PyTorch version
-              in bf16 at the main path's shapes (dh 64, 16 heads); max error
-              and median kernel / plain times per shape.
-4. reference— a small model with dh 64 through ChunkedPipeline on the GPU
-              (bf16, K1) and on the CPU (fp32, plain math), same weights.
-5. slice    — the flagship FeatureAlignedVGGT (seeded random weights) over
-              a synthetic 17-frame 518x154 sequence, chunk 5 / overlap 1,
-              through the sequential and the two-stage (encode_batch=4)
-              drivers: shapes, finiteness, agreement, K1 launch counts and
-              new-frames/s.
+1. device     — needs CUDA; prints torch.version.cuda, nvcc's version and
+                the card's name and power limit (nvidia-smi).
+2. build      — builds the CUDA kernels from csrc/ with nvcc (sm_90a), one
+                nvcc per source, all at once.
+3. kernels    — K1 (fused qkv attention), K2 (flat streaming attention) and
+                K3 (flash attention forward) against their plain PyTorch
+                versions in bf16 at the main paths' shapes (dh 64, 16
+                heads); max error, median kernel / plain / SDPA times, bound.
+4. reference  — a small model with dh 64 through ChunkedPipeline on the GPU
+                (bf16, K1) and on the CPU (fp32, plain math), same weights.
+5. slice 5/1  — the flagship FeatureAlignedVGGT (seeded random weights) over
+                a synthetic 17-frame 518x154 sequence, chunk 5 / overlap 1,
+                sequential and two-stage (encode_batch=4) drivers.
+6. merge 5/1  — the same with the KV merge at pool 2 / stride 2: the global
+                attention goes to K3 (1,474 keys), never K1.
+7. slice 75/30— the flagship point-aligned and pose-aligned models over a
+                synthetic 165-frame sequence at chunk 75 / overlap 30 (3
+                chunks): global attention over 30,900 tokens through K2;
+                point-aligned also through encode_batch=2; then one
+                point-aligned chunk with the KV merge at pool 4 / stride 10
+                (K2 with 30,900 queries over 5,641 keys).
 
-The line before the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}.
+Every path runs with the kernels' launch counts set to 0 just before it and
+reads them just after. The line before the last is a JSON summary of the
+kernels; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -34,20 +44,32 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-K1_SOURCE = "vitslam_tpu_torch/csrc/fused_attention.cu"
-K1_REPLACES = "vitslam_tpu/ops/fused_attention.py:75"
+KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
+    "fused_qkv_attention": ("cuda", "vitslam_tpu_torch/csrc/fused_attention.cu",
+                            "vitslam_tpu/ops/fused_attention.py:75"),
+    "flat_flash_attention": ("cuda", "vitslam_tpu_torch/csrc/flash_attention.cu",
+                             "vitslam_tpu/ops/fused_attention.py:483"),
+    "flash_attention": ("cuda", "vitslam_tpu_torch/csrc/flash_attention.cu",
+                        "vitslam_tpu/ops/flash_attention.py:116"),
+}
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 rate
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
-# K1 vs its plain version, bf16 on the card, elementwise
-# |got - want| <= K1_ATOL + K1_RTOL * |want|: both outputs are bf16 (they
-# may differ by an ulp, 2^-8 relative), the kernel rounds q to bf16 after
-# folding scale*log2(e) into it while the plain version rounds before
-# scaling (logits differ by ~2^-8 relative, which moves the largest
+# Kernel vs its plain version, bf16 on the card, elementwise
+# |got - want| <= ATOL + RTOL * |want|: both outputs are bf16 (they may
+# differ by an ulp, 2^-8 relative), the kernels round q to bf16 after
+# folding scale*log2(e) into it while the plain versions of K1 and K3 round
+# before scaling (logits differ by ~2^-8 relative, which moves the largest
 # probabilities by a few percent when logits are large), P is rounded to
 # bf16 before P V, and sums run in another order. The logit rounding error
 # grows with the logits, whose size the qk-norm bound caps, so for a bound
-# above 24 K1_ATOL scales by bound / 24.
-K1_ATOL = 2e-2
-K1_RTOL = 2e-2
+# above 24 ATOL scales by bound / 24. The outputs of attention over
+# thousands of keys are small, so the relative L2 error of the whole
+# output is held too: a bf16 output rounding alone gives ~3e-3.
+ATOL = 2e-2
+RTOL = 2e-2
+REL_L2_TOL = 1e-2
 # whole pipeline, GPU bf16 vs GPU bf16 (sequential vs two-stage driver, the
 # same math at other batch shapes, so cuBLAS/cuDNN may pick other
 # algorithms): relative L2 error per output
@@ -71,12 +93,12 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
 
 
-def output_errors(got: dict, want: dict) -> dict:
+def output_errors(got: dict, want: dict, keys=None) -> dict:
     """Relative L2 error per output. q and -q are one rotation, and with
     random weights a pose can sit where the w >= 0 canonical sign flips, so
     the quaternion slots of pose_enc are compared up to sign."""
     errs = {}
-    for k in ("pose_enc", "depth", "world_points", "chunk_sim3_enc", "memory_tokens"):
+    for k in keys or ("pose_enc", "depth", "world_points", "chunk_sim3_enc", "memory_tokens"):
         a = np.asarray(got[k], np.float64)
         b = np.asarray(want[k], np.float64)
         if k == "pose_enc":
@@ -85,6 +107,23 @@ def output_errors(got: dict, want: dict) -> dict:
             a = np.concatenate([a[..., :3], np.where(flip, -q, q), a[..., 7:]], -1)
         errs[k] = rel_l2(a, b)
     return errs
+
+
+def counters():
+    from vitslam_tpu_torch.ops.flash_attention import flash_attention
+    from vitslam_tpu_torch.ops.fused_attention import flat_flash_attention, fused_qkv_attention
+
+    return {"fused_qkv_attention": fused_qkv_attention,
+            "flat_flash_attention": flat_flash_attention, "flash_attention": flash_attention}
+
+
+def reset_launches() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def phase_device():
@@ -108,93 +147,207 @@ def phase_build():
     from vitslam_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.library()
-    info = cuda_build.build_info
-    ptxas = " | ".join(line.strip() for line in info.get("log", "").splitlines()
-                       if "registers" in line or "spill" in line)
-    print(f"[build] K1 built in {time.perf_counter() - t0:.1f} s "
-          f"(cached={info.get('cached')}); ptxas: {ptxas[:600]}")
+    cuda_build.build_all()
+    print(f"[build] {len(cuda_build.ENTRY_POINTS)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
+    for name, info in cuda_build.build_info.items():
+        ptxas = " | ".join(line.strip() for line in info.get("log", "").splitlines()
+                           if "registers" in line or "spill" in line)
+        print(f"[build] {name}: {info['seconds']:.1f} s (cached={info['cached']}); "
+              f"ptxas: {ptxas[:900]}")
 
 
 def _time_ms(fn, iters: int = 20) -> float:
-    """Median of per-call times from CUDA events, after a warm-up."""
+    """Median of per-call times from CUDA events, after a warm-up; calls
+    longer than 50 ms are timed 3 times."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
+    def once():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        return start.elapsed_time(end)
+
+    first = once()
+    times = [once() for _ in range(iters if first < 50 else 3)]
     return statistics.median(times)
 
 
-def phase_kernels():
+def _bound(flop: float, nbytes: float):
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor-core peak and the bytes over the memory rate."""
+    t_op, t_b = flop / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_op, t_b) * 1e3, ("operations" if t_op >= t_b else "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _check(name: str, case: str, got, want, atol: float) -> tuple[float, float]:
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name} {case}: non-finite output")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = diff.max().item()
+    rl2 = (torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp_min(1e-12)).item()
+    if not (diff <= atol + RTOL * w.abs()).all() or not rl2 <= REL_L2_TOL:
+        raise AssertionError(f"{name} {case}: max abs err {err} beyond {atol} + {RTOL} * "
+                             f"|plain|, or rel-L2 {rl2} > {REL_L2_TOL}")
+    return err, rl2
+
+
+def _sdpa_ms(q, k, v) -> float:
+    """torch's SDPA (flash backend) on the same (B, H, N, 64) q/k/v: the
+    library yardstick; the port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+
+
+def _report(results: dict, name: str, case: str, main: bool, err: float, rl2: float,
+            ms: float, plain_ms: float, library_ms: float, flop: float, nbytes: int):
+    bound_ms, bound_by = _bound(flop, nbytes)
+    print(f"[kernels] {name} {case}: max_abs_err {err:.3e} rel-L2 {rl2:.2e} kernel {ms:.4f} ms "
+          f"({flop / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of bound {bound_ms:.4f} ms, "
+          f"{bound_by}) plain {plain_ms:.4f} ms SDPA-flash {library_ms:.4f} ms")
+    results.setdefault(name, []).append(dict(
+        case=case, main=main, max_abs_err=err, rel_l2=rl2, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flop / ms / 1e9))
+
+
+def kernels_k1(results: dict, g, dev):
     import torch
 
     from vitslam_tpu_torch.nn.layers import qk_shift_from
     from vitslam_tpu_torch.nn.rope import patch_grid_positions, rope_cache_2d
-    from vitslam_tpu_torch.ops.fused_attention import (
-        fused_qkv_attention,
-        fused_qkv_attention_plain,
-    )
+    from vitslam_tpu_torch.ops.fused_attention import fused_qkv_attention, fused_qkv_attention_plain
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
     heads, dh = 16, 64
     C = heads * dh
-    # (name, B, frames per batch row, LN+RoPE, LN gain); N = frames * 412
+    # (name, B, N, LN+RoPE, LN gain, main-path case); N = frames * 412
     cases = [
-        ("patch_embed B=5 N=412 online-max", 5, 412, False, None),
-        ("frame B=5 N=412 LN+RoPE bounded", 5, 412, True, 1.0),
-        ("global B=1 N=2060 LN+RoPE bounded", 1, 2060, True, 1.0),
-        ("ragged B=2 N=1000 LN+RoPE bounded", 2, 1000, True, 1.0),
+        ("patch_embed 5/1 B=5 N=412 online-max", 5, 412, False, None, False),
+        ("frame 5/1 B=5 N=412 LN+RoPE bounded", 5, 412, True, 1.0, False),
+        ("global 5/1 B=1 N=2060 LN+RoPE bounded", 1, 2060, True, 1.0, False),
+        ("patch_embed 75/30 B=75 N=412 online-max", 75, 412, False, None, False),
+        ("frame 75/30 B=75 N=412 LN+RoPE bounded", 75, 412, True, 1.0, True),
+        ("ragged B=2 N=1000 LN+RoPE bounded", 2, 1000, True, 1.0, False),
         # qk-norm gains of 2 put the logit bound near 54 > 24; the fixed
         # shift stays exact while bound - row max < ~87 nats (exp2 in fp32
         # stays normal), as in the reference kernel
-        ("large-gain B=1 N=600 LN bounded (bound > 24)", 1, 600, "ln", 2.0),
+        ("large-gain B=1 N=600 LN bounded (bound > 24)", 1, 600, "ln", 2.0, False),
     ]
-    results = []
-    for name, B, N, prep, gain in cases:
+    for case, B, N, prep, gain, main in cases:
         qkv = torch.randn((B, N, 3 * C), generator=g, device=dev).to(torch.bfloat16)
         kw = dict(num_heads=heads)
+        tables = []
         if prep:
             ln = [(gain * (1 + 0.1 * torch.randn(dh, generator=g, device=dev)),
                    0.1 * torch.randn(dh, generator=g, device=dev)) for _ in range(2)]
             kw.update(q_ln=ln[0], k_ln=ln[1], static_max=qk_shift_from(ln[0], ln[1], dh))
+            tables += [t for pair in ln for t in pair]
             if prep is True:
                 # the main path's 2-D RoPE cache: 5 specials + an 11 x 37 grid
                 # per frame, in bf16
-                T = 412
-                pos = patch_grid_positions(B, 11, 37, 5, dev).repeat(1, -(-N // T), 1)
+                pos = patch_grid_positions(B, 11, 37, 5, dev).repeat(1, -(-N // 412), 1)
                 cos, sin, nsplit = rope_cache_2d(pos[:, :N], dh)
-                kw.update(cos=cos.to(torch.bfloat16), sin=sin.to(torch.bfloat16),
-                          nsplit=nsplit)
+                kw.update(cos=cos.to(torch.bfloat16), sin=sin.to(torch.bfloat16), nsplit=nsplit)
+                tables += [kw["cos"], kw["sin"]]
         if gain and gain > 1 and not float(kw["static_max"]) > 24.0:
-            raise AssertionError(f"K1 {name}: the bound {float(kw['static_max'])} is not > 24")
+            raise AssertionError(f"K1 {case}: the bound {float(kw['static_max'])} is not > 24")
         got = fused_qkv_attention(qkv, **kw)
         want = fused_qkv_attention_plain(qkv, **kw)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"K1 {name}: non-finite output")
-        atol = K1_ATOL * max(1.0, float(kw.get("static_max", 0.0)) / 24.0)
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        if not (diff <= atol + K1_RTOL * want.float().abs()).all():
-            raise AssertionError(f"K1 {name}: max abs err {err} beyond "
-                                 f"{atol} + {K1_RTOL} * |plain|")
+        atol = ATOL * max(1.0, float(kw.get("static_max", 0.0)) / 24.0)
+        err, rl2 = _check("K1", case, got, want, atol)
         ms = _time_ms(lambda: fused_qkv_attention(qkv, **kw))
         plain_ms = _time_ms(lambda: fused_qkv_attention_plain(qkv, **kw))
-        flop = 4.0 * B * heads * N * N * dh
-        print(f"[kernels] K1 {name}: max_abs_err {err:.3e} (tol {atol:.3g} + "
-              f"{K1_RTOL}*|plain|, max|plain| {want.float().abs().max().item():.2f}) "
-              f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.4f} ms")
-        results.append(dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        # yardstick: SDPA on the same q/k/v without K1's LayerNorm + RoPE prep
+        q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(B, N, heads, dh).transpose(1, 2)
+                   for i in range(3))
+        _report(results, "fused_qkv_attention", case, main, err, rl2, ms, plain_ms,
+                _sdpa_ms(q, k, v), 4.0 * B * heads * N * N * dh, _nbytes(qkv, got, *tables))
+
+
+def kernels_k2(results: dict, g, dev):
+    import torch
+
+    from vitslam_tpu_torch.ops.flash_attention import LOG2E
+    from vitslam_tpu_torch.ops.fused_attention import (
+        _heads,
+        flat_flash_attention,
+        flat_flash_attention_plain,
+    )
+
+    heads, dh = 16, 64
+    C = heads * dh
+    cases = [  # (name, B, Nq, Nk, main-path case)
+        ("global 75/30 B=1 Nq=Nk=30900", 1, 30900, 30900, True),
+        ("merged 75/30 p4s10 B=1 Nq=30900 Nk=5641", 1, 30900, 5641, False),
+        ("ragged B=2 Nq=4200 Nk=5000", 2, 4200, 5000, False),
+    ]
+    for case, B, nq, nk, main in cases:
+        # q scaled by 2: logits ~N(0, 4), a sharper softmax than unit inputs
+        q = (2 * torch.randn((B, nq, C), generator=g, device=dev)).to(torch.bfloat16)
+        k = torch.randn((B, nk, C), generator=g, device=dev).to(torch.bfloat16)
+        # v is a strided slice of a packed projection, as the model passes it
+        v = torch.randn((B, nk, 3 * C), generator=g, device=dev).to(torch.bfloat16)[..., 2 * C:]
+        got = flat_flash_attention(q, k, v, num_heads=heads, static_max=24.0)
+        qs = (q.float() * (LOG2E / 8.0)).to(torch.bfloat16)  # the wrapper's scale fold
+        want = flat_flash_attention_plain(qs, k, v, num_heads=heads)
+        err, rl2 = _check("K2", case, got, want, ATOL)
+        del want
+        ms = _time_ms(lambda: flat_flash_attention(q, k, v, num_heads=heads, static_max=24.0))
+        plain_ms = _time_ms(lambda: flat_flash_attention_plain(qs, k, v, num_heads=heads))
+        library_ms = _sdpa_ms(_heads(q, heads), _heads(k, heads), _heads(v, heads))
+        _report(results, "flat_flash_attention", case, main, err, rl2, ms, plain_ms,
+                library_ms, 4.0 * B * heads * nq * nk * dh, _nbytes(q, k, v, got))
+        del q, k, v, qs, got
+        torch.cuda.empty_cache()
+
+
+def kernels_k3(results: dict, g, dev):
+    import torch
+
+    from vitslam_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    cases = [  # (name, B, H, Nq, Nk, bounded, main-path case)
+        ("merged 5/1 p2s2 B=1 H=16 Nq=2060 Nk=1474 bounded", 1, 16, 2060, 1474, True, True),
+        ("cross online-max B=1 H=16 Nq=1000 Nk=3000", 1, 16, 1000, 3000, False, False),
+        ("ragged B=2 H=4 Nq=300 Nk=337 bounded", 2, 4, 300, 337, True, False),
+    ]
+    for case, B, H, nq, nk, bounded, main in cases:
+        q = (2 * torch.randn((B, H, nq, 64), generator=g, device=dev)).to(torch.bfloat16)
+        k = torch.randn((B, H, nk, 64), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, H, nk, 64), generator=g, device=dev).to(torch.bfloat16)
+        smax = 24.0 if bounded else None
+        got = flash_attention(q, k, v, static_max=smax)
+        want = flash_attention_plain(q, k, v)
+        err, rl2 = _check("K3", case, got, want, ATOL)
+        ms = _time_ms(lambda: flash_attention(q, k, v, static_max=smax))
+        plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v))
+        _report(results, "flash_attention", case, main, err, rl2, ms, plain_ms,
+                _sdpa_ms(q, k, v), 4.0 * B * H * nq * nk * 64, _nbytes(q, k, v, got))
+
+
+def phase_kernels() -> dict:
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    results: dict = {}
+    kernels_k1(results, g, dev)
+    kernels_k2(results, g, dev)
+    kernels_k3(results, g, dev)
     return results
 
 
@@ -212,7 +365,6 @@ def phase_reference():
 
     from vitslam_tpu_torch.models import small_feature_aligned
     from vitslam_tpu_torch.ops import ROUTE_COUNTS
-    from vitslam_tpu_torch.ops.fused_attention import fused_qkv_attention
     from vitslam_tpu_torch.slam import ChunkedPipeline
 
     kw = dict(embed_dim=128, num_heads=2, depth=2, patch_embed_depth=1,
@@ -225,10 +377,10 @@ def phase_reference():
     cpu32.load_state_dict(gpu.state_dict())
     batch = _synthetic_sequence(10, 98, 182, seed=1)  # 96 tokens/frame, global 384
     ROUTE_COUNTS.clear()
-    before = fused_qkv_attention.launches
+    reset_launches()
     out_gpu, _ = ChunkedPipeline(gpu).run_sequence(batch, chunk_width=4, num_overlap=1)
     torch.cuda.synchronize()
-    launched = fused_qkv_attention.launches - before
+    launched = read_launches()["fused_qkv_attention"]
     routes = dict(ROUTE_COUNTS)
     out16, _ = ChunkedPipeline(cpu16).run_sequence(batch, chunk_width=4, num_overlap=1)
     out32, _ = ChunkedPipeline(cpu32).run_sequence(batch, chunk_width=4, num_overlap=1)
@@ -246,78 +398,217 @@ def phase_reference():
         raise AssertionError(f"reference: GPU further from fp32 than bf16 allows: {bad}")
 
 
-def phase_slice(smi: str):
+def _drive(model, batch, label: str, smi: str, width: int, overlap: int,
+           encode_batch: int = 1, reps: int = 2):
+    """Run one path `reps` times (the first warms up cuBLAS/cuDNN, the last
+    is timed) with the launch counts set to 0 just before the timed run and
+    read just after; returns (predictions, stats)."""
+    import torch
+
+    from vitslam_tpu_torch.ops import ROUTE_COUNTS
+    from vitslam_tpu_torch.slam import ChunkedPipeline
+
+    pipe = ChunkedPipeline(model, encode_batch=encode_batch)
+    embed_launches = []
+    embed = model.embed_frames
+
+    def counted_embed(images):
+        before = read_launches()["fused_qkv_attention"]
+        out = embed(images)
+        embed_launches.append(read_launches()["fused_qkv_attention"] - before)
+        return out
+
+    model.embed_frames = counted_embed
+    try:
+        for _ in range(reps):
+            embed_launches.clear()
+            ROUTE_COUNTS.clear()
+            torch.cuda.synchronize()
+            reset_launches()
+            t = time.perf_counter()
+            pred, _ = pipe.run_sequence(batch, chunk_width=width, num_overlap=overlap)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launches = read_launches()
+    finally:
+        del model.embed_frames
+    n_frames = batch["images"].shape[1]
+    stats = dict(seconds=secs, fps=n_frames / secs, launches=launches,
+                 embed=list(embed_launches), routes=dict(ROUTE_COUNTS))
+    print(f"[{label}] {n_frames} frames in {secs:.3f} s = {n_frames / secs:.2f} new-frames/s "
+          f"on {smi}; launches {launches} (K1 in embed_frames {embed_launches}); "
+          f"routes {stats['routes']}")
+    return pred, stats
+
+
+def _check_outputs(label: str, outs: dict, shapes: dict):
+    import torch
+
+    for name, o in outs.items():
+        for k, shape in shapes.items():
+            if tuple(o[k].shape) != shape:
+                raise AssertionError(f"{label} {name} {k}: shape {tuple(o[k].shape)} != {shape}")
+        for k, v in o.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{label} {name} {k}: non-finite values")
+
+
+def _expect(label: str, got: dict, want: dict):
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: kernel launches {got} != {want}")
+
+
+def _release():
+    """Return the memory of the models and outputs the caller just dropped."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_slice(smi: str) -> dict:
     import torch
 
     from vitslam_tpu_torch.models import flagship
-    from vitslam_tpu_torch.ops.fused_attention import fused_qkv_attention
-    from vitslam_tpu_torch.slam import ChunkedPipeline
 
     t0 = time.perf_counter()
     model = flagship(device="cuda", seed=0)
     n_params = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
-    print(f"[slice] flagship built on cuda: {n_params / 1e9:.3f}B params in "
+    print(f"[slice 5/1] flagship built on cuda: {n_params / 1e9:.3f}B params in "
           f"{time.perf_counter() - t0:.1f} s")
     n_frames, H, W = 17, 154, 518
     batch = _synthetic_sequence(n_frames, H, W, seed=0)
-
-    embed_launches = []
-    embed = model.embed_frames
-
-    def counted_embed(images):
-        before = fused_qkv_attention.launches
-        out = embed(images)
-        embed_launches.append(fused_qkv_attention.launches - before)
-        return out
-
-    model.embed_frames = counted_embed
     outs, stats = {}, {}
     for label, eb in (("sequential", 1), ("encode_batch=4", 4)):
-        pipe = ChunkedPipeline(model, encode_batch=eb)
-        for rep in range(2):  # the first run warms up, the second is timed
-            embed_launches.clear()
-            torch.cuda.synchronize()
-            fused_qkv_attention.launches = 0
-            t = time.perf_counter()
-            pred, _ = pipe.run_sequence(batch, chunk_width=5, num_overlap=1)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t
-            launches = fused_qkv_attention.launches
-        outs[label] = pred
-        stats[label] = dict(seconds=secs, launches=launches, embed=list(embed_launches))
-        print(f"[slice] {label}: {n_frames} frames in {secs:.3f} s = "
-              f"{n_frames / secs:.2f} new-frames/s on {smi}; K1 launches {launches} "
-              f"(embed_frames {embed_launches})")
-
-    seq, bat = outs["sequential"], outs["encode_batch=4"]
-    want = {"pose_enc": (1, n_frames, 9), "depth": (1, n_frames, H, W, 1),
-            "world_points": (1, n_frames, H, W, 3)}
-    for k, shape in want.items():
-        for label, o in outs.items():
-            if tuple(o[k].shape) != shape:
-                raise AssertionError(f"{label} {k}: shape {tuple(o[k].shape)} != {shape}")
-    for label, o in outs.items():
-        for k, v in o.items():
-            if not torch.isfinite(v).all():
-                raise AssertionError(f"{label} {k}: non-finite values")
-    n_chunks = seq["chunk_sim3_enc"].shape[1]
+        outs[label], stats[label] = _drive(model, batch, f"slice 5/1 {label}", smi, 5, 1, eb)
+    _check_outputs("slice 5/1", outs, {"pose_enc": (1, n_frames, 9),
+                                       "depth": (1, n_frames, H, W, 1),
+                                       "world_points": (1, n_frames, H, W, 3)})
+    n_chunks = outs["sequential"]["chunk_sim3_enc"].shape[1]
     if n_chunks != 4:
         raise AssertionError(f"expected 4 chunks, got {n_chunks}")
     # 72 K1 launches per encode: 24 patch-embed + 24 frame + 24 global
-    if stats["sequential"]["launches"] != 72 * n_chunks:
-        raise AssertionError(f"sequential: {stats['sequential']['launches']} K1 "
-                             f"launches != 72 x {n_chunks}")
-    if stats["encode_batch=4"]["launches"] != 72 or stats["encode_batch=4"]["embed"] != [24]:
-        raise AssertionError(f"encode_batch=4: K1 launches {stats['encode_batch=4']} != "
-                             "24 in embed_frames + 48 in the encode")
-    errs = output_errors(bat, seq)
-    print(f"[slice] drivers agree: rel-L2 {json.dumps({k: round(v, 5) for k, v in errs.items()})} "
-          f"(tol {DRIVER_RTOL})")
+    none = {"flat_flash_attention": 0, "flash_attention": 0}
+    _expect("slice 5/1 sequential", stats["sequential"]["launches"],
+            dict(none, fused_qkv_attention=72 * n_chunks))
+    _expect("slice 5/1 encode_batch=4", stats["encode_batch=4"]["launches"],
+            dict(none, fused_qkv_attention=72))
+    if stats["encode_batch=4"]["embed"] != [24]:
+        raise AssertionError(f"encode_batch=4: K1 in embed_frames {stats['encode_batch=4']} "
+                             "!= [24] (24 in embed_frames + 48 in the encode)")
+    errs = output_errors(outs["encode_batch=4"], outs["sequential"])
+    print(f"[slice 5/1] drivers agree: rel-L2 "
+          f"{json.dumps({k: round(v, 5) for k, v in errs.items()})} (tol {DRIVER_RTOL})")
     bad = {k: v for k, v in errs.items() if not v <= DRIVER_RTOL}
     if bad:
-        raise AssertionError(f"drivers disagree: {bad}")
-    return stats["sequential"]["launches"]
+        raise AssertionError(f"slice 5/1: drivers disagree: {bad}")
+    del model, outs
+    _release()
+    return {f"slice 5/1 {label}": st for label, st in stats.items()}
+
+
+def phase_merge(smi: str) -> dict:
+    """The flagship 5/1 with the KV merge at pool 2 / stride 2: 1,474 keys,
+    so every global attention goes to K3 (fixed shift) and none to K1."""
+    from vitslam_tpu_torch.models import flagship
+
+    model = flagship(device="cuda", seed=0, global_merge_pool=2, global_merge_stride=2)
+    n_frames, H, W = 17, 154, 518
+    batch = _synthetic_sequence(n_frames, H, W, seed=0)
+    pred, stats = _drive(model, batch, "merge 5/1 p2s2 sequential", smi, 5, 1)
+    _check_outputs("merge 5/1", {"sequential": pred}, {"pose_enc": (1, n_frames, 9),
+                                                       "world_points": (1, n_frames, H, W, 3)})
+    n_chunks = pred["chunk_sim3_enc"].shape[1]
+    _expect("merge 5/1", stats["launches"], {"fused_qkv_attention": 48 * n_chunks,
+                                             "flash_attention": 24 * n_chunks,
+                                             "flat_flash_attention": 0})
+    del model, pred
+    _release()
+    return {"merge 5/1 p2s2 sequential": stats}
+
+
+def phase_large_chunk(smi: str) -> dict:
+    """Point- and pose-aligned flagship presets at chunk 75 / overlap 30 over
+    165 synthetic frames (3 chunks), then one merged chunk at p4s10."""
+    import torch
+
+    import vitslam_tpu_torch.nn.layers as layers
+    from vitslam_tpu_torch.models import flagship_point_aligned, flagship_pose_aligned
+
+    n_frames, H, W, width, overlap = 165, 154, 518, 75, 30
+    batch = _synthetic_sequence(n_frames, H, W, seed=2)
+    stats = {}
+    none = {"flash_attention": 0}
+
+    model = flagship_point_aligned(device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    seq, stats["point sequential"] = _drive(model, batch, "slice 75/30 point sequential",
+                                            smi, width, overlap)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bat, stats["point encode_batch=2"] = _drive(model, batch, "slice 75/30 point encode_batch=2",
+                                                smi, width, overlap, encode_batch=2)
+    print(f"[slice 75/30] point sequential peak device memory {peak:.2f} GiB")
+    shapes = {"pose_enc": (1, n_frames, 9), "world_points": (1, n_frames, H, W, 3),
+              "world_points_conf": (1, n_frames, H, W)}
+    _check_outputs("slice 75/30 point", {"sequential": seq, "encode_batch=2": bat}, shapes)
+    # per chunk: K1 24 patch-embed + 24 frame (B=75, 412 tokens), K2 24 global
+    _expect("slice 75/30 point sequential", stats["point sequential"]["launches"],
+            dict(none, fused_qkv_attention=48 * 3, flat_flash_attention=24 * 3))
+    # encode_batch=2: chunks 0+1 share 30 frames, so 120 unique frames are
+    # embedded once (24 K1), then their frame attention (24 K1) and global
+    # attention (24 K2, B=2); chunk 2 alone is encoded in full (48 K1, 24 K2)
+    _expect("slice 75/30 point encode_batch=2", stats["point encode_batch=2"]["launches"],
+            dict(none, fused_qkv_attention=24 + 24 + 48, flat_flash_attention=48))
+    if stats["point encode_batch=2"]["embed"] != [24]:
+        raise AssertionError(f"point encode_batch=2: K1 in embed_frames "
+                             f"{stats['point encode_batch=2']['embed']} != [24]")
+    errs = output_errors(bat, seq, ("pose_enc", "world_points"))
+    print(f"[slice 75/30] point drivers agree: rel-L2 "
+          f"{json.dumps({k: round(v, 5) for k, v in errs.items()})} (tol {DRIVER_RTOL})")
+    bad = {k: v for k, v in errs.items() if not v <= DRIVER_RTOL}
+    if bad:
+        raise AssertionError(f"slice 75/30 point: drivers disagree: {bad}")
+    del model, seq, bat
+    _release()
+
+    model = flagship_pose_aligned(device="cuda", seed=0)
+    pred, stats["pose sequential"] = _drive(model, batch, "slice 75/30 pose sequential",
+                                            smi, width, overlap)
+    _check_outputs("slice 75/30 pose", {"sequential": pred},
+                   {"pose_enc": (1, n_frames, 9), "depth": (1, n_frames, H, W, 1)})
+    _expect("slice 75/30 pose sequential", stats["pose sequential"]["launches"],
+            dict(none, fused_qkv_attention=48 * 3, flat_flash_attention=24 * 3))
+    del model, pred
+    _release()
+
+    # one 75-frame chunk with the KV merge at pool 4 / stride 10: 8 anchor
+    # frames x 412 + 67 frames x (5 specials + 3 x 10 pooled) = 5,641 keys
+    model = flagship_point_aligned(device="cuda", seed=0, global_merge_pool=4,
+                                   global_merge_stride=10)
+    shapes_seen = []
+    real_k2 = layers.flat_flash_attention
+
+    def recorded(q, k, v, **kw):
+        shapes_seen.append((q.shape[1], k.shape[1]))
+        return real_k2(q, k, v, **kw)
+
+    layers.flat_flash_attention = recorded
+    try:
+        one = {"images": batch["images"][:, :width]}
+        pred, stats["point merged p4s10 one chunk"] = _drive(
+            model, one, "merge 75/30 p4s10 one chunk", smi, width, overlap, reps=1)
+    finally:
+        layers.flat_flash_attention = real_k2
+    _check_outputs("merge 75/30", {"one chunk": pred}, {"world_points": (1, width, H, W, 3)})
+    _expect("merge 75/30", stats["point merged p4s10 one chunk"]["launches"],
+            dict(none, fused_qkv_attention=48, flat_flash_attention=24))
+    if set(shapes_seen) != {(30900, 5641)}:
+        raise AssertionError(f"merge 75/30: K2 (Nq, Nk) {set(shapes_seen)} != {{(30900, 5641)}}")
+    print("[merge 75/30] K2 ran 24 times with Nq=30900 over Nk=5641")
+    del model, pred
+    _release()
+    return {f"slice 75/30 {label}": st for label, st in stats.items()}
 
 
 def main() -> int:
@@ -326,15 +617,33 @@ def main() -> int:
     import torch
 
     phase_build()
-    cases = phase_kernels()
+    results = phase_kernels()
     phase_reference()
-    launches = phase_slice(smi)
-    glob = next(c for c in cases if c["case"].startswith("global"))
-    print(json.dumps({"kernels": [{
-        "name": "fused_qkv_attention", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": glob["ms"], "plain_ms": glob["plain_ms"], "cases": cases}]}))
+    runs = phase_slice(smi)
+    runs.update(phase_merge(smi))
+    runs.update(phase_large_chunk(smi))
+    # each kernel's headline numbers: its case at the shapes of the path
+    # named here, and the launches of that path's run
+    main_path = {"fused_qkv_attention": "slice 75/30 point sequential",
+                 "flat_flash_attention": "slice 75/30 point sequential",
+                 "flash_attention": "merge 5/1 p2s2 sequential"}
+    kernels = []
+    for name, (route, source, replaces) in KERNELS.items():
+        cases = results[name]
+        main_case = next(c for c in cases if c["main"])
+        launches = runs[main_path[name]]["launches"][name]
+        if launches == 0:
+            raise AssertionError(f"{name} was not launched on {main_path[name]}")
+        kernels.append(dict(
+            name=name, route=route, source=source, replaces=replaces, launches=launches,
+            max_abs_err=max(c["max_abs_err"] for c in cases), ms=main_case["ms"],
+            plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+            bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
+            main_path=main_path[name], main_case=main_case["case"],
+            launches_by_path={label: st["launches"][name] for label, st in runs.items()},
+            cases=cases))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

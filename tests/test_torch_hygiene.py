@@ -13,10 +13,13 @@ from vitslam_tpu_torch.nn.layers import Mlp  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
-    "vitslam_tpu_torch", "vitslam_tpu_torch.geometry", "vitslam_tpu_torch.nn",
-    "vitslam_tpu_torch.nn.layers", "vitslam_tpu_torch.ops",
-    "vitslam_tpu_torch.ops.fused_attention", "vitslam_tpu_torch.ops.cuda_build",
-    "vitslam_tpu_torch.models", "vitslam_tpu_torch.slam", "vitslam_tpu_torch.io",
+    "vitslam_tpu_torch", "vitslam_tpu_torch.geometry", "vitslam_tpu_torch.geometry.solvers",
+    "vitslam_tpu_torch.nn", "vitslam_tpu_torch.nn.layers", "vitslam_tpu_torch.ops",
+    "vitslam_tpu_torch.ops.fused_attention", "vitslam_tpu_torch.ops.flash_attention",
+    "vitslam_tpu_torch.ops.cuda_build", "vitslam_tpu_torch.models",
+    "vitslam_tpu_torch.models.point_aligned", "vitslam_tpu_torch.models.pose_aligned",
+    "vitslam_tpu_torch.slam", "vitslam_tpu_torch.io", "vitslam_tpu_torch.profile_slice",
+    "chip_smoke",
 ]
 
 

@@ -188,7 +188,7 @@ def test_attention_routes_at_reference_thresholds():
     assert route(600, 600, fusable=False, fast=False) == "flash"
     assert route(5, 600, fusable=False, fast=False) == "flash"     # cross-attention
     assert route(600, 5, fusable=False, fast=False) == "plain"
-    # on CPU the unported routes run plain math
+    # on CPU the flash route (K3) runs its plain version
     q = torch.randn(1, 1, 600, 8)
     torch.testing.assert_close(tattn.scaled_dot_product_attention(q, q, q, route="flash"),
                                tattn.plain_attention(q, q, q))

@@ -25,6 +25,8 @@
 // tile is prepped as it arrives (LayerNorm + RoPE on k are recomputed per q
 // tile: O(N*dh) per tile against O(N*dh*64) for Q K^T). V is stored
 // transposed in shared memory so its B fragments are single 32-bit loads.
+// The softmax step and the epilogue are the attention core it shares with
+// flash_attention.cu (attention_common.cuh).
 // Not done yet: wgmma, TMA, cp.async double buffering and preparing K once.
 
 #include <cuda_bf16.h>
@@ -32,38 +34,22 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr int kDh = 64;          // head dim this kernel is built for
+using vitslam::kBlockN;
+using vitslam::kDh;
+using vitslam::kFull;
+using vitslam::mma_bf16_16816;
+using vitslam::pack_bf16;
+
 constexpr int kBlockM = 64;      // q rows per CTA
-constexpr int kBlockN = 64;      // keys per inner iteration
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kBlockM / kWarps;  // 16
 constexpr int kStride = kDh + 8;  // padded smem row (bf16): conflict-free fragment loads
 constexpr float kLnEps = 1e-6f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Sum of the two bf16 halves of a packed pair, in fp32: the row sum l adds
-// the same rounded P values that enter the P V product.
-__device__ __forceinline__ float sum_bf16x2(uint32_t p) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&p);
-  return __low2float(v) + __high2float(v);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // LayerNorm + RoPE of one token row of one head, spread over a warp: lane l
 // holds elements 2l and 2l+1. All 32 lanes must call it together.
@@ -209,61 +195,10 @@ fused_qkv_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
         mma_bf16_16816(s[j], qa[kk], b0, b1);
       }
     }
-    if (k0 + kBlockN > N) {
-#pragma unroll
-      for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (k0 + j * 8 + c2 + (e & 1) >= N) s[j][e] = -INFINITY;
-        }
-      }
-    }
-
-    float sub0, sub1;  // per-row exponent shift
-    if (kBounded) {
-      sub0 = sub1 = shift;
-    } else {
-      float mx0 = m_row[0], mx1 = m_row[1];
-#pragma unroll
-      for (int j = 0; j < kBlockN / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      }
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, o));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, o));
-      }
-      // the first tile always holds key 0, so mx is finite from here on
-      const float alpha0 = exp2f(m_row[0] - mx0);
-      const float alpha1 = exp2f(m_row[1] - mx1);
-      m_row[0] = mx0;
-      m_row[1] = mx1;
-      l_row[0] *= alpha0;
-      l_row[1] *= alpha1;
-#pragma unroll
-      for (int j = 0; j < kDh / 8; ++j) {
-        acc[j][0] *= alpha0;
-        acc[j][1] *= alpha0;
-        acc[j][2] *= alpha1;
-        acc[j][3] *= alpha1;
-      }
-      sub0 = mx0;
-      sub1 = mx1;
-    }
-
-    // P in bf16, laid out directly as the A fragments of P V: key k-step t
-    // covers n-tiles 2t (cols 0-7) and 2t+1 (cols 8-15)
+    vitslam::mask_tail(s, k0, N, c2);
+    // P in bf16, laid out directly as the A fragments of P V
     uint32_t pa[kBlockN / 16][4];
-#pragma unroll
-    for (int t = 0; t < kBlockN / 16; ++t) {
-      pa[t][0] = pack_bf16(exp2f(s[2 * t][0] - sub0), exp2f(s[2 * t][1] - sub0));
-      pa[t][1] = pack_bf16(exp2f(s[2 * t][2] - sub1), exp2f(s[2 * t][3] - sub1));
-      pa[t][2] = pack_bf16(exp2f(s[2 * t + 1][0] - sub0), exp2f(s[2 * t + 1][1] - sub0));
-      pa[t][3] = pack_bf16(exp2f(s[2 * t + 1][2] - sub1), exp2f(s[2 * t + 1][3] - sub1));
-      l_row[0] += sum_bf16x2(pa[t][0]) + sum_bf16x2(pa[t][2]);
-      l_row[1] += sum_bf16x2(pa[t][1]) + sum_bf16x2(pa[t][3]);
-    }
+    vitslam::softmax_tile<kBounded>(s, acc, m_row, l_row, shift, pa);
 
     // O += P V over 8 n-tiles of the head dim
 #pragma unroll
@@ -277,28 +212,12 @@ fused_qkv_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
   }
 
-  // ---- finalize: quad-reduce l, normalise, write the head's column slice ----
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l_row[0] += __shfl_xor_sync(kFull, l_row[0], o);
-    l_row[1] += __shfl_xor_sync(kFull, l_row[1], o);
-  }
-  const float inv0 = 1.0f / fmaxf(l_row[0], 1e-30f);
-  const float inv1 = 1.0f / fmaxf(l_row[1], 1e-30f);
+  // ---- finalize: normalise, write the head's column slice ----
   const int n0 = q0 + warp * kRowsPerWarp + g;
   const int n1 = n0 + 8;
   __nv_bfloat16* out_b = out + static_cast<size_t>(b) * N * C + h * kDh + c2;
-#pragma unroll
-  for (int j = 0; j < kDh / 8; ++j) {
-    if (n0 < N) {
-      *reinterpret_cast<uint32_t*>(out_b + static_cast<size_t>(n0) * C + j * 8) =
-          pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
-    }
-    if (n1 < N) {
-      *reinterpret_cast<uint32_t*>(out_b + static_cast<size_t>(n1) * C + j * 8) =
-          pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
-    }
-  }
+  vitslam::store_rows(acc, l_row, n0 < N ? out_b + static_cast<size_t>(n0) * C : nullptr,
+                      n1 < N ? out_b + static_cast<size_t>(n1) * C : nullptr);
 }
 
 template <bool kLn, bool kRope, bool kBounded>

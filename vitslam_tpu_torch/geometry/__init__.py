@@ -1,5 +1,5 @@
-"""fp32 geometry: rotations, SE(3)/Sim(3), pose encodings (port of
-vitslam_tpu/geometry; ``projection`` and ``solvers`` are not ported yet)."""
+"""fp32 geometry: rotations, SE(3)/Sim(3), pose encodings and alignment
+solvers (port of vitslam_tpu/geometry; ``projection`` is not ported yet)."""
 
 from .rotations import (
     average_quaternions,
@@ -24,6 +24,16 @@ from .pose_encoding import (
     pose_encoding_to_extri,
     pose_encoding_to_extri_intri,
 )
+from .solvers import (
+    depth_scale_weights,
+    huber_weights,
+    irls_sim3_umeyama,
+    irls_sim3_umeyama_batched,
+    method_of_horn,
+    scale_lse_solver,
+    umeyama,
+    weighted_median_scale,
+)
 
 __all__ = [
     "average_quaternions", "mat_to_quat", "normalize_quat", "quat_to_mat",
@@ -34,4 +44,7 @@ __all__ = [
     "average_pose_encodings", "extri_intri_to_pose_encoding",
     "extri_to_pose_encoding", "pose_encoding_to_extri",
     "pose_encoding_to_extri_intri",
+    "depth_scale_weights", "huber_weights", "irls_sim3_umeyama",
+    "irls_sim3_umeyama_batched", "method_of_horn", "scale_lse_solver", "umeyama",
+    "weighted_median_scale",
 ]

@@ -1,16 +1,25 @@
 """Models (port of vitslam_tpu/models): the backbone, heads and the
-feature-aligned chunk model. The point/pose-aligned variants and the
-TrackHead are not ported yet."""
+feature-, point- and pose-aligned chunk models. The TrackHead is not ported
+yet."""
 from .aggregator import Aggregator, PatchEmbedViT, expand_frame_tokens
 from .alignment_head import AlignmentHead
 from .camera_head import CameraHead
 from .dpt_head import DPTHead
 from .feature_aligned import FeatureAlignedVGGT
-from .presets import flagship, small_feature_aligned
+from .point_aligned import PointAlignedVGGT
+from .pose_aligned import PoseAlignedVGGT
+from .presets import (
+    flagship,
+    flagship_point_aligned,
+    flagship_pose_aligned,
+    flagship_pose_only,
+    small_feature_aligned,
+)
 from .vggt_core import VGGTCore
 
 __all__ = [
     "Aggregator", "PatchEmbedViT", "expand_frame_tokens", "AlignmentHead",
-    "CameraHead", "DPTHead", "FeatureAlignedVGGT", "VGGTCore", "flagship",
-    "small_feature_aligned",
+    "CameraHead", "DPTHead", "FeatureAlignedVGGT", "PointAlignedVGGT",
+    "PoseAlignedVGGT", "VGGTCore", "flagship", "flagship_point_aligned",
+    "flagship_pose_aligned", "flagship_pose_only", "small_feature_aligned",
 ]

@@ -9,16 +9,20 @@ vitslam_tpu/models/aggregator.py).
   and global attention (over the chunk's S*T tokens, batched (B, S*T, C)),
   both with 2-D RoPE (base 100), special tokens at grid position (0, 0);
 * each pair's output is concat(frame_out, global_out) -> (B, S, T, 2C); only
-  the tapped layers are kept.
+  the tapped layers are kept;
+* optional KV merge of the global attention (``merge_pool`` p > 1 and
+  ``merge_stride`` s): anchor frames (every s-th, frame 0 included) give all
+  their tokens as keys/values, every other frame its special tokens plus its
+  patch tokens average-pooled p x p; queries stay at full resolution.
 
-The reference's ``lax.scan`` stacks are ``nn.ModuleList``s here. The KV
-merge (``merge_pool`` / ``merge_stride``) is not ported yet.
+The reference's ``lax.scan`` stacks are ``nn.ModuleList``s here.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import Block, Conv2d, LayerNorm, _param
@@ -110,13 +114,30 @@ class AggregatorLayer(nn.Module):
         self.frame_block = Block(dim, num_heads, **kw)
         self.global_block = Block(dim, num_heads, **kw)
 
-    def forward(self, x, pos_frame, pos_global, B: int, S: int):
-        """x (B*S, T, C) -> (x', concat(frame_out, global_out) (B, S, T, 2C))."""
+    def forward(self, x, pos_frame, pos_global, B: int, S: int, merge=None):
+        """x (B*S, T, C) -> (x', concat(frame_out, global_out) (B, S, T, 2C)).
+        ``merge``: None, or (merged_kv, pos_kv) for the KV-merged global
+        attention, merged_kv mapping the frame attention's output to the
+        key/value token set whose RoPE cache is pos_kv."""
         T, C = x.shape[1:]
         x = self.frame_block(x, pos_frame)
         frame_out = x
-        x = self.global_block(x.reshape(B, S * T, C), pos_global).reshape(B * S, T, C)
+        xg = x.reshape(B, S * T, C)
+        if merge is None:
+            xg = self.global_block(xg, pos_global)
+        else:
+            merged_kv, pos_kv = merge
+            xg = self.global_block(xg, pos_global, kv=merged_kv(x), pos_kv=pos_kv)
+        x = xg.reshape(B * S, T, C)
         return x, torch.cat([frame_out, x], dim=-1).reshape(B, S, T, 2 * C)
+
+
+def _pool_grid(x: torch.Tensor, pool: int) -> torch.Tensor:
+    """(N, C, gh, gw) -> (N, C, ceil(gh/pool), ceil(gw/pool)): edge-replicated
+    to a pool multiple, then pool x pool means."""
+    gh, gw = x.shape[-2:]
+    x = F.pad(x, (0, (-gw) % pool, 0, (-gh) % pool), mode="replicate")
+    return F.avg_pool2d(x, pool, pool)
 
 
 class Aggregator(nn.Module):
@@ -126,8 +147,10 @@ class Aggregator(nn.Module):
                  rope_base: float = 100.0, patch_embed_depth: int = 24,
                  patch_embed_heads: int = 16, qk_norm: bool = True,
                  init_values: float = 0.01, dtype=torch.bfloat16,
-                 intermediate_layers: Sequence[int] = (4, 11, 17, 23), device=None):
+                 intermediate_layers: Sequence[int] = (4, 11, 17, 23),
+                 merge_pool: int = 0, merge_stride: int = 1, device=None):
         super().__init__()
+        self.merge_pool, self.merge_stride = merge_pool, merge_stride
         self.patch_size, self.embed_dim, self.num_heads = patch_size, embed_dim, num_heads
         self.num_register_tokens, self.rope_base = num_register_tokens, rope_base
         self.dtype, self.depth = dtype, depth
@@ -150,6 +173,43 @@ class Aggregator(nn.Module):
     @property
     def patch_start_idx(self) -> int:
         return 1 + self.num_register_tokens
+
+    def _merge_frames(self, S: int):
+        anchors = list(range(0, S, self.merge_stride))
+        return anchors, [i for i in range(S) if i % self.merge_stride]
+
+    def _merged_kv(self, x: torch.Tensor, B: int, S: int, gh: int, gw: int) -> torch.Tensor:
+        """(B*S, T, C) frame-attention output -> (B, Nk, C) KV token set:
+        the anchor frames' tokens, then per other frame its special tokens
+        and its pooled patch tokens."""
+        T, C = x.shape[1:]
+        psi = self.patch_start_idx
+        anchors, non = self._merge_frames(S)
+        x_bs = x.reshape(B, S, T, C)
+        anchor_tok = x_bs[:, anchors].reshape(B, len(anchors) * T, C)
+        if not non:
+            return anchor_tok
+        xn = x_bs[:, non]
+        patches = xn[:, :, psi:].reshape(B * len(non), gh, gw, C).permute(0, 3, 1, 2)
+        pooled = _pool_grid(patches, self.merge_pool).flatten(2).transpose(1, 2)
+        pooled = pooled.reshape(B, len(non), -1, C)
+        non_tok = torch.cat([xn[:, :, :psi], pooled], dim=2).reshape(B, -1, C)
+        return torch.cat([anchor_tok, non_tok], dim=1)
+
+    def _merged_kv_rope(self, S: int, gh: int, gw: int, device):
+        """RoPE cache (1, Nk, head_dim) of the merged KV set: anchor frames
+        keep their grid positions; a pooled token sits at the mean position
+        of its pooling window (pooled as its content is, so fractional, and
+        built in float)."""
+        anchors, non = self._merge_frames(S)
+        psi = self.patch_start_idx
+        frame_pos = patch_grid_positions(1, gh, gw, psi, device).float()  # (1, T, 2)
+        grid = frame_pos[0, psi:].T.reshape(1, 2, gh, gw)
+        pooled = _pool_grid(grid, self.merge_pool).flatten(2).transpose(1, 2)  # (1, P2, 2)
+        non_pos = torch.cat([torch.zeros((1, psi, 2), device=device), pooled], dim=1)
+        pos_kv = torch.cat([frame_pos.repeat(1, len(anchors), 1),
+                            non_pos.repeat(1, len(non), 1)], dim=1)
+        return rope_cache_2d(pos_kv, self.embed_dim // self.num_heads, self.rope_base)
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         """images (B, S, 3, H, W) in [0, 1] -> patch tokens (B, S, P, C)."""
@@ -185,11 +245,16 @@ class Aggregator(nn.Module):
         cos_g, sin_g, _ = rope_cache_2d(pos_global, head_dim, self.rope_base)
         rope_f = (cos_f.to(self.dtype), sin_f.to(self.dtype), nsplit)
         rope_g = (cos_g.to(self.dtype), sin_g.to(self.dtype), nsplit)
+        merge = None
+        if self.merge_pool > 1 and S > self.merge_stride:
+            cos_kv, sin_kv, _ = self._merged_kv_rope(S, gh, gw, x.device)
+            merge = (lambda y: self._merged_kv(y, B, S, gh, gw),
+                     (cos_kv.to(self.dtype), sin_kv.to(self.dtype), nsplit))
 
         wanted = set(self.intermediate_layers)
         taps = {}
         for i, layer in enumerate(self.layers):
-            x, concat = layer(x, rope_f, rope_g, B, S)
+            x, concat = layer(x, rope_f, rope_g, B, S, merge)
             if i in wanted:
                 taps[i] = concat
         return [taps[i] for i in self.intermediate_layers], self.patch_start_idx

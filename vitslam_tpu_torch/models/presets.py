@@ -3,9 +3,15 @@
 ``flagship()`` is the reference's shipped configuration: a VGGT-1B-scale
 backbone (DINOv2-L patch embed: 24 blocks at 1024; 24 frame/global pairs at
 1024; taps 4/11/17/23) + an AlignmentHead with 8 memory tokens and temporal
-attention; camera, depth and point heads on, track head off. The presets
-build the model on ``device`` with weights drawn from a ``torch.Generator``
-seeded with ``seed``.
+attention; camera, depth and point heads on, track head off. The large-chunk
+presets put the same backbone under the training-free point- and
+pose-aligned models, which the reference runs at chunk width 75 / overlap
+30. The KV merge of the global attention is a keyword override
+(``global_merge_pool``, ``global_merge_stride``).
+
+Every preset builds the model on ``device`` (the GPU unless the caller asks
+for the CPU) with weights drawn from a ``torch.Generator`` seeded with
+``seed``.
 """
 from __future__ import annotations
 
@@ -13,6 +19,8 @@ import torch
 
 from ..nn.layers import init_weights
 from .feature_aligned import FeatureAlignedVGGT
+from .point_aligned import PointAlignedVGGT
+from .pose_aligned import PoseAlignedVGGT
 
 FLAGSHIP = dict(
     img_size=518, patch_size=14, embed_dim=1024, depth=24, num_heads=16,
@@ -29,20 +37,47 @@ SMALL = dict(
 )
 
 
-def _build(base: dict, overrides: dict, device, seed: int) -> FeatureAlignedVGGT:
+def _build(cls, base: dict, overrides: dict, device, seed: int):
     kw = dict(base)
     kw.update(overrides)
-    kw.setdefault("num_memory_tokens", 8)
-    kw.setdefault("temporal_attention", True)
-    model = FeatureAlignedVGGT(**kw, device=device)
+    model = cls(**kw, device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
     return model.eval()
 
 
-def flagship(device="cpu", seed: int = 0, **overrides) -> FeatureAlignedVGGT:
-    return _build(FLAGSHIP, overrides, device, seed)
+def _feature(base: dict, overrides: dict, device, seed: int) -> FeatureAlignedVGGT:
+    kw = dict(num_memory_tokens=8, temporal_attention=True)
+    kw.update(overrides)
+    return _build(FeatureAlignedVGGT, base, kw, device, seed)
 
 
-def small_feature_aligned(device="cpu", seed: int = 0,
+def flagship(device="cuda", seed: int = 0, **overrides) -> FeatureAlignedVGGT:
+    return _feature(FLAGSHIP, overrides, device, seed)
+
+
+def small_feature_aligned(device="cuda", seed: int = 0,
                           **overrides) -> FeatureAlignedVGGT:
-    return _build(SMALL, overrides, device, seed)
+    return _feature(SMALL, overrides, device, seed)
+
+
+def flagship_point_aligned(device="cuda", seed: int = 0, **overrides) -> PointAlignedVGGT:
+    """The point-aligned model at chunk width 75: the DPT head decodes at
+    most 16 frames per call (15 at width 75), so the full-resolution conv
+    intermediates of all frames are never live at once."""
+    kw = dict(enable_depth=False, dpt_frames_chunk=16)
+    kw.update(overrides)
+    return _build(PointAlignedVGGT, FLAGSHIP, kw, device, seed)
+
+
+def flagship_pose_aligned(device="cuda", seed: int = 0, **overrides) -> PoseAlignedVGGT:
+    kw = dict(enable_point=False, dpt_frames_chunk=16)
+    kw.update(overrides)
+    return _build(PoseAlignedVGGT, FLAGSHIP, kw, device, seed)
+
+
+def flagship_pose_only(device="cuda", seed: int = 0, **overrides) -> PoseAlignedVGGT:
+    """Trajectory-only serving: the camera head alone, no DPT decode; the
+    chunk-and-align math is the pose-aligned model's."""
+    kw = dict(enable_depth=False, enable_point=False)
+    kw.update(overrides)
+    return _build(PoseAlignedVGGT, FLAGSHIP, kw, device, seed)

@@ -24,6 +24,7 @@ class VGGTCore(nn.Module):
                  dpt_features: int = 256,
                  dpt_out_channels: Sequence[int] = (256, 512, 1024, 1024),
                  dpt_frames_chunk: int = 0, camera_trunk_depth: int = 4,
+                 global_merge_pool: int = 0, global_merge_stride: int = 1,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
         if enable_track:
@@ -33,7 +34,8 @@ class VGGTCore(nn.Module):
             img_size=img_size, patch_size=patch_size, embed_dim=embed_dim,
             depth=depth, num_heads=num_heads, patch_embed_depth=patch_embed_depth,
             patch_embed_heads=patch_embed_heads,
-            intermediate_layers=intermediate_layers, dtype=dtype, device=device)
+            intermediate_layers=intermediate_layers, merge_pool=global_merge_pool,
+            merge_stride=global_merge_stride, dtype=dtype, device=device)
         dim_in = 2 * embed_dim
         dpt = dict(dim_in=dim_in, features=dpt_features,
                    out_channels=tuple(dpt_out_channels), patch_size=patch_size,

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import ROUTE_COUNTS, attention_route, scaled_dot_product_attention
-from ..ops.fused_attention import fused_qkv_attention
+from ..ops.fused_attention import flat_flash_attention, fused_qkv_attention
 from .rope import apply_rope_1d, apply_rope_2d, apply_rope_cached, apply_rope_flat
 
 # default softmax shift of the bounded-logit path; raised to the provable
@@ -231,7 +231,9 @@ class Attention(nn.Module):
 
     Routing follows ``ops.attention.attention_route``: the fused route hands
     the packed qkv projection, the LayerNorm params, the RoPE cache and the
-    logit bound to ``fused_qkv_attention`` (kernel K1 on CUDA)."""
+    logit bound to ``fused_qkv_attention`` (K1 on CUDA); the flat route
+    preps q/k once in the flat layout and streams them through
+    ``flat_flash_attention`` (K2); the flash route goes to K3."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = True,
                  proj_bias: bool = True, qk_norm: bool = True,
@@ -247,38 +249,59 @@ class Attention(nn.Module):
             self.k_norm = HeadLayerNorm(num_heads, dh, dtype, device=device)
         self.proj = Dense(dim, dim, proj_bias, dtype, device)
 
-    def forward(self, x, pos=None):
+    def _norm_params(self):
+        return ((self.q_norm.weight, self.q_norm.bias),
+                (self.k_norm.weight, self.k_norm.bias))
+
+    def forward(self, x, pos=None, kv=None, pos_kv=None):
+        """Self-attention over ``x`` (B, N, C). With ``kv`` given, queries
+        come from ``x`` and keys/values from ``kv`` through the same qkv
+        projection (the aggregator's KV-merged global attention), and
+        ``pos_kv`` is the RoPE cache of the kv token set."""
         B, N, C = x.shape
         h = self.num_heads
         dh = C // h
         qkv = self.qkv(x)
-        fast = self.qk_norm and _is_rope_cache(pos)
-        fusable = fast or (not self.qk_norm and self.rope is None and pos is None)
-        route = attention_route(N, N, fusable=fusable, fast=fast)
+        qkv_k = self.qkv(kv) if kv is not None else qkv
+        if pos_kv is None:
+            pos_kv = pos
+        nk = qkv_k.shape[1]
+        fast = self.qk_norm and _is_rope_cache(pos) and _is_rope_cache(pos_kv)
+        fusable = kv is None and (
+            fast or (not self.qk_norm and self.rope is None and pos is None))
+        route = attention_route(N, nk, fusable=fusable, fast=fast)
         ROUTE_COUNTS[route] += 1
         if route == "fused":
             kwargs = dict(num_heads=h)
             if fast:
-                qp = (self.q_norm.weight, self.q_norm.bias)
-                kp = (self.k_norm.weight, self.k_norm.bias)
+                qp, kp = self._norm_params()
                 cos, sin, nsplit = pos
                 kwargs.update(cos=cos, sin=sin, q_ln=qp, k_ln=kp, nsplit=nsplit,
                               static_max=qk_shift_from(qp, kp, dh))
             return self.proj(fused_qkv_attention(qkv, **kwargs))
+        static_max = None
         if fast:
             cos, sin, nsplit = pos
+            cos_k, sin_k, nsplit_k = pos_kv
             q = apply_rope_flat(self.q_norm(qkv[..., :C], flat=True), cos, sin, h, nsplit)
-            k = apply_rope_flat(self.k_norm(qkv[..., C:2 * C], flat=True), cos, sin,
-                                h, nsplit)
-            q, k, v = (t.reshape(B, N, h, dh).transpose(1, 2)
-                       for t in (q, k, qkv[..., 2 * C:]))
+            k = apply_rope_flat(self.k_norm(qkv_k[..., C:2 * C], flat=True), cos_k, sin_k,
+                                h, nsplit_k)
+            v = qkv_k[..., 2 * C:]
+            static_max = qk_shift_from(*self._norm_params(), dh)
+            if route == "flat":
+                # prepped once in the flat layout, streamed with no relayout
+                return self.proj(flat_flash_attention(q, k, v, num_heads=h,
+                                                      static_max=static_max))
+            q, k, v = (t.reshape(B, t.shape[1], h, dh).transpose(1, 2) for t in (q, k, v))
         else:
-            q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(B, N, h, dh).transpose(1, 2)
-                       for i in range(3))
+            q = qkv[..., :C].reshape(B, N, h, dh).transpose(1, 2)
+            k, v = (qkv_k[..., i * C:(i + 1) * C].reshape(B, nk, h, dh).transpose(1, 2)
+                    for i in (1, 2))
             if self.qk_norm:
                 q, k = self.q_norm(q), self.k_norm(k)
-            q, k = _apply_rope(q, k, pos, pos, self.rope, self.rope_base)
-        out = scaled_dot_product_attention(q, k, v, route=route)
+                static_max = qk_shift_from(*self._norm_params(), dh)
+            q, k = _apply_rope(q, k, pos, pos_kv, self.rope, self.rope_base)
+        out = scaled_dot_product_attention(q, k, v, route=route, static_max=static_max)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
@@ -310,13 +333,16 @@ class CrossAttention(nn.Module):
         q = self.q(x).reshape(B, N, h, dh).transpose(1, 2)
         k = self.k(y).reshape(B, M, h, dh).transpose(1, 2)
         v = self.v(y).reshape(B, M, h, dh).transpose(1, 2)
+        static_max = None  # no qk-norm: the flash route tracks an online max
         if self.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
+            static_max = qk_shift_from((self.q_norm.weight, self.q_norm.bias),
+                                       (self.k_norm.weight, self.k_norm.bias), dh)
         pos_q, pos_k = pos if pos is not None else (None, None)
         q, k = _apply_rope(q, k, pos_q, pos_k, self.rope, self.rope_base)
         route = attention_route(N, M, fusable=False, fast=False)
         ROUTE_COUNTS[route] += 1
-        out = scaled_dot_product_attention(q, k, v, route=route)
+        out = scaled_dot_product_attention(q, k, v, route=route, static_max=static_max)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
@@ -341,8 +367,9 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
-    def forward(self, x, pos=None):
-        a = self.attn(self.norm1(x), pos)
+    def forward(self, x, pos=None, kv=None, pos_kv=None):
+        kv_n = self.norm1(kv) if kv is not None else None
+        a = self.attn(self.norm1(x), pos, kv=kv_n, pos_kv=pos_kv)
         if self.ls1 is not None:
             a = self.ls1(a)
         x = x + a

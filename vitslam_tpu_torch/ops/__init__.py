@@ -1,12 +1,21 @@
-"""Kernels and their dispatch (port of vitslam_tpu/ops). K1 is ported
-(``fused_attention``); the CUDA sources live in ``../csrc`` and are built by
-``cuda_build`` at first use."""
+"""Kernels and their dispatch (port of vitslam_tpu/ops). K1 and K2
+(``fused_attention``) and the K3 forward (``flash_attention``) are ported;
+the CUDA sources live in ``../csrc`` and are built by ``cuda_build`` at
+first use."""
 from .attention import ROUTE_COUNTS, attention_route, scaled_dot_product_attention
-from .fused_attention import fused_qkv_attention, fused_qkv_attention_plain
+from .flash_attention import flash_attention, flash_attention_plain
+from .fused_attention import (
+    flat_flash_attention,
+    flat_flash_attention_plain,
+    fused_qkv_attention,
+    fused_qkv_attention_plain,
+)
 from .resize import bicubic_matrix, resize_bilinear_nchw
 
 __all__ = [
     "ROUTE_COUNTS", "attention_route", "scaled_dot_product_attention",
-    "fused_qkv_attention", "fused_qkv_attention_plain", "bicubic_matrix",
+    "flash_attention", "flash_attention_plain", "flat_flash_attention",
+    "flat_flash_attention_plain", "fused_qkv_attention", "fused_qkv_attention_plain",
+    "bicubic_matrix",
     "resize_bilinear_nchw",
 ]

@@ -6,22 +6,23 @@ Routes, at the reference's thresholds:
 * ``fused`` — qkv-packed self-attention over 384..4096 tokens whose q/k prep
   is either LayerNorm + a RoPE cache or nothing at all: kernel K1
   (``ops.fused_attention.fused_qkv_attention``).
-* ``flat`` — qk-normed self-attention with a RoPE cache over more than 4096
-  keys: kernel K2 (the flat streaming kernel) in the reference.
-* ``flash`` — any other attention with 512 or more keys: kernel K3 (the
-  flash kernel) in the reference.
+* ``flat`` — qk-normed attention with RoPE caches over more than 4096 keys:
+  kernel K2 (``ops.fused_attention.flat_flash_attention``), called by
+  ``nn.layers.Attention`` on the flat layout.
+* ``flash`` — any other attention with 512 or more keys: kernel K3
+  (``ops.flash_attention.flash_attention``).
 * ``plain`` — everything else: plain math, as the reference leaves it to XLA.
 
-K2 and K3 are not ported yet (ROADMAP.md, queue 2). On CUDA their routes
-raise ``NotImplementedError`` rather than silently running plain math; on
-CPU they run plain math, so the reference's test shapes still run.
+On a CPU tensor every kernel wrapper runs its plain version.
 """
 from __future__ import annotations
 
-import math
 from collections import Counter
 
 import torch
+
+from .flash_attention import flash_attention
+from .flash_attention import flash_attention_plain as plain_attention
 
 FUSED_MIN_TOKENS = 384
 FUSED_MAX_TOKENS = 4096
@@ -31,10 +32,8 @@ FLASH_MIN_KV = 512
 # read it to show which path a model run went through)
 ROUTE_COUNTS: Counter = Counter()
 
-_UNPORTED = {
-    "flat": "K2 (vitslam_tpu/ops/fused_attention.py::_flat_stream_tns_kernel)",
-    "flash": "K3 (vitslam_tpu/ops/flash_attention.py::_flash_kernel)",
-}
+__all__ = ["ROUTE_COUNTS", "attention_route", "plain_attention",
+           "scaled_dot_product_attention"]
 
 
 def attention_route(n_q: int, n_kv: int, *, fusable: bool, fast: bool) -> str:
@@ -42,7 +41,7 @@ def attention_route(n_q: int, n_kv: int, *, fusable: bool, fast: bool) -> str:
 
     fusable: qkv-packed self-attention whose prep the fused kernel can do
         (LayerNorm + RoPE cache, or no prep at all);
-    fast: qk-normed with a RoPE cache (the flat-layout prep path)."""
+    fast: qk-normed with RoPE caches (the flat-layout prep path)."""
     if fusable and n_q == n_kv and FUSED_MIN_TOKENS <= n_q <= FUSED_MAX_TOKENS:
         return "fused"
     if fast and n_kv > FUSED_MAX_TOKENS:
@@ -52,23 +51,13 @@ def attention_route(n_q: int, n_kv: int, *, fusable: bool, fast: bool) -> str:
     return "plain"
 
 
-def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v over (B, H, Nq, D) / (B, H, Nk, D):
-    logits and softmax in fp32, probabilities cast to v's dtype."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    p = torch.softmax(s * scale, dim=-1)
-    return torch.matmul(p.to(v.dtype), v)
-
-
-def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
-                                 v: torch.Tensor, *, route: str = "plain") -> torch.Tensor:
-    """Attention over (B, H, Nq, D) queries and (B, H, Nk, D) keys/values
-    on a non-fused route."""
-    if route in _UNPORTED and q.device.type == "cuda":
-        raise NotImplementedError(
-            f"the {route!r} attention route (Nk={k.shape[2]}) needs kernel "
-            f"{_UNPORTED[route]}, which is not ported yet (ROADMAP.md queue 2)")
-    if route not in ("plain", *_UNPORTED):
-        raise ValueError(f"unknown attention route {route!r}")
+def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                 route: str = "plain", static_max=None) -> torch.Tensor:
+    """Attention over (B, H, Nq, D) queries and (B, H, Nk, D) keys/values on
+    the ``flash`` route (K3, fixed shift ``static_max`` or an online max) or
+    the ``plain`` route."""
+    if route == "flash":
+        return flash_attention(q, k, v, static_max=static_max)
+    if route != "plain":
+        raise ValueError(f"route {route!r} does not take (B, H, N, D) attention")
     return plain_attention(q, k, v)

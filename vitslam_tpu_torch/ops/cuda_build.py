@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels: nvcc compiles ``csrc/*.cu`` for
-sm_90a into one shared library with a plain C interface, bound with ctypes.
+"""Build and load the port's CUDA kernels: nvcc compiles each ``csrc/*.cu``
+for sm_90a into its own shared library with a plain C interface, bound
+with ctypes.
 
 The build happens at first use (never at import), from the sources in this
-package only, into ``<package>/_build/`` (listed in .gitignore). The library
-name carries a hash of the sources and flags, so an edited source is
-rebuilt and a current build is reused within a checkout.
+package only, into ``<package>/_build/`` (listed in .gitignore): one nvcc
+per source, all started together. A library's name carries a hash of its
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and a current build is reused within a checkout.
 """
 from __future__ import annotations
 
@@ -24,13 +26,20 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# source stem -> (C entry point, argtypes)
+ENTRY_POINTS = {
+    "fused_attention": ("vitslam_fused_qkv_attention_bf16",
+                        [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
+    "flash_attention": ("vitslam_flash_attention_bf16",
+                        [_P] * 5 + [_I] * 5 + [_LL] * 12 + [_P]),
+}
+
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-build_info: dict = {}
-
-
-def _sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+_libs: dict[str, ctypes.CDLL] = {}
+# per source stem: the nvcc command, its output (``-Xptxas -v``: registers,
+# shared memory and spills per kernel), the seconds taken, whether cached
+build_info: dict[str, dict] = {}
 
 
 def find_nvcc() -> str:
@@ -45,51 +54,58 @@ def find_nvcc() -> str:
                        "(PATH or CUDA_HOME/bin)")
 
 
-def _digest(sources: list[Path]) -> str:
+def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return h.hexdigest()[:16]
+    return BUILD_DIR / f"libvitslam_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a build of the current sources exists;
-    return the library's path. Records the nvcc command, its output
-    (``-Xptxas -v``: registers, shared memory and spills per kernel) and the
-    seconds taken in ``build_info``."""
-    sources = _sources()
-    lib_path = BUILD_DIR / f"libvitslam_kernels_{_digest(sources)}.so"
-    if lib_path.exists():
-        build_info.setdefault("seconds", 0.0)
-        build_info.setdefault("cached", True)
-        return lib_path
+def build_all() -> dict[str, Path]:
+    """Compile every kernel source that has no current build, one nvcc per
+    source, concurrently; return {source stem: library path}. Raises with
+    nvcc's output if any build fails."""
+    paths = {name: _lib_path(name) for name in ENTRY_POINTS}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    for name in paths.keys() - todo.keys():
+        build_info.setdefault(name, dict(seconds=0.0, cached=True, log=""))
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
-    build_info.update(command=" ".join(cmd), log=proc.stdout + proc.stderr,
-                      seconds=seconds, cached=False)
-    return lib_path
+    nvcc = find_nvcc()
+    jobs = {}
+    for name, path in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (cmd, tmp, proc, time.perf_counter())
+    failed = []
+    for name, (cmd, tmp, proc, t0) in jobs.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, todo[name])  # atomic: a concurrent build never sees a partial file
+        build_info[name] = dict(command=" ".join(cmd), log=log, seconds=seconds, cached=False)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (every kernel is built on the
+    first call), with its entry point's argtypes set."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.vitslam_fused_qkv_attention_bf16
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_void_p])
+        if name not in _libs:
+            paths = build_all()
+            lib = ctypes.CDLL(str(paths[name]))
+            fn_name, argtypes = ENTRY_POINTS[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]

@@ -1,5 +1,5 @@
-"""Fused qkv-packed self-attention (port of the K1 part of
-vitslam_tpu/ops/fused_attention.py).
+"""Fused qkv-packed self-attention and flat streaming attention (port of
+the K1 and K2 parts of vitslam_tpu/ops/fused_attention.py).
 
 ``fused_qkv_attention`` reads q/k/v per head straight out of the packed
 (B, N, 3C) qkv projection, applies the optional per-head LayerNorm and
@@ -7,6 +7,12 @@ RoPE to q and k, and writes the attention output in the flat (B, N, C)
 layout. On a CUDA tensor it launches the hand-written Hopper kernel in
 ``csrc/fused_attention.cu`` (or raises); on a CPU tensor it runs
 ``fused_qkv_attention_plain``, the plain PyTorch version of the same math.
+
+``flat_flash_attention`` (K2) streams attention over q/k/v that were
+already LayerNormed and rotated in the flat (B, N, C) layout, for more than
+4096 keys; on CUDA it launches ``csrc/flash_attention.cu`` on strided views
+of the flat tensors (no head relayout), on the CPU it runs
+``flat_flash_attention_plain``.
 """
 from __future__ import annotations
 
@@ -14,7 +20,8 @@ import math
 
 import torch
 
-LOG2E = 1.4426950408889634  # log2(e): folded into q so the softmax is exp2
+from .flash_attention import LOG2E, flash_attention_plain, launch_streaming, shift_tensor
+
 LN_EPS = 1e-6
 KERNEL_HEAD_DIMS = (64,)
 KERNEL_MAX_TOKENS = 4096
@@ -58,13 +65,6 @@ def fused_qkv_attention_plain(qkv, *, num_heads, cos=None, sin=None, q_ln=None,
     return o.transpose(1, 2).reshape(B, N, C)
 
 
-def _shift_tensor(static_max, device) -> torch.Tensor:
-    """The log2-domain softmax shift as a device scalar: the kernel reads it
-    from device memory, so a shift computed on the device never syncs."""
-    t = torch.as_tensor(static_max, dtype=torch.float32, device=device)
-    return (t.reshape(1) * LOG2E).contiguous()
-
-
 def _launch(qkv, *, num_heads, cos, sin, q_ln, k_ln, scale, static_max, nsplit):
     from .cuda_build import library
 
@@ -104,11 +104,11 @@ def _launch(qkv, *, num_heads, cos, sin, q_ln, k_ln, scale, static_max, nsplit):
                         for x in (*q_ln, *k_ln)]).contiguous()
         ln_p = ln.data_ptr()
     if static_max is not None:
-        shift = _shift_tensor(static_max, dev)
+        shift = shift_tensor(static_max, dev)
         shift_p = shift.data_ptr()
     out = torch.empty((B, N, C), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
-        err = library().vitslam_fused_qkv_attention_bf16(
+        err = library("fused_attention").vitslam_fused_qkv_attention_bf16(
             qkv.data_ptr(), out.data_ptr(), cos_p, sin_p, ln_p, shift_p,
             B, N, num_heads, dh, nsplit, float(scale * LOG2E),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -144,3 +144,51 @@ def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, cos=None, sin=None
 
 
 fused_qkv_attention.launches = 0
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, C) -> a (B, H, N, C // H) view."""
+    B, N, C = x.shape
+    return x.reshape(B, N, num_heads, C // num_heads).transpose(1, 2)
+
+
+def flat_flash_attention_plain(q, k, v, *, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of K2 (the counterpart of ``_flat_reference``):
+    q (B, Nq, C) carries scale * log2(e), so softmax(q k / log2(e)) is the
+    kernel's exp2-domain softmax; k/v (B, Nk, C). Returns (B, Nq, C)."""
+    B, nq, C = q.shape
+    o = flash_attention_plain(_heads(q, num_heads), _heads(k, num_heads),
+                              _heads(v, num_heads), scale=1.0 / LOG2E)
+    return o.transpose(1, 2).reshape(B, nq, C)
+
+
+def flat_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         num_heads: int, static_max, scale: float | None = None
+                         ) -> torch.Tensor:
+    """Streaming attention on the flat (B, N, C) layout over q/k/v whose
+    per-head LayerNorm and RoPE already ran; ``static_max`` is the qk-norm
+    logit bound (the kernel's fixed softmax shift). scale * log2(e) is folded
+    into q in fp32, then q is cast back (to bf16 for the kernel, as the
+    reference does). Returns (B, Nq, C).
+
+    CPU tensor: the plain version. CUDA tensor: the kernel (bf16 k/v, head
+    dim 64, rows 16-byte aligned; v may be a strided slice of the qkv
+    projection), or an error. ``flat_flash_attention.launches`` counts
+    kernel launches."""
+    B, nq, C = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(C // num_heads)
+    if q.device.type == "cpu":
+        qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+        return flat_flash_attention_plain(qs, k, v, num_heads=num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"flat_flash_attention runs on cpu or cuda, not {q.device}")
+    qs = (q.float() * (scale * LOG2E)).to(torch.bfloat16)
+    out = torch.empty((B, nq, C), dtype=torch.bfloat16, device=q.device)
+    launch_streaming(_heads(qs, num_heads), _heads(k, num_heads), _heads(v, num_heads),
+                     _heads(out, num_heads), shift_tensor(static_max, q.device))
+    flat_flash_attention.launches += 1
+    return out
+
+
+flat_flash_attention.launches = 0

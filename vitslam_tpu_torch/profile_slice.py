@@ -1,7 +1,9 @@
-"""Where the time goes in slice 1 on one GPU: the flagship 5/1 pipeline
-(seeded random weights, a synthetic 17-frame 518x154 sequence) under
-torch.profiler, per driver, plus K1 beside torch's SDPA flash backend as a
-yardstick at the main path's attention shapes.
+"""Where the time goes in the port's slices on one GPU, under torch.profiler
+(seeded random weights, synthetic 518x154 sequences): the flagship 5/1
+pipeline over 17 frames per driver (slice 1), and the flagship
+point-aligned model at chunk 75 / overlap 30 over 165 frames, sequential
+(slice 2); plus K1 beside torch's SDPA flash backend as a yardstick at the
+5/1 attention shapes.
 
     python -m vitslam_tpu_torch.profile_slice [--out profile_out]
 
@@ -28,6 +30,8 @@ import torch
 
 FAMILIES = [  # (family, regex on the kernel name), first match wins
     ("K1 fused_qkv_attention", r"fused_qkv_attention_kernel"),
+    # K2 and K3 are one CUDA kernel; slice 2's main path launches only K2
+    ("K2/K3 flash_attention", r"flash_attention_kernel"),
     ("conv (cuDNN)", r"fprop|conv|cudnn|implicit|winograd|dgrad"),
     ("gemm (cuBLAS)", r"gemm|cutlass|xmma|nvjet|cublas|Kernel2"),
     ("softmax", r"softmax"),
@@ -58,17 +62,18 @@ def _busy_seconds(events) -> float:
     return busy * 1e-6
 
 
-def profile_driver(model, batch, encode_batch: int, out: Path, label: str) -> dict:
+def profile_driver(model, batch, encode_batch: int, out: Path, label: str,
+                   width: int = 5, overlap: int = 1) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from .slam import ChunkedPipeline
 
     pipe = ChunkedPipeline(model, encode_batch=encode_batch)
-    pipe.run_sequence(batch, chunk_width=5, num_overlap=1)  # warm-up
+    pipe.run_sequence(batch, chunk_width=width, num_overlap=overlap)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pipe.run_sequence(batch, chunk_width=5, num_overlap=1)
+        pipe.run_sequence(batch, chunk_width=width, num_overlap=overlap)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     trace = out / f"trace_{label}.json"
@@ -132,21 +137,27 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA GPU")
-    from .models import flagship
+    import subprocess
+
+    from .models import flagship, flagship_point_aligned
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0)
-    batch = {"images": rng.uniform(0, 1, size=(1, 17, 3, 154, 518)).astype(np.float32)}
-    model = flagship(device="cuda", seed=0)
-    import subprocess
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     report = {"device": smi.stdout.strip() or torch.cuda.get_device_name(0)}
+    batch = {"images": rng.uniform(0, 1, size=(1, 17, 3, 154, 518)).astype(np.float32)}
+    model = flagship(device="cuda", seed=0)
     for label, eb in (("sequential", 1), ("encode_batch4", 4)):
         report[label] = profile_driver(model, batch, eb, out, label)
     report["sdpa_yardstick"] = sdpa_yardstick()
+    del model
+    torch.cuda.empty_cache()
+    batch = {"images": rng.uniform(0, 1, size=(1, 165, 3, 154, 518)).astype(np.float32)}
+    model = flagship_point_aligned(device="cuda", seed=0)
+    report["point_75_30_sequential"] = profile_driver(model, batch, 1, out, "point_75_30",
+                                                      width=75, overlap=30)
     print(json.dumps(report, indent=1))
 
 

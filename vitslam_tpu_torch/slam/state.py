@@ -21,3 +21,25 @@ class FeatureAlignContext:
     overlap_tokens: torch.Tensor
     memory_tokens: Optional[torch.Tensor]
     prev_pose_enc: torch.Tensor
+
+
+@dataclass
+class PointAlignContext:
+    """State consumed by PointAlignedVGGT for chunks after the first.
+
+    prev_points: (B, overlap, H, W, 3) previous chunk's aligned world points
+        of its last ``overlap`` frames.
+    prev_conf: (B, overlap, H, W) their confidences.
+    """
+    prev_points: torch.Tensor
+    prev_conf: torch.Tensor
+
+
+@dataclass
+class PoseAlignContext:
+    """State consumed by PoseAlignedVGGT for chunks after the first.
+
+    prev_pose_enc: (B, overlap, 9) previous chunk's aligned pose encodings
+        of its last ``overlap`` frames.
+    """
+    prev_pose_enc: torch.Tensor
