@@ -2,8 +2,9 @@
 the Attention module on the flat (K2) and KV-merged flash (K3) routes, the
 merged aggregator against exact attention at stride 1 and against JAX at
 pool 2 / stride 2, and the large-chunk presets' parameter trees; the same
-weights (export_torch_style -> load_jax_params) and numpy inputs, in fp32 on
-the CPU, where every kernel wrapper runs its plain version."""
+weights (export_torch_style -> load_jax_params; the merged models' weights
+seeded by torch_weights.py) and numpy inputs, in fp32 on the CPU, where every
+kernel wrapper runs its plain version."""
 import numpy as np
 import pytest
 
@@ -21,6 +22,8 @@ from vitslam_tpu_torch.io import load_jax_params  # noqa: E402
 from vitslam_tpu_torch.nn import layers as tl  # noqa: E402
 from vitslam_tpu_torch.nn import rope as tr  # noqa: E402
 from vitslam_tpu_torch.ops import ROUTE_COUNTS  # noqa: E402
+
+from torch_weights import jax_variables, seeded  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -93,8 +96,9 @@ def merge_setup():
     frames x (5 specials + 4 x 7 pooled) = 516 keys (flash route)."""
     kw = dict(KW, enable_depth=False)
     imgs = np.random.default_rng(6).uniform(size=(1, 8, 3, 98, 182)).astype(np.float32)
-    params = jax.jit(jm.PointAlignedVGGT(**kw, dtype=jnp.float32).init, static_argnums=2)(
-        jax.random.PRNGKey(0), jnp.asarray(imgs), 1)
+    jmodel = jm.PointAlignedVGGT(**kw, dtype=jnp.float32)
+    params = jax_variables(lambda r: jmodel.init(r, jnp.asarray(imgs), 1),
+                           seeded(tm.PointAlignedVGGT(**kw, dtype=torch.float32)))
     flat = export_torch_style(params)
 
     def port(**merge):

@@ -1,8 +1,13 @@
 """Port parity for slice 2 end to end: the point- and pose-aligned models
 (and the pose-only preset's head set) through the port's sequential and
 two-stage drivers against vitslam_tpu's ChunkedPipeline, with the same
-weights (export_torch_style -> load_jax_params) and numpy inputs, in fp32 on
-the CPU, where every kernel wrapper runs its plain version."""
+weights and numpy inputs, in fp32 on the CPU, where every kernel wrapper
+runs its plain version.
+
+The three variants share one seeded weight set (torch_weights.py): the
+point and pose models have the same parameter tree, the pose-only head set a
+subset of it. The port loads it back through export_torch_style ->
+load_jax_params."""
 import numpy as np
 import pytest
 
@@ -18,6 +23,8 @@ from vitslam_tpu.utils.testing import make_synthetic_batch  # noqa: E402
 from vitslam_tpu_torch import models as tm  # noqa: E402
 from vitslam_tpu_torch.io import load_jax_params  # noqa: E402
 from vitslam_tpu_torch.slam import ChunkedPipeline  # noqa: E402
+
+from torch_weights import jax_variables, seeded  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -50,25 +57,38 @@ def _rel_err(got, want) -> float:
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-12))
 
 
+@pytest.fixture(scope="module")
+def weights():
+    """The frames, and one seeded weight set as JAX variables and as their
+    export."""
+    batch = make_synthetic_batch(B=1, N=N_FRAMES, H=H, W=W, seed=3)
+    model = seeded(tm.PointAlignedVGGT(**KW, enable_depth=True, dtype=torch.float32))
+    jmodel = jm.PointAlignedVGGT(**KW, enable_depth=True, dtype=jnp.float32)
+    images = jnp.asarray(batch["images"][:, :4])
+    params = jax_variables(lambda r: jmodel.init(r, images, 2), model)
+    return batch, params, export_torch_style(params)
+
+
 @pytest.fixture(scope="module", params=list(VARIANTS))
-def variant(request):
+def variant(request, weights):
     """The JAX pipeline's merged outputs and the port model with the same
     weights."""
+    batch, params, flat = weights
     cls, flags, mode, width, overlap = VARIANTS[request.param]
-    batch = make_synthetic_batch(B=1, N=N_FRAMES, H=H, W=W, seed=3)
-    jpipe = JaxPipeline(getattr(jm, cls)(**KW, **flags, dtype=jnp.float32))
-    params = jpipe.init_params(jax.random.PRNGKey(0), jnp.asarray(batch["images"][:, :width]),
-                               overlap)
-    run = dict(sample_mode=mode, chunk_width=width, num_overlap=overlap)
-    want, _ = jpipe.run_sequence(batch, **run)
     model = getattr(tm, cls)(**KW, **flags, dtype=torch.float32)
-    load_jax_params(model, export_torch_style(params))
-    return request.param, batch, model, want, run, params
+    # every parameter filled; strict (every key used) where all heads are on
+    assert load_jax_params(model, flat, strict=request.param != "pose_only") == []
+    run = dict(sample_mode=mode, chunk_width=width, num_overlap=overlap)
+    # the JAX two-stage driver: it compiles the backbone once, the
+    # sequential one twice (first chunk without state, then with)
+    jmodel = getattr(jm, cls)(**KW, **flags, dtype=jnp.float32)
+    want, _ = JaxPipeline(jmodel, params, encode_batch=4).run_sequence(batch, **run)
+    return request.param, batch, model, want, run, flat
 
 
 @pytest.mark.parametrize("encode_batch", [1, 3])
 def test_pipeline_matches_jax(variant, encode_batch):
-    name, batch, model, want, run, params = variant
+    name, batch, model, want, run, flat = variant
     got, _ = ChunkedPipeline(model, encode_batch=encode_batch).run_sequence(batch, **run)
     keys = sorted(want)
     assert keys == sorted(got) and "pose_enc" in keys
@@ -81,7 +101,7 @@ def test_pipeline_matches_jax(variant, encode_batch):
         # the flagship_pose_aligned head set (point head off): the point
         # head feeds neither poses nor depth, so those match the same JAX run
         preset = tm.PoseAlignedVGGT(**KW, dtype=torch.float32)
-        assert load_jax_params(preset, export_torch_style(params), strict=False) == []
+        assert load_jax_params(preset, flat, strict=False) == []
         got, _ = ChunkedPipeline(preset, encode_batch=encode_batch).run_sequence(batch, **run)
         assert sorted(got) == ["depth", "depth_conf", "pose_enc"]
         for k in got:

@@ -85,11 +85,11 @@ def launch_streaming(q, k, v, out, shift) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float | None = None, static_max=None,
-                    with_lse: bool = False) -> torch.Tensor:
+                    static_max=None, with_lse: bool = False) -> torch.Tensor:
     """Flash attention over (B, H, Nq, D) queries and (B, H, Nk, D) keys and
-    values. static_max: an upper bound on |logits| (fixed softmax shift), or
-    None for an online row max. Returns (B, H, Nq, D).
+    values, with logits scaled by 1/sqrt(D). static_max: an upper bound on
+    |logits| (fixed softmax shift), or None for an online row max. Returns
+    (B, H, Nq, D).
 
     CPU tensor: the plain version. CUDA tensor: the kernel (bf16, D 64), or
     an error; its output is a (B, H, Nq, D) view of a (B, Nq, H, D) buffer,
@@ -98,14 +98,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if with_lse:
         raise NotImplementedError("the log2 lse output of K3 belongs to the training "
                                   "slice and is not ported yet")
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
+        return flash_attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     B, H, nq, dh = q.shape
-    qs = (q.float() * (scale * LOG2E)).to(torch.bfloat16)
+    qs = (q.float() * (LOG2E / math.sqrt(dh))).to(torch.bfloat16)
     out = torch.empty((B, nq, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
     shift = None if static_max is None else shift_tensor(static_max, q.device)
     launch_streaming(qs, k, v, out, shift)

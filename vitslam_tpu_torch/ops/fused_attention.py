@@ -163,12 +163,11 @@ def flat_flash_attention_plain(q, k, v, *, num_heads: int) -> torch.Tensor:
 
 
 def flat_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         num_heads: int, static_max, scale: float | None = None
-                         ) -> torch.Tensor:
+                         num_heads: int, static_max) -> torch.Tensor:
     """Streaming attention on the flat (B, N, C) layout over q/k/v whose
     per-head LayerNorm and RoPE already ran; ``static_max`` is the qk-norm
-    logit bound (the kernel's fixed softmax shift). scale * log2(e) is folded
-    into q in fp32, then q is cast back (to bf16 for the kernel, as the
+    logit bound (the kernel's fixed softmax shift). log2(e) / sqrt(dh) is
+    folded into q in fp32, then q is cast back (to bf16 for the kernel, as the
     reference does). Returns (B, Nq, C).
 
     CPU tensor: the plain version. CUDA tensor: the kernel (bf16 k/v, head
@@ -176,14 +175,13 @@ def flat_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     projection), or an error. ``flat_flash_attention.launches`` counts
     kernel launches."""
     B, nq, C = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(C // num_heads)
+    fold = LOG2E / math.sqrt(C // num_heads)
     if q.device.type == "cpu":
-        qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+        qs = (q.float() * fold).to(q.dtype)
         return flat_flash_attention_plain(qs, k, v, num_heads=num_heads)
     if q.device.type != "cuda":
         raise ValueError(f"flat_flash_attention runs on cpu or cuda, not {q.device}")
-    qs = (q.float() * (scale * LOG2E)).to(torch.bfloat16)
+    qs = (q.float() * fold).to(torch.bfloat16)
     out = torch.empty((B, nq, C), dtype=torch.bfloat16, device=q.device)
     launch_streaming(_heads(qs, num_heads), _heads(k, num_heads), _heads(v, num_heads),
                      _heads(out, num_heads), shift_tensor(static_max, q.device))
