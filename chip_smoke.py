@@ -26,10 +26,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 point-aligned also through encode_batch=2; then one
                 point-aligned chunk with the KV merge at pool 4 / stride 10
                 (K2 with 30,900 queries over 5,641 keys).
+8. global head — flagship(temporal_attention=False) over 9 frames at 5/1
+                (2 chunks): the AlignmentHead's global attention (8 heads of
+                128 over 2,065 and 2,891 tokens) through K3; one chunk's
+                alignment stage held against the same stage on plain
+                attention.
+9. train       — Trainer.fit of the flagship AlignmentHead on the frozen
+                backbone (the train keys of
+                configs/train_featureAlignedVGGT_vkitti.yaml, seeded
+                weights, a synthetic 40-frame 518x154 GT batch), 3 steps
+                each: the shipped temporal head at bucket (10, 2), and the
+                global head at bucket (20, 5), whose global attention over
+                8,260 / 10,738 / 6,608 tokens runs K3 with lse forward and K4
+                backward; then one step's head gradients through the kernels
+                held against the same step on plain attention.
 
-Every path runs with the kernels' launch counts set to 0 just before it and
-reads them just after. The line before the last is a JSON summary of the
-kernels; the last line is {"ok": true, "device": {...}}.
+The kernel phase also holds K3's lse output and K4 against their plain
+versions at the global head's shapes. Every path runs with the kernels'
+launch counts set to 0 just before it and reads them just after. The line
+before the last is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -51,7 +67,19 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                              "vitslam_tpu/ops/fused_attention.py:483"),
     "flash_attention": ("cuda", "vitslam_tpu_torch/csrc/flash_attention.cu",
                         "vitslam_tpu/ops/flash_attention.py:116"),
+    "flash_attention_lse": ("cuda", "vitslam_tpu_torch/csrc/flash_attention.cu",
+                            "vitslam_tpu/ops/flash_attention.py:116"),
+    "flash_attention_backward": ("cuda", "vitslam_tpu_torch/csrc/flash_attention_bwd.cu",
+                                 "vitslam_tpu/ops/flash_attention.py:384"),
 }
+# K4 is two TPU kernels, dq (:384) and dk/dv (:421); the port launches both
+# per call of flash_attention_backward
+ALSO_REPLACES = {"flash_attention_backward": "vitslam_tpu/ops/flash_attention.py:421"}
+# head gradients of one train step through the kernels (bf16: K3 with lse,
+# K4) against the same step on plain attention (the plain K3 and K4): both
+# run the head in bf16, and the kernels round P and dS to bf16 where the
+# plain versions keep fp32, so per-tensor relative L2 error up to 3e-2
+GRAD_RTOL = 3e-2
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -110,11 +138,17 @@ def output_errors(got: dict, want: dict, keys=None) -> dict:
 
 
 def counters():
-    from vitslam_tpu_torch.ops.flash_attention import flash_attention
+    from vitslam_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_backward,
+        flash_attention_lse,
+    )
     from vitslam_tpu_torch.ops.fused_attention import flat_flash_attention, fused_qkv_attention
 
     return {"fused_qkv_attention": fused_qkv_attention,
-            "flat_flash_attention": flat_flash_attention, "flash_attention": flash_attention}
+            "flat_flash_attention": flat_flash_attention, "flash_attention": flash_attention,
+            "flash_attention_lse": flash_attention_lse,
+            "flash_attention_backward": flash_attention_backward}
 
 
 def reset_launches() -> None:
@@ -212,6 +246,20 @@ def _sdpa_ms(q, k, v) -> float:
     q, k, v = (t.contiguous() for t in (q, k, v))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+
+
+def _sdpa_bwd_ms(q, k, v, dout) -> float:
+    """The backward of torch's SDPA (flash backend) through autograd on the
+    same q/k/v and output gradient: the yardstick of K4."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        o = F.scaled_dot_product_attention(q, k, v)
+    dout = dout.contiguous()
+    return _time_ms(lambda: torch.autograd.grad(o, (q, k, v), dout, retain_graph=True))
 
 
 def _report(results: dict, name: str, case: str, main: bool, err: float, rl2: float,
@@ -339,6 +387,64 @@ def kernels_k3(results: dict, g, dev):
                 _sdpa_ms(q, k, v), 4.0 * B * H * nq * nk * 64, _nbytes(q, k, v, got))
 
 
+def kernels_k3_lse_k4(results: dict, g, dev):
+    """K3 with its lse output and K4 against their plain versions in fp32 on
+    the query the kernels see (q * scale * log2(e) rounded to bf16, scaled
+    back), on the same bf16 k, v, output and output gradient."""
+    import torch
+
+    from vitslam_tpu_torch.ops.flash_attention import (
+        LOG2E,
+        flash_attention_backward,
+        flash_attention_backward_plain,
+        flash_attention_lse,
+        flash_attention_plain,
+    )
+
+    cases = [  # (name, B, H, Nq, Nk, D, bounded, main-path case)
+        ("head global (20,5) first chunk B=1 H=8 N=8260 D=128 bounded",
+         1, 8, 8260, 8260, 128, True, False),
+        ("head global (20,5) later chunks B=1 H=8 N=10738 D=128 bounded",
+         1, 8, 10738, 10738, 128, True, True),
+        ("head global (20,5) remainder B=1 H=8 N=6608 D=128 bounded",
+         1, 8, 6608, 6608, 128, True, False),
+        ("cross B=1 H=16 Nq=2060 Nk=1474 D=64 online-max", 1, 16, 2060, 1474, 64, False, False),
+    ]
+    for case, B, H, nq, nk, D, bounded, main in cases:
+        q = (2 * torch.randn((B, H, nq, D), generator=g, device=dev)).to(torch.bfloat16)
+        k = torch.randn((B, H, nk, D), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, H, nk, D), generator=g, device=dev).to(torch.bfloat16)
+        dout = torch.randn((B, H, nq, D), generator=g, device=dev).to(torch.bfloat16)
+        smax = 24.0 if bounded else None
+        fold = LOG2E / D ** 0.5
+        q_eff = (q.float() * fold).to(torch.bfloat16).float() / fold
+        out, lse = flash_attention_lse(q, k, v, static_max=smax)
+        want_out, want_lse = flash_attention_plain(q_eff, k, v, with_lse=True)
+        errs = [_check("K3-lse", case + " out", out, want_out, ATOL),
+                _check("K3-lse", case + " lse", lse, want_lse, ATOL)]
+        del want_out, want_lse
+        ms = _time_ms(lambda: flash_attention_lse(q, k, v, static_max=smax))
+        plain_ms = _time_ms(lambda: flash_attention_plain(q_eff, k, v, with_lse=True))
+        _report(results, "flash_attention_lse", case, main, max(e[0] for e in errs),
+                max(e[1] for e in errs), ms, plain_ms, _sdpa_ms(q, k, v),
+                4.0 * B * H * nq * nk * D, _nbytes(q, k, v, out, lse))
+
+        got = flash_attention_backward(q, k, v, out, lse, dout)
+        want = flash_attention_backward_plain(q_eff, k, v, out, lse, dout)
+        errs = [_check("K4", f"{case} {name}", a, b, ATOL)
+                for a, b, name in zip(got, want, ("dq", "dk", "dv"))]
+        del want
+        ms = _time_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout))
+        plain_ms = _time_ms(lambda: flash_attention_backward_plain(q_eff, k, v, out, lse, dout))
+        # the least work is five Nq x Nk x D products (S, dP, dq, dk, dv);
+        # the two kernels recompute S and dP each, seven in all
+        _report(results, "flash_attention_backward", case, main, max(e[0] for e in errs),
+                max(e[1] for e in errs), ms, plain_ms, _sdpa_bwd_ms(q, k, v, dout),
+                10.0 * B * H * nq * nk * D, _nbytes(q, k, v, out, lse, dout, *got))
+        del q, k, v, dout, q_eff, out, lse, got
+        torch.cuda.empty_cache()
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -348,6 +454,7 @@ def phase_kernels() -> dict:
     kernels_k1(results, g, dev)
     kernels_k2(results, g, dev)
     kernels_k3(results, g, dev)
+    kernels_k3_lse_k4(results, g, dev)
     return results
 
 
@@ -611,6 +718,193 @@ def phase_large_chunk(smi: str) -> dict:
     return {f"slice 75/30 {label}": st for label, st in stats.items()}
 
 
+def phase_global_head(smi: str) -> dict:
+    """flagship(temporal_attention=False): the AlignmentHead's global
+    attention (8 heads of 128) runs K3 in inference; one chunk's alignment
+    stage on K3 against the same stage on plain attention."""
+    from vitslam_tpu_torch.models import flagship
+    from vitslam_tpu_torch.ops import plain_attention_routes
+
+    model = flagship(device="cuda", seed=0, temporal_attention=False)
+    n_frames, H, W = 9, 154, 518
+    batch = _synthetic_sequence(n_frames, H, W, seed=4)
+    pred, stats = _drive(model, batch, "global head 5/1", smi, 5, 1, reps=1)
+    _check_outputs("global head 5/1", {"sequential": pred},
+                   {"pose_enc": (1, n_frames, 9), "chunk_sim3_enc": (1, 2, 8)})
+    # per chunk: 72 K1 in the backbone, 4 K3 in the head's global blocks
+    # (2,065 keys in chunk 1, (5 + 2) x 413 = 2,891 in chunk 2)
+    _expect("global head 5/1", stats["launches"], {"fused_qkv_attention": 144,
+                                                   "flash_attention": 8,
+                                                   "flat_flash_attention": 0})
+    import torch
+
+    images = torch.as_tensor(batch["images"][:, :5], device=next(model.parameters()).device)
+    with torch.inference_mode():
+        raw = model.encode_chunks(images)
+        got, _ = model.align_chunk(raw, images.shape, 1)
+        with plain_attention_routes():
+            want, _ = model.align_chunk(raw, images.shape, 1)
+    keys = ("chunk_sim3_enc", "frame_se3_enc", "pose_enc", "memory_tokens")
+    errs = output_errors({k: got[k].float().cpu() for k in keys},
+                         {k: want[k].float().cpu() for k in keys}, keys)
+    print(f"[global head 5/1] alignment stage, K3 (D 128) vs plain attention: rel-L2 "
+          f"{json.dumps({k: round(v, 5) for k, v in errs.items()})} (tol {DRIVER_RTOL})")
+    bad = {k: v for k, v in errs.items() if not v <= DRIVER_RTOL}
+    if bad:
+        raise AssertionError(f"global head: K3 path and plain path disagree: {bad}")
+    del model, pred, raw
+    _release()
+    return {"global head 5/1 sequential": stats}
+
+
+class _OneBatch:
+    """train_data for the Trainer: the same synthetic GT batch every step."""
+
+    def __init__(self, batch: dict):
+        self.batch = batch
+
+    def get_loader(self, epoch):
+        yield self.batch
+
+
+def _train(smi: str, label: str, temporal: bool, bucket, batch: dict, steps: int = 3):
+    """Trainer.fit for `steps` steps at one (width, overlap) bucket; checks
+    finite losses, moved trainable and bit-identical frozen tensors."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vitslam_tpu_torch.models import flagship
+    from vitslam_tpu_torch.ops import ROUTE_COUNTS
+    from vitslam_tpu_torch.train import MultitaskLoss, Trainer, partition_params
+    from vitslam_tpu_torch.train.config import VKITTI_TRAIN_CFG
+
+    # the training config (configs/train_featureAlignedVGGT_vkitti.yaml,
+    # copied as VKITTI_TRAIN_CFG) runs the model without its point head
+    model = flagship(device="cuda", seed=0, enable_point=False, temporal_attention=temporal)
+    n_params = sum(p.numel() for p in model.parameters())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cfg = dict(VKITTI_TRAIN_CFG, max_steps=steps,
+               logging={"log_dir": f"{tmp}/logs", "log_freq": 1},
+               checkpoint={"save_dir": f"{tmp}/ckpt", "save_freq": 10 ** 9,
+                           "resume_from_checkpoint": False})
+    trainer = Trainer(cfg, model, MultitaskLoss(**cfg["loss"]), train_data=_OneBatch(batch),
+                      shape_buckets=[list(bucket)])
+    trainable, frozen = partition_params(model, cfg["optim"]["frozen_module_names"])
+    before_t = {n: p.detach().clone() for n, p in trainable.items()}
+    before_f = {n: p.detach().clone() for n, p in frozen.items()}
+    steps_seen = []
+    log = trainer.logger.log_metrics
+
+    def logged(metrics, step):  # called once per step, after its float() readback
+        steps_seen.append((time.perf_counter(), dict(metrics)))
+        log(metrics, step)
+
+    trainer.logger.log_metrics = logged
+    try:
+        ROUTE_COUNTS.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_frames = batch["images"].shape[1]
+    times = np.diff([t0] + [t for t, _ in steps_seen])
+    print(f"[{label}] {n_params / 1e9:.3f}B params ({sum(p.numel() for p in trainable.values()) / 1e6:.1f}M "
+          f"trainable), bucket {tuple(bucket)}, {steps} steps in {secs:.3f} s = "
+          f"{steps / secs:.3f} steps/s, {steps * n_frames / secs:.2f} frames/s "
+          f"({n_frames}-frame batch; step walls {[round(float(t), 3) for t in times]} s), "
+          f"peak device memory {peak:.2f} GiB, on {smi}; launches {launches}; "
+          f"routes {dict(ROUTE_COUNTS)}")
+    keys = ("objective", "loss_camera", "loss_camera_rel", "loss_depth", "loss_per_frame_reg",
+            "loss_per_chunk_reg", "grad_norm", "train/lr")
+    for i, (_, m) in enumerate(steps_seen):
+        print(f"[{label}] step {i}: " + " ".join(f"{k}={m[k]:.6g}" for k in keys))
+    if len(steps_seen) != steps or state.step != steps:
+        raise AssertionError(f"{label}: {len(steps_seen)} logged steps, state at {state.step}")
+    bad = [k for _, m in steps_seen for k, v in m.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{label}: non-finite metrics {sorted(set(bad))}")
+    moved = sum(not torch.equal(p.detach(), before_t[n]) for n, p in trainable.items())
+    changed = [n for n, p in frozen.items() if not torch.equal(p.detach(), before_f[n])]
+    print(f"[{label}] {moved} of {len(trainable)} trainable tensors moved; "
+          f"{len(frozen) - len(changed)} of {len(frozen)} frozen tensors bit-identical")
+    if moved == 0 or changed:
+        raise AssertionError(f"{label}: {moved} trainable tensors moved, frozen changed: "
+                             f"{changed[:5]}")
+    del before_t, before_f
+    stats = dict(seconds=secs, steps_per_s=steps / secs, frames_per_s=steps * n_frames / secs,
+                 step_seconds=[float(t) for t in times], peak_gib=peak, launches=launches,
+                 routes=dict(ROUTE_COUNTS),
+                 losses=[{k: m[k] for k in keys} for _, m in steps_seen])
+    return model, trainer, stats
+
+
+def phase_train(smi: str) -> dict:
+    """The training slice at full flagship width: the shipped temporal head
+    (no kernel in its backward: every head attention has < 512 keys), then
+    the global head, whose global attention runs K3 with lse and K4."""
+    import torch
+
+    from vitslam_tpu_torch.train import loss_and_grads
+    from vitslam_tpu_torch.utils import make_synthetic_batch
+
+    batch = make_synthetic_batch(B=1, N=40, H=154, W=518, seed=3)
+    runs = {}
+    model, trainer, runs["train temporal (10, 2)"] = _train(
+        smi, "train temporal (10, 2)", True, (10, 2), batch)
+    _expect("train temporal (10, 2)", runs["train temporal (10, 2)"]["launches"],
+            {"flash_attention_lse": 0, "flash_attention_backward": 0, "flash_attention": 0})
+    del model, trainer
+    _release()
+
+    label = "train global (20, 5)"
+    model, trainer, runs[label] = _train(smi, label, False, (20, 5), batch)
+    # per step 3 chunks (20, 20, 10 frames) x 4 global blocks: K3 with lse
+    # over 8,260 / 10,738 / 6,608 tokens, and as many K4 calls
+    _expect(label, runs[label]["launches"],
+            {"flash_attention_lse": 3 * 12, "flash_attention_backward": 3 * 12})
+
+    # one step's head gradients, kernels vs plain attention, same dropout
+    # and large offset
+    chunks, merged = trainer._prepare_chunks(batch, 20, 5)
+    args = (model, trainer.loss, trainer.state.trainable, chunks, merged, trainer.state.step, 5,
+            trainer.gt_alignment_type)
+    reset_launches()
+    kernel_losses, kernel = loss_and_grads(*args, generator=torch.Generator().manual_seed(11))
+    torch.cuda.synchronize()
+    k_launches = read_launches()
+    plain_losses, plain = loss_and_grads(*args, generator=torch.Generator().manual_seed(11),
+                                         plain_attention=True)
+    torch.cuda.synchronize()
+    p_launches = read_launches()
+    if k_launches["flash_attention_backward"] != 12 or \
+            p_launches["flash_attention_backward"] != 12:
+        raise AssertionError(f"{label}: K4 launches kernel path {k_launches}, "
+                             f"plain path {p_launches} (12, then none more)")
+    errs = {n: (torch.linalg.vector_norm((kernel[n] - plain[n]).float())
+                / torch.linalg.vector_norm(plain[n].float()).clamp_min(1e-30)).item()
+            for n in kernel if plain[n].abs().max() > 0}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    obj = (kernel_losses["objective"].item(), plain_losses["objective"].item())
+    print(f"[{label}] head gradients, kernels vs plain attention: {len(errs)} tensors, "
+          f"max rel-L2 {worst[0][1]:.3e} (tol {GRAD_RTOL}); worst {worst}; "
+          f"objective {obj[0]:.6g} vs {obj[1]:.6g}")
+    if not worst[0][1] <= GRAD_RTOL:
+        raise AssertionError(f"{label}: head gradients disagree: {worst}")
+    runs[label]["grad_rel_l2_max"] = worst[0][1]
+    del model, trainer, kernel, plain
+    _release()
+    return runs
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     smi = phase_device()
@@ -622,11 +916,15 @@ def main() -> int:
     runs = phase_slice(smi)
     runs.update(phase_merge(smi))
     runs.update(phase_large_chunk(smi))
+    runs.update(phase_global_head(smi))
+    runs.update(phase_train(smi))
     # each kernel's headline numbers: its case at the shapes of the path
     # named here, and the launches of that path's run
     main_path = {"fused_qkv_attention": "slice 75/30 point sequential",
                  "flat_flash_attention": "slice 75/30 point sequential",
-                 "flash_attention": "merge 5/1 p2s2 sequential"}
+                 "flash_attention": "merge 5/1 p2s2 sequential",
+                 "flash_attention_lse": "train global (20, 5)",
+                 "flash_attention_backward": "train global (20, 5)"}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
@@ -634,8 +932,9 @@ def main() -> int:
         launches = runs[main_path[name]]["launches"][name]
         if launches == 0:
             raise AssertionError(f"{name} was not launched on {main_path[name]}")
+        extra = {"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}
         kernels.append(dict(
-            name=name, route=route, source=source, replaces=replaces, launches=launches,
+            name=name, route=route, source=source, replaces=replaces, **extra, launches=launches,
             max_abs_err=max(c["max_abs_err"] for c in cases), ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],

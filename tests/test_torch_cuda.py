@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written CUDA
-kernels (K1, K2, K3) against their plain PyTorch versions, and the presets'
-default device. They import no JAX, so they
+kernels (K1, K2, K3 with its lse output, K4) against their plain PyTorch
+versions, gradients through every kernel wrapper, and the presets' default
+device. They import no JAX, so they
 also run on a machine with the card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
@@ -18,7 +19,11 @@ from vitslam_tpu_torch.nn.rope import patch_grid_positions, rope_cache_2d  # noq
 from vitslam_tpu_torch.ops.flash_attention import (  # noqa: E402
     LOG2E,
     flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_plain,
+    flash_attention_lse,
     flash_attention_plain,
+    flash_attention_reference,
 )
 from vitslam_tpu_torch.ops.fused_attention import (  # noqa: E402
     flat_flash_attention,
@@ -148,8 +153,9 @@ def test_k2_k3_reject_what_they_do_not_take(cuda):
         flash_attention(x, x.float(), x)
     with pytest.raises(ValueError):  # head dim 32
         flash_attention(x[..., :32], x[..., :32], x[..., :32])
-    with pytest.raises(NotImplementedError):  # the lse output: training slice
-        flash_attention(x, x, x, with_lse=True)
+    x96 = torch.zeros((1, 2, 600, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head dim 96: the kernels take 64 and 128
+        flash_attention(x96, x96, x96)
     flat = torch.zeros((1, 4100, 128), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # head dim 32
         flat_flash_attention(flat, flat, flat, num_heads=4, static_max=24.0)
@@ -161,3 +167,116 @@ def test_presets_default_to_the_gpu(cuda):
                                   intermediate_layers=(0, 0, 0, 0), align_embed_dim=64,
                                   align_dec_dim=32, num_memory_tokens=4)
     assert {p.device.type for p in model.parameters()} == {"cuda"}
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return (torch.linalg.vector_norm(got - want)
+            / torch.linalg.vector_norm(want).clamp_min(1e-12)).item()
+
+
+@pytest.mark.parametrize("B,H,nq,nk,dh,bounded", [
+    (1, 8, 1100, 1100, 128, True),   # the head's global attention: self, ragged
+    (1, 8, 700, 1300, 128, False),   # cross, online max
+    (2, 4, 300, 337, 64, True),      # ragged self/cross at the backbone's head dim
+    (1, 16, 1000, 600, 64, False),   # more queries than keys, online max
+])
+def test_k3_lse_and_k4_match_plain(cuda, B, H, nq, nk, dh, bounded):
+    """K3 with lse and K4 against their plain versions in fp32 on the
+    query the kernels see (q * scale * log2(e) rounded to bf16, scaled
+    back), on the same bf16 k, v, output and output gradient: what is left
+    is P and dS rounded to bf16 before their products, bf16 outputs and the
+    summation order. Elementwise 2e-2 + 2e-2 * |plain| and rel-L2 <= 1e-2
+    (chip_smoke.py's criteria); lse within 2e-2 absolute."""
+    rng = np.random.default_rng(6)
+    q = _bf16(rng, (B, H, nq, dh), cuda, 2.0)
+    k = _bf16(rng, (B, H, nk, dh), cuda)
+    v = _bf16(rng, (B, H, nk, dh), cuda)
+    fold = LOG2E / dh ** 0.5
+    q_eff = (q.float() * fold).to(torch.bfloat16).float() / fold
+    before = (flash_attention_lse.launches, flash_attention_backward.launches)
+    out, lse = flash_attention_lse(q, k, v, static_max=24.0 if bounded else None)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_attention_plain(q_eff, k, v, with_lse=True)
+    assert out.shape == (B, H, nq, dh) and lse.shape == (B, H, nq)
+    assert lse.dtype == torch.float32 and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=0)
+    dout = _bf16(rng, (B, H, nq, dh), cuda)
+    got = flash_attention_backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_plain(q_eff, k, v, out, lse, dout)
+    assert (flash_attention_lse.launches, flash_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2, msg=name)
+        assert _rel_l2(g, w) <= 1e-2, name
+
+
+def test_gradients_flow_through_k3_and_k4(cuda):
+    """autograd through flash_attention on the card (K3 with lse, then K4)
+    against the same loss through flash_attention_reference (the plain
+    forward and backward), on strided (B, H, N, 128) views as the head's
+    global attention passes them: rel-L2 <= 1e-2 per gradient."""
+    rng = np.random.default_rng(7)
+    B, H, N, dh = 1, 8, 900, 128
+    x = _bf16(rng, (B, N, 3 * H * dh), cuda)
+    q, k, v = (x[..., i * H * dh:(i + 1) * H * dh].reshape(B, N, H, dh).transpose(1, 2)
+               .detach().requires_grad_() for i in range(3))
+    w = _bf16(rng, (B, H, N, dh), cuda)
+    before = (flash_attention_lse.launches, flash_attention_backward.launches)
+    (flash_attention(q, k, v, static_max=24.0).float() * w.float()).sum().backward()
+    got = [t.grad for t in (q, k, v)]
+    assert (flash_attention_lse.launches, flash_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    for t in (q, k, v):
+        t.grad = None
+    (flash_attention_reference(q, k, v).float() * w.float()).sum().backward()
+    for g, t, name in zip(got, (q, k, v), ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all(), name
+        assert _rel_l2(g, t.grad) <= 1e-2, (name, _rel_l2(g, t.grad))
+
+
+def test_gradients_flow_through_k1_and_k2(cuda):
+    """K1 and K2 on tensors that require grad keep their graph: the
+    backward recomputes through the plain version, so the gradients equal
+    those of the plain version itself (bf16, up to the forward's rounding:
+    rel-L2 <= 1e-2)."""
+    rng = np.random.default_rng(8)
+    heads, dh = 16, 64
+    C = heads * dh
+    qkv = _bf16(rng, (1, 412, 3 * C), cuda).requires_grad_()
+    ln = [tuple(torch.tensor(rng.normal(m, 0.1, dh), dtype=torch.float32, device=cuda)
+                .requires_grad_() for m in (1.0, 0.0)) for _ in range(2)]
+    pos = patch_grid_positions(1, 11, 38, 0, cuda)[:, :412]
+    cos, sin, nsplit = rope_cache_2d(pos, dh)
+    kw = dict(num_heads=heads, cos=cos, sin=sin, q_ln=ln[0], k_ln=ln[1], nsplit=nsplit,
+              static_max=qk_shift_from(ln[0], ln[1], dh))
+    w = _bf16(rng, (1, 412, C), cuda).float()
+    leaves = [qkv, *ln[0], *ln[1]]
+    before = fused_qkv_attention.launches
+    got = torch.autograd.grad((fused_qkv_attention(qkv, **kw).float() * w).sum(), leaves)
+    assert fused_qkv_attention.launches == before + 1
+    want = torch.autograd.grad((fused_qkv_attention_plain(qkv, **kw).float() * w).sum(), leaves)
+    for g, ref in zip(got, want):
+        assert _rel_l2(g, ref) <= 1e-2
+
+    q = _bf16(rng, (1, 4352, C), cuda).requires_grad_()
+    k = _bf16(rng, (1, 4352, C), cuda).requires_grad_()
+    v = _bf16(rng, (1, 4352, C), cuda).requires_grad_()
+    w = _bf16(rng, (1, 4352, C), cuda).float()
+    before = flat_flash_attention.launches
+    got = torch.autograd.grad(
+        (flat_flash_attention(q, k, v, num_heads=heads, static_max=24.0).float() * w).sum(),
+        (q, k, v))
+    assert flat_flash_attention.launches == before + 1
+
+    def plain(q, k, v):
+        return flat_flash_attention_plain((q.float() * (LOG2E / 8.0)).to(q.dtype), k, v,
+                                          num_heads=heads)
+
+    want = torch.autograd.grad((plain(q, k, v).float() * w).sum(), (q, k, v))
+    for g, ref in zip(got, want):
+        assert _rel_l2(g, ref) <= 1e-2

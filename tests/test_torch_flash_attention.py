@@ -73,12 +73,17 @@ def test_wrapper_matches_jax_kernel_interpret(nq, nk, smax, gain):
 
 def test_flash_route_and_unported_lse():
     """The flash route of the dispatch is K3 (the plain version on the CPU);
-    the lse output, needed only by the backward, raises until it is ported."""
+    the lse output, needed by the backward, is the plain version's: the log2
+    of the row sums of the exp2-domain logits (test_torch_flash_bwd.py holds
+    it to the JAX kernel)."""
     q, k, v = (torch.tensor(x) for x in _qkv(1, 2, 8, 600, seed=3))
     torch.testing.assert_close(
         tattn.scaled_dot_product_attention(q, k, v, route="flash", static_max=24.0),
         flash_attention_plain(q, k, v), atol=0, rtol=0)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, v, with_lse=True)
+    out, lse = flash_attention(q, k, v, with_lse=True)
+    want_out, want_lse = flash_attention_plain(q, k, v, with_lse=True)
+    torch.testing.assert_close(out, want_out, atol=0, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
+    assert lse.shape == (1, 2, 8) and lse.dtype == torch.float32
     with pytest.raises(ValueError):
         tattn.scaled_dot_product_attention(q, k, v, route="flat")

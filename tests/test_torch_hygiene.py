@@ -19,6 +19,13 @@ MODULES = [
     "vitslam_tpu_torch.ops.cuda_build", "vitslam_tpu_torch.models",
     "vitslam_tpu_torch.models.point_aligned", "vitslam_tpu_torch.models.pose_aligned",
     "vitslam_tpu_torch.slam", "vitslam_tpu_torch.io", "vitslam_tpu_torch.profile_slice",
+    "vitslam_tpu_torch.geometry.projection", "vitslam_tpu_torch.slam.chunking",
+    "vitslam_tpu_torch.slam.gt_alignment", "vitslam_tpu_torch.utils",
+    "vitslam_tpu_torch.utils.synthetic", "vitslam_tpu_torch.train",
+    "vitslam_tpu_torch.train.losses", "vitslam_tpu_torch.train.optim",
+    "vitslam_tpu_torch.train.train_step", "vitslam_tpu_torch.train.trainer",
+    "vitslam_tpu_torch.train.logging_utils", "vitslam_tpu_torch.train.config",
+    "vitslam_tpu_torch.io.checkpoint",
     "chip_smoke",
 ]
 

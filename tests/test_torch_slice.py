@@ -75,9 +75,22 @@ def test_pipeline_matches_jax(setup, encode_batch):
 
 
 def test_unported_gt_alignment_raises(setup):
-    batch, model, _ = setup
-    with pytest.raises(NotImplementedError):
-        ChunkedPipeline(model).run_sequence(batch, gt_alignment_type="scale_from_poses")
+    """GT alignment is ported: scale_from_poses scales the merged pose
+    translations, depths and points by one scale per batch element
+    (test_torch_gt_alignment.py holds every type to JAX); an unknown type
+    raises."""
+    batch, model, want = setup
+    got, _ = ChunkedPipeline(model).run_sequence(
+        batch, chunk_width=WIDTH, num_overlap=OVERLAP, gt_alignment_type="scale_from_poses")
+    s = got["alignment_scales"].numpy()
+    assert s.shape == (1,) and s[0] > 0
+    for k in ("depth", "world_points"):
+        a = got[k].numpy()
+        b = np.asarray(want[k], np.float32) * s[0]
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) <= RTOL, k
+    with pytest.raises(ValueError):
+        ChunkedPipeline(model).run_sequence(batch, chunk_width=WIDTH, num_overlap=OVERLAP,
+                                            gt_alignment_type="bogus")
 
 
 @pytest.mark.parametrize("mode,width,overlap", [

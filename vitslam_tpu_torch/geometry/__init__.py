@@ -1,5 +1,5 @@
-"""fp32 geometry: rotations, SE(3)/Sim(3), pose encodings and alignment
-solvers (port of vitslam_tpu/geometry; ``projection`` is not ported yet)."""
+"""fp32 geometry: rotations, SE(3)/Sim(3), pose encodings, alignment
+solvers and projection (port of vitslam_tpu/geometry)."""
 
 from .rotations import (
     average_quaternions,
@@ -34,6 +34,11 @@ from .solvers import (
     umeyama,
     weighted_median_scale,
 )
+from .projection import (
+    generate_pixel_grid,
+    project_points_to_pixels,
+    unproject_depth_to_points,
+)
 
 __all__ = [
     "average_quaternions", "mat_to_quat", "normalize_quat", "quat_to_mat",
@@ -47,4 +52,5 @@ __all__ = [
     "depth_scale_weights", "huber_weights", "irls_sim3_umeyama",
     "irls_sim3_umeyama_batched", "method_of_horn", "scale_lse_solver", "umeyama",
     "weighted_median_scale",
+    "generate_pixel_grid", "project_points_to_pixels", "unproject_depth_to_points",
 ]

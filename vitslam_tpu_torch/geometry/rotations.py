@@ -29,6 +29,15 @@ def quat_to_mat(quat: torch.Tensor) -> torch.Tensor:
     return m.reshape(quat.shape[:-1] + (3, 3))
 
 
+def _sqrt_positive_part(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(x, 0)) with a zero gradient where x <= 0: the sqrt is only
+    evaluated on positive entries (sqrt(clamp(x, 0)) would give an infinite
+    derivative at 0, and 0 * inf = NaN in the backward)."""
+    positive = x > 0
+    return torch.where(positive, torch.sqrt(torch.where(positive, x, torch.ones_like(x))),
+                       torch.zeros_like(x))
+
+
 def mat_to_quat(matrix: torch.Tensor) -> torch.Tensor:
     """Rotation matrices (..., 3, 3) -> quaternions (..., 4) xyzw, w >= 0.
 
@@ -38,7 +47,7 @@ def mat_to_quat(matrix: torch.Tensor) -> torch.Tensor:
     m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
-    q_abs = torch.stack(
+    q_abs = _sqrt_positive_part(torch.stack(
         [
             1.0 + m00 + m11 + m22,
             1.0 + m00 - m11 - m22,
@@ -46,7 +55,7 @@ def mat_to_quat(matrix: torch.Tensor) -> torch.Tensor:
             1.0 - m00 - m11 + m22,
         ],
         dim=-1,
-    ).clamp_min(0.0).sqrt()
+    ))
     # candidate quaternions in wxyz order; row k assumes q_abs[k] is largest
     quat_by_rijk = torch.stack(
         [

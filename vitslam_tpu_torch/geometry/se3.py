@@ -39,13 +39,22 @@ def compute_relative_poses(extrinsics: torch.Tensor, offset: int = 1,
     return rel[..., :3, :4]
 
 
+def scale_translation(mats: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(..., 3|4, 4) transforms with their translation column multiplied by
+    ``scale`` (broadcast over the leading dims), out of place, so autograd
+    can differentiate through both."""
+    t = mats[..., :3, 3:] * scale[..., None, None]
+    top = torch.cat([mats[..., :3, :3], t], dim=-1)
+    return torch.cat([top, mats[..., 3:, :]], dim=-2)
+
+
 def apply_sim3_on_c2w(poses: torch.Tensor, transform: torch.Tensor,
                       scale: torch.Tensor) -> torch.Tensor:
     """Scale the translations of c2w poses (B, S, 3|4, 4), then left-multiply
     by the rigid transform (B, 4, 4)."""
-    poses = pad_to_4x4(poses.float()).clone()
+    poses = pad_to_4x4(poses.float())
     B = poses.shape[0]
-    poses[..., :3, 3] = poses[..., :3, 3] * scale.reshape(B, 1, 1)
+    poses = scale_translation(poses, scale.reshape(B, 1))
     return transform[:, None].float() @ poses
 
 

@@ -13,7 +13,10 @@ S - (T - 1) so overlapping frames share ids; self-attention on the first
 chunk) or global attention over the (T+S)*P tokens. Decoder (fp32): chunk
 token cross-attends frame tokens and memory, GatedUpdate writes the memory,
 frame tokens cross-attend the chunk token, small MLPs decode the encodings.
-Training-time frame dropout is not ported (inference only).
+In training (``train=True``) the non-overlap frame tokens of a continuation
+chunk are dropped with probability ``drop_prob_nonoverlap`` before the frame
+decoder and the rest rescaled by 1/(1-p), the keep mask drawn from the
+``torch.Generator`` the caller passes.
 """
 from __future__ import annotations
 
@@ -35,13 +38,14 @@ class AlignmentHead(nn.Module):
                  num_register_tokens: int = 4, qk_norm: bool = True,
                  rope_base: float = 100.0, init_values: float = 0.01,
                  num_memory_tokens: int = 8, temporal_attention: bool = True,
-                 dtype=torch.bfloat16, device=None):
+                 drop_prob_nonoverlap: float = 0.2, dtype=torch.bfloat16, device=None):
         super().__init__()
         self.patch_size, self.embed_dim, self.dec_dim = patch_size, embed_dim, dec_dim
         self.depth_aa, self.depth_decoder = depth_aa, depth_decoder
         self.num_register_tokens = num_register_tokens
         self.num_memory_tokens = num_memory_tokens
         self.temporal_attention, self.dtype = temporal_attention, dtype
+        self.drop_prob_nonoverlap = drop_prob_nonoverlap
         enc = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm, init_values=init_values,
                    rope_base=rope_base, device=device)
         self.project_in = Dense(in_dim, embed_dim, dtype=dtype, device=device)
@@ -91,10 +95,12 @@ class AlignmentHead(nn.Module):
 
     def forward(self, tokens: torch.Tensor, image_size: Tuple[int, int],
                 next_num_overlap: int, overlap_tokens: Optional[torch.Tensor] = None,
-                memory_tokens: Optional[torch.Tensor] = None):
+                memory_tokens: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """tokens (B, S, P0, in_dim); overlap_tokens (B, T, 1+P0, embed_dim)
-        or None (first chunk); memory_tokens (B, M, dec_dim) or None.
-        Returns (chunk_sim3_enc (B, 1, 8), frame_se3_encs (B, S-1, 7),
+        or None (first chunk; detached on receipt); memory_tokens (B, M,
+        dec_dim) or None; train: the non-overlap frame dropout, drawn from
+        ``generator`` (torch's default generator when None). Returns (chunk_sim3_enc (B, 1, 8), frame_se3_encs (B, S-1, 7),
         memory_tokens (B, M, dec_dim) or None,
         new_overlap_tokens (B, 1+next_num_overlap, 1+P0, embed_dim))."""
         H, W = image_size
@@ -145,12 +151,15 @@ class AlignmentHead(nn.Module):
                 x = xg.reshape(B, -1, P, E)[:, -S:]
 
         chunk_sim3_enc, frame_se3_encs, memory_tokens = self._decode(
-            x[:, :, 0, :].float(), memory_tokens)
+            x[:, :, 0, :].float(), memory_tokens, next_num_overlap,
+            train and not first_chunk, generator)
         new_overlap = torch.cat([x[:, :1], x[:, S - next_num_overlap:]], dim=1)
         return chunk_sim3_enc, frame_se3_encs, memory_tokens, new_overlap
 
-    def _decode(self, frame_tokens_in, memory_tokens):
-        """fp32 decode of the alignment encodings."""
+    def _decode(self, frame_tokens_in, memory_tokens, num_overlap: int, dropout: bool,
+                generator: Optional[torch.Generator]):
+        """fp32 decode of the alignment encodings; ``dropout``: drop the
+        non-overlap frame tokens (a training continuation chunk)."""
         B, S, _ = frame_tokens_in.shape
         M = self.num_memory_tokens
         dev = frame_tokens_in.device
@@ -191,6 +200,14 @@ class AlignmentHead(nn.Module):
         chunk_tok = self.chunk_norm(chunk_tok)
 
         frame_toks = tokens[:, 1:]
+        p = self.drop_prob_nonoverlap
+        n_drop = S - 1 - num_overlap
+        if dropout and p > 0.0 and n_drop > 1:
+            u = torch.rand((B, n_drop), generator=generator,
+                           device=generator.device if generator is not None else dev)
+            keep = (u.to(dev) > p).float()[..., None]
+            mask = torch.cat([keep, torch.ones((B, num_overlap, 1), device=dev)], dim=1)
+            frame_toks = frame_toks * mask / (1.0 - p)
         for i in range(self.depth_decoder):
             frame_toks = getattr(self, f"frame_cross_block_{i}")(frame_toks, chunk_tok,
                                                                  pos_frames)

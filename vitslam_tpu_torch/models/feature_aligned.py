@@ -23,6 +23,7 @@ from ..geometry import (
     pose_encoding_to_extri,
     pose_encoding_to_extri_intri,
 )
+from ..geometry.se3 import scale_translation
 from ..slam.state import FeatureAlignContext
 from .alignment_head import AlignmentHead
 from .vggt_core import VGGTCore
@@ -81,17 +82,21 @@ class FeatureAlignedVGGT(nn.Module):
 
     def forward(self, images: torch.Tensor, num_overlap: int,
                 context: Optional[FeatureAlignContext] = None,
-                gt_poses: Optional[torch.Tensor] = None):
+                gt_poses: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """One chunk step: images (B, S, 3, H, W) in [0, 1]. Returns (outputs,
         FeatureAlignContext) with pose_enc (B,S,9), depth (B,S,H,W,1),
         depth_conf (B,S,H,W), world_points (B,S,H,W,3), world_points_conf,
-        chunk_sim3_enc (B,1,8), frame_se3_enc (B,S-1,7), memory_tokens."""
+        chunk_sim3_enc (B,1,8), frame_se3_enc (B,S-1,7), memory_tokens.
+        train: the AlignmentHead's frame dropout, drawn from ``generator``."""
         raw = self.encode_chunks(images)
-        return self.align_chunk(raw, images.shape, num_overlap, context, gt_poses)
+        return self.align_chunk(raw, images.shape, num_overlap, context, gt_poses, train,
+                                generator)
 
     def align_chunk(self, raw: dict, images_shape, num_overlap: int,
                     context: Optional[FeatureAlignContext] = None,
-                    gt_poses: Optional[torch.Tensor] = None):
+                    gt_poses: Optional[torch.Tensor] = None, train: bool = False,
+                    generator: Optional[torch.Generator] = None):
         """The sequential stage: AlignmentHead + fp32 pose/scale composition
         over the raw outputs of :meth:`encode_chunks`."""
         B, S, _, H, W = images_shape
@@ -101,7 +106,7 @@ class FeatureAlignedVGGT(nn.Module):
         ctx_memory = (context.memory_tokens
                       if (context is not None and self.enable_memory) else None)
         chunk_sim3_enc, frame_se3_enc, memory_tokens, overlap_tokens = self.alignment_head(
-            raw["last_tap"], (H, W), overlap, ctx_tokens, ctx_memory)
+            raw["last_tap"], (H, W), overlap, ctx_tokens, ctx_memory, train, generator)
 
         chunk_se3 = pose_encoding_to_extri(chunk_sim3_enc)    # (B,1,4,4)
         chunk_scale = chunk_sim3_enc[..., -1]                 # (B,1)
@@ -165,6 +170,4 @@ class FeatureAlignedVGGT(nn.Module):
 
 def _scale_t(extr: torch.Tensor, chunk_scale: torch.Tensor) -> torch.Tensor:
     """extr (B, S, 4, 4) with its translations multiplied by chunk_scale (B, 1)."""
-    extr = extr.clone()
-    extr[:, :, :3, 3] = extr[:, :, :3, 3] * chunk_scale[:, :, None]
-    return extr
+    return scale_translation(extr, chunk_scale)

@@ -32,7 +32,9 @@ ENTRY_POINTS = {
     "fused_attention": ("vitslam_fused_qkv_attention_bf16",
                         [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
     "flash_attention": ("vitslam_flash_attention_bf16",
-                        [_P] * 5 + [_I] * 5 + [_LL] * 12 + [_P]),
+                        [_P] * 6 + [_I] * 5 + [_LL] * 12 + [_P]),
+    "flash_attention_bwd": ("vitslam_flash_attention_bwd_bf16",
+                            [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_LL] * 21 + [_P]),
 }
 
 _lock = threading.Lock()

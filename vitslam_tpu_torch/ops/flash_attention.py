@@ -1,6 +1,6 @@
-"""Streaming flash attention forward (port of the K3 part of
-vitslam_tpu/ops/flash_attention.py) and the launcher that K2
-(``ops.fused_attention.flat_flash_attention``) shares with it.
+"""Streaming flash attention, forward and backward (port of K3 and K4 of
+vitslam_tpu/ops/flash_attention.py), and the launcher that K2
+(``ops.fused_attention.flat_flash_attention``) shares with the forward.
 
 ``flash_attention`` takes (B, H, Nq, D) queries and (B, H, Nk, D) keys and
 values, self or cross (Nq != Nk), with a fixed softmax shift (``static_max``,
@@ -8,6 +8,13 @@ the qk-norm logit bound) or an online row max. On a CUDA tensor it launches
 the hand-written Hopper kernel in ``csrc/flash_attention.cu`` (or raises);
 on a CPU tensor it runs ``flash_attention_plain``, the plain PyTorch version
 of the same math (the counterpart of ``_xla_attention``).
+
+Gradients (the counterpart of the reference's custom VJP ``_flash``): when
+an input requires grad, the forward also writes the log2-domain row
+logsumexp (``flash_attention_lse``, K3's lse output), and the backward is
+``flash_attention_backward`` (K4, ``csrc/flash_attention_bwd.cu``: the FA2
+formulas from the saved output and lse). The softmax shift is never
+differentiated (the reference's ``stop_gradient(smax)``).
 """
 from __future__ import annotations
 
@@ -16,8 +23,8 @@ import math
 import torch
 
 LOG2E = 1.4426950408889634  # log2(e): folded into q so the softmax is exp2
-KERNEL_HEAD_DIM = 64
-# the plain version computes its fp32 logits this many elements at a time
+KERNEL_HEAD_DIMS = (64, 128)
+# the plain versions compute their fp32 logits this many elements at a time
 # (a block of query rows against all keys), so the 30,900-token global
 # attention of the large-chunk slice fits the card
 PLAIN_MAX_LOGITS = 1 << 28
@@ -27,88 +34,266 @@ def shift_tensor(static_max, device) -> torch.Tensor:
     """The log2-domain softmax shift as a device scalar: the kernels read it
     from device memory, so a shift computed on the device never syncs."""
     t = torch.as_tensor(static_max, dtype=torch.float32, device=device)
-    return (t.reshape(1) * LOG2E).contiguous()
+    return (t.detach().reshape(1) * LOG2E).contiguous()
+
+
+def _row_blocks(q: torch.Tensor, nk: int) -> int:
+    """Query rows per block so that one block's logits stay under
+    PLAIN_MAX_LOGITS; each row's softmax is independent of the others, so
+    the blocking does not change the result."""
+    return max(1, PLAIN_MAX_LOGITS // max(1, math.prod(q.shape[:-2]) * nk))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float | None = None) -> torch.Tensor:
+                          scale: float | None = None, with_lse: bool = False):
     """softmax(q k^T * scale) v over (..., Nq, D) / (..., Nk, D): logits and
     softmax in fp32, probabilities cast to v's dtype before P V (as
-    ``_xla_attention``). Query rows are taken in blocks of at most
-    PLAIN_MAX_LOGITS logits; each row's softmax is independent of the others,
-    so the blocking does not change the result."""
+    ``_xla_attention``). With ``with_lse`` also returns the (..., Nq) fp32
+    log2 of the row sums of the exp2-domain logits (K3's lse output).
+    Query rows are taken in blocks of at most PLAIN_MAX_LOGITS logits."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     kt = k.float().transpose(-1, -2)
-    rows = max(1, PLAIN_MAX_LOGITS // max(1, math.prod(q.shape[:-2]) * k.shape[-2]))
-    outs = []
+    rows = _row_blocks(q, k.shape[-2])
+    outs, lses = [], []
     for i in range(0, q.shape[-2], rows):
-        s = torch.matmul(q[..., i:i + rows, :].float(), kt)
-        p = torch.softmax(s * scale, dim=-1)
-        outs.append(torch.matmul(p.to(v.dtype), v))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
+        s = torch.matmul(q[..., i:i + rows, :].float(), kt) * scale
+        outs.append(torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v))
+        if with_lse:
+            lses.append(torch.logsumexp(s, dim=-1) * LOG2E)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
+    if not with_lse:
+        return out
+    return out, (lses[0] if len(lses) == 1 else torch.cat(lses, dim=-1))
 
 
-def launch_streaming(q, k, v, out, shift) -> None:
-    """Launch ``csrc/flash_attention.cu`` on (B, H, N, 64) bf16 views q (with
-    scale * log2(e) folded in), k, v and out, addressed through their
-    strides; ``shift`` is a device scalar from ``shift_tensor`` or None for
-    an online row max. Raises on what the kernel does not take."""
+def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: float | None = None):
+    """The FA2 backward, written out in fp32 (the plain version of K4 and
+    the counterpart of ``_flash_backward``): with s = q k^T * scale *
+    log2(e), P = exp2(s - lse), D = rowsum(dO * O), dS = P * (dO v^T - D):
+    dq = scale * dS k, dk = scale * dS^T q, dv = P^T dO. lse is (..., Nq)
+    fp32 in the log2 domain. Query rows are taken in blocks of at most
+    PLAIN_MAX_LOGITS logits; dk and dv sum over the blocks. Returns
+    (dq, dk, dv) in q's, k's and v's dtypes."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    kf, vf = k.float(), v.float()
+    dmat = (dout.float() * out.float()).sum(dim=-1)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dqs = []
+    rows = _row_blocks(q, k.shape[-2])
+    for i in range(0, q.shape[-2], rows):
+        qb = q[..., i:i + rows, :].float()
+        gb = dout[..., i:i + rows, :].float()
+        p = torch.exp2(torch.matmul(qb, kf.transpose(-1, -2)) * (scale * LOG2E)
+                       - lse[..., i:i + rows, None])
+        ds = p * (torch.matmul(gb, vf.transpose(-1, -2)) - dmat[..., i:i + rows, None])
+        dqs.append(torch.matmul(ds, kf) * scale)
+        dk += torch.matmul(ds.transpose(-1, -2), qb) * scale
+        dv += torch.matmul(p.transpose(-1, -2), gb)
+    dq = dqs[0] if len(dqs) == 1 else torch.cat(dqs, dim=-2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_operands(kernel: str, ref: torch.Tensor, **tensors) -> None:
+    """Raise on what the kernels do not take: bf16 (B, H, N, D) tensors on
+    ref's device with D in KERNEL_HEAD_DIMS, a contiguous head dim and
+    16-byte aligned rows (rows are copied 16 bytes at a time)."""
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{kernel} kernel: {name} on {t.device}, q on {ref.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{kernel} kernel takes bf16, got {name} {t.dtype}")
+        if t.dim() != 4 or t.shape[-1] not in KERNEL_HEAD_DIMS:
+            raise ValueError(f"{kernel} kernel takes (B, H, N, D) with D in "
+                             f"{KERNEL_HEAD_DIMS}, got {name} {tuple(t.shape)}")
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"{kernel} kernel needs a contiguous head dim and "
+                             f"16-byte aligned rows, got {name} strides {t.stride()}")
+
+
+def _strides(*tensors) -> list[int]:
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def launch_streaming(q, k, v, out, shift, lse=None) -> None:
+    """Launch ``csrc/flash_attention.cu`` on (B, H, N, D) bf16 views q (with
+    scale * log2(e) folded in), k, v and out, D 64 or 128, addressed through
+    their strides; ``shift`` is a device scalar from ``shift_tensor`` or None
+    for an online row max; ``lse``, if given, an fp32 (B, H, Nq) contiguous
+    buffer for the log2-domain row logsumexp. Raises on what the kernel does
+    not take."""
     from .cuda_build import library
 
-    tensors = dict(q=q, k=k, v=v, out=out)
-    for name, t in tensors.items():
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash attention kernel: {name} on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash attention kernel takes bf16, got {name} {t.dtype}")
-        if t.dim() != 4 or t.shape[-1] != KERNEL_HEAD_DIM:
-            raise ValueError(f"flash attention kernel takes (B, H, N, {KERNEL_HEAD_DIM}), "
-                             f"got {name} {tuple(t.shape)}")
-        # rows are copied 16 bytes at a time
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"flash attention kernel needs a contiguous head dim and "
-                             f"16-byte aligned rows, got {name} strides {t.stride()}")
+    _check_kernel_operands("flash attention", q, q=q, k=k, v=v, out=out)
     B, H, nq, dh = q.shape
     nk = k.shape[2]
-    if k.shape != v.shape or k.shape[:2] != (B, H) or out.shape != q.shape:
+    if (k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[-1] != dh
+            or out.shape != q.shape):
         raise ValueError(f"flash attention kernel: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} out {tuple(out.shape)}")
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    if lse is not None and (lse.dtype != torch.float32 or lse.shape != (B, H, nq)
+                            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash attention kernel: lse must be fp32 ({B}, {H}, {nq}) "
+                         f"contiguous on {q.device}")
     with torch.cuda.device(q.device):
         err = library("flash_attention").vitslam_flash_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if shift is None else shift.data_ptr(), B, H, nq, nk, dh, *strides,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            None if shift is None else shift.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, nq, nk, dh,
+            *_strides(q, k, v, out), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    static_max=None, with_lse: bool = False) -> torch.Tensor:
-    """Flash attention over (B, H, Nq, D) queries and (B, H, Nk, D) keys and
-    values, with logits scaled by 1/sqrt(D). static_max: an upper bound on
-    |logits| (fixed softmax shift), or None for an online row max. Returns
-    (B, H, Nq, D).
-
-    CPU tensor: the plain version. CUDA tensor: the kernel (bf16, D 64), or
-    an error; its output is a (B, H, Nq, D) view of a (B, Nq, H, D) buffer,
-    so the caller's merge of the heads back to (B, Nq, H*D) is free.
-    ``flash_attention.launches`` counts kernel launches."""
-    if with_lse:
-        raise NotImplementedError("the log2 lse output of K3 belongs to the training "
-                                  "slice and is not ported yet")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
+def _forward_kernel(q, k, v, static_max, lse):
+    """The CUDA forward: q scaled by log2(e) / sqrt(D) in fp32 and rounded
+    to bf16; the output is a (B, H, Nq, D) view of a (B, Nq, H, D) buffer,
+    so the caller's merge of the heads back to (B, Nq, H*D) is free."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     B, H, nq, dh = q.shape
     qs = (q.float() * (LOG2E / math.sqrt(dh))).to(torch.bfloat16)
     out = torch.empty((B, nq, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
     shift = None if static_max is None else shift_tensor(static_max, q.device)
-    launch_streaming(qs, k, v, out, shift)
+    launch_streaming(qs, k, v, out, shift, lse)
+    return out
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        static_max=None):
+    """K3 with its lse output: (out (B, H, Nq, D), lse (B, H, Nq) fp32, log2
+    domain), the residuals of the backward. CPU tensor: the plain version;
+    CUDA tensor: the kernel (bf16, D 64 or 128), or an error. No autograd of
+    its own. ``flash_attention_lse.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, with_lse=True)
+    B, H, nq, _ = q.shape
+    lse = torch.empty((B, H, nq), dtype=torch.float32, device=q.device)
+    out = _forward_kernel(q, k, v, static_max, lse)
+    flash_attention_lse.launches += 1
+    return out, lse
+
+
+flash_attention_lse.launches = 0
+
+
+def flash_attention_backward(q, k, v, out, lse, dout):
+    """K4: (dq, dk, dv) of flash attention from the forward's inputs, output
+    and lse and the output's gradient, in q's, k's and v's dtypes. CPU
+    tensor: ``flash_attention_backward_plain``; CUDA tensor: the dq and dk/dv
+    kernels of ``csrc/flash_attention_bwd.cu`` (bf16, D 64 or 128), or an
+    error. q is scaled by log2(e) / sqrt(D) and rounded to bf16 exactly as
+    the forward did, so the rebuilt P is the forward's.
+    ``flash_attention_backward.launches`` counts kernel launches (each
+    launches both kernels)."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, lse, dout)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward runs on cpu or cuda, not {q.device}")
+    from .cuda_build import library
+
+    if dout.dtype == torch.bfloat16 and (dout.stride(-1) != 1 or dout.data_ptr() % 16
+                                         or any(s % 8 for s in dout.stride()[:3])):
+        dout = dout.contiguous()  # autograd hands over whatever layout it has
+    B, H, nq, dh = q.shape
+    nk = k.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    qs = (q.float() * (LOG2E * scale)).to(torch.bfloat16)
+    dq = torch.empty((B, nq, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    dk = torch.empty((B, nk, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    dv = torch.empty((B, nk, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    _check_kernel_operands("flash attention backward", q, q=qs, k=k, v=v, dout=dout,
+                           dq=dq, dk=dk, dv=dv)
+    if (k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[-1] != dh
+            or dout.shape != q.shape or lse.shape != (B, H, nq)):
+        raise ValueError(f"flash attention backward kernel: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} dout {tuple(dout.shape)} "
+                         f"lse {tuple(lse.shape)}")
+    lse = lse.float().contiguous()
+    dmat = (dout.float() * out.float()).sum(dim=-1).contiguous()  # D = rowsum(dO * O)
+    with torch.cuda.device(q.device):
+        err = library("flash_attention_bwd").vitslam_flash_attention_bwd_bf16(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dmat.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, nq, nk, dh,
+            scale, *_strides(qs, k, v, dout, dq, dk, dv),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward kernel launch failed: CUDA error {err}")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward. ``use_kernel``: the kernel
+    wrappers (K3 with lse, then K4; their plain versions on the CPU), or
+    the plain versions on any device (``flash_attention_reference``). Saves
+    q, k, v, the output and the lse: O(N) memory, no (Nq x Nk) logits."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, static_max, use_kernel):
+        if use_kernel:
+            out, lse = flash_attention_lse(q, k, v, static_max=static_max)
+        else:
+            out, lse = flash_attention_plain(q, k, v, with_lse=True)
+        ctx.use_kernel = use_kernel
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_backward if ctx.use_kernel else flash_attention_backward_plain
+        dq, dk, dv = bwd(q, k, v, out, lse, dout)
+        return dq, dk, dv, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    static_max=None, with_lse: bool = False):
+    """Flash attention over (B, H, Nq, D) queries and (B, H, Nk, D) keys and
+    values, with logits scaled by 1/sqrt(D). static_max: an upper bound on
+    |logits| (fixed softmax shift), or None for an online row max. Returns
+    (B, H, Nq, D), and with ``with_lse`` also the (B, H, Nq) fp32 log2
+    lse.
+
+    CPU tensor: the plain version. CUDA tensor: the kernel (bf16, D 64 or
+    128), or an error; its output is a (B, H, Nq, D) view of a (B, Nq, H, D)
+    buffer. Differentiable in q, k and v: when one requires grad the
+    forward runs with lse (``flash_attention_lse``) and the backward is K4
+    (``flash_attention_backward``). ``flash_attention.launches`` counts the
+    forward launches without lse."""
+    static_max = static_max.detach() if isinstance(static_max, torch.Tensor) else static_max
+    if _needs_grad(q, k, v):
+        out, lse = _FlashAttention.apply(q, k, v, static_max, True)
+        return (out, lse) if with_lse else out
+    if with_lse:
+        return flash_attention_lse(q, k, v, static_max=static_max)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    out = _forward_kernel(q, k, v, static_max, None)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The plain versions of K3 and K4 as one differentiable function, on
+    any device: what the flash route computes when the kernels are switched
+    off (``ops.attention.plain_attention_routes``). Unlike autograd through
+    ``flash_attention_plain`` it keeps no (Nq x Nk) probabilities for the
+    backward, so the head's 10,738-token global attention fits the card."""
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, None, False)[0]
+    return flash_attention_plain(q, k, v)

@@ -20,7 +20,13 @@ import math
 
 import torch
 
-from .flash_attention import LOG2E, flash_attention_plain, launch_streaming, shift_tensor
+from .flash_attention import (
+    LOG2E,
+    _needs_grad,
+    flash_attention_plain,
+    launch_streaming,
+    shift_tensor,
+)
 
 LN_EPS = 1e-6
 KERNEL_HEAD_DIMS = (64,)
@@ -65,7 +71,35 @@ def fused_qkv_attention_plain(qkv, *, num_heads, cos=None, sin=None, q_ln=None,
     return o.transpose(1, 2).reshape(B, N, C)
 
 
-def _launch(qkv, *, num_heads, cos, sin, q_ln, k_ln, scale, static_max, nsplit):
+class _FusedQKV(torch.autograd.Function):
+    """K1 forward, backward by autograd through ``fused_qkv_attention_plain``
+    (the reference's ``_fused_bwd`` recomputes through ``_fused_reference``
+    the same way). The LayerNorm params may require grad; the RoPE tables
+    and the softmax shift never do."""
+
+    @staticmethod
+    def forward(ctx, qkv, q_w, q_b, k_w, k_b, cos, sin, static_max, kw):
+        ln = {} if q_w is None else dict(q_ln=(q_w, q_b), k_ln=(k_w, k_b))
+        ctx.kw = dict(kw, cos=cos, sin=sin, static_max=static_max)
+        ctx.save_for_backward(qkv, q_w, q_b, k_w, k_b)
+        return _launch(qkv, **ln, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        leaves = [None if t is None else t.detach().requires_grad_(t.requires_grad)
+                  for t in saved]
+        qkv, q_w, q_b, k_w, k_b = leaves
+        ln = {} if q_w is None else dict(q_ln=(q_w, q_b), k_ln=(k_w, k_b))
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            out = fused_qkv_attention_plain(qkv, **ln, **ctx.kw)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t is not None and t.requires_grad else None for t in leaves),
+                None, None, None, None)
+
+
+def _launch(qkv, *, num_heads, cos, sin, q_ln=None, k_ln=None, scale, static_max, nsplit):
     from .cuda_build import library
 
     B, N, C3 = qkv.shape
@@ -129,8 +163,9 @@ def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, cos=None, sin=None
     for an online row max. Returns (B, N, C).
 
     CPU tensor: the plain version. CUDA tensor: the kernel (bf16, dh 64,
-    N <= 4096, contiguous), or an error. ``fused_qkv_attention.launches``
-    counts kernel launches."""
+    N <= 4096, contiguous), or an error; differentiable in qkv and the
+    LayerNorm params, with the backward recomputed through the plain
+    version. ``fused_qkv_attention.launches`` counts kernel launches."""
     dh = qkv.shape[-1] // 3 // num_heads
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
@@ -140,6 +175,12 @@ def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, cos=None, sin=None
         return fused_qkv_attention_plain(qkv, **kw)
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention runs on cpu or cuda, not {qkv.device}")
+    ln = [*(q_ln or (None, None)), *(k_ln or (None, None))]
+    if _needs_grad(qkv, *ln):
+        del kw["q_ln"], kw["k_ln"], kw["cos"], kw["sin"], kw["static_max"]
+        if isinstance(static_max, torch.Tensor):
+            static_max = static_max.detach()
+        return _FusedQKV.apply(qkv, *ln, cos, sin, static_max, kw)
     return _launch(qkv, **kw)
 
 
@@ -172,16 +213,27 @@ def flat_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensor: the plain version. CUDA tensor: the kernel (bf16 k/v, head
     dim 64, rows 16-byte aligned; v may be a strided slice of the qkv
-    projection), or an error. ``flat_flash_attention.launches`` counts
-    kernel launches."""
-    B, nq, C = q.shape
-    fold = LOG2E / math.sqrt(C // num_heads)
+    projection), or an error; differentiable in q, k and v, with the
+    backward recomputed through the plain version.
+    ``flat_flash_attention.launches`` counts kernel launches."""
     if q.device.type == "cpu":
-        qs = (q.float() * fold).to(q.dtype)
+        qs = (q.float() * (LOG2E / math.sqrt(q.shape[-1] // num_heads))).to(q.dtype)
         return flat_flash_attention_plain(qs, k, v, num_heads=num_heads)
     if q.device.type != "cuda":
         raise ValueError(f"flat_flash_attention runs on cpu or cuda, not {q.device}")
-    qs = (q.float() * fold).to(torch.bfloat16)
+    if isinstance(static_max, torch.Tensor):
+        static_max = static_max.detach()
+    if _needs_grad(q, k, v):
+        return _FlatFlash.apply(q, k, v, static_max, num_heads)
+    return _launch_flat(q, k, v, static_max, num_heads)
+
+
+flat_flash_attention.launches = 0
+
+
+def _launch_flat(q, k, v, static_max, num_heads):
+    B, nq, C = q.shape
+    qs = (q.float() * (LOG2E / math.sqrt(C // num_heads))).to(torch.bfloat16)
     out = torch.empty((B, nq, C), dtype=torch.bfloat16, device=q.device)
     launch_streaming(_heads(qs, num_heads), _heads(k, num_heads), _heads(v, num_heads),
                      _heads(out, num_heads), shift_tensor(static_max, q.device))
@@ -189,4 +241,26 @@ def flat_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-flat_flash_attention.launches = 0
+class _FlatFlash(torch.autograd.Function):
+    """K2 forward, backward by autograd through the scale fold and
+    ``flat_flash_attention_plain`` (the reference's ``_flat_bwd`` recomputes
+    through ``_flat_reference`` the same way). The shift is not
+    differentiated."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, static_max, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v)
+        return _launch_flat(q, k, v, static_max, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_(t.requires_grad) for t in ctx.saved_tensors]
+        q, k, v = leaves
+        fold = LOG2E / math.sqrt(q.shape[-1] // ctx.num_heads)
+        wanted = [t for t in leaves if t.requires_grad]
+        with torch.enable_grad():
+            out = flat_flash_attention_plain((q.float() * fold).to(q.dtype), k, v,
+                                             num_heads=ctx.num_heads)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in leaves), None, None)

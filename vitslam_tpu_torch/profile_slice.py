@@ -1,18 +1,19 @@
 """Where the time goes in the port's slices on one GPU, under torch.profiler
 (seeded random weights, synthetic 518x154 sequences): the flagship 5/1
-pipeline over 17 frames per driver (slice 1), and the flagship
-point-aligned model at chunk 75 / overlap 30 over 165 frames, sequential
-(slice 2); plus K1 beside torch's SDPA flash backend as a yardstick at the
-5/1 attention shapes.
+pipeline over 17 frames per driver (slice 1), the flagship point-aligned
+model at chunk 75 / overlap 30 over 165 frames, sequential (slice 2), and
+one train step of the flagship's global-mode AlignmentHead at bucket
+(20, 5) on a 40-frame GT batch (slice 3); plus K1 beside torch's SDPA flash
+backend as a yardstick at the 5/1 attention shapes.
 
-    python -m vitslam_tpu_torch.profile_slice [--out profile_out]
+    python -m vitslam_tpu_torch.profile_slice [--out profile_out] [--train-only]
 
-Prints, per driver: wall seconds of a steady run, device-busy seconds (the
+Prints, per run: wall seconds of a steady run, device-busy seconds (the
 union of kernel intervals in the trace), the idle share, and the kernels
 grouped by family with their device time. Writes a gzipped Chrome trace
-per driver under --out. Needs CUDA. The profiler slows the host side, so
-its wall times and idle shares are upper bounds; time the drivers
-without it with chip_smoke.py.
+per run under --out. Needs CUDA. The profiler slows the host side, so
+its wall times and idle shares are upper bounds; time the runs without it
+with chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -30,7 +31,9 @@ import torch
 
 FAMILIES = [  # (family, regex on the kernel name), first match wins
     ("K1 fused_qkv_attention", r"fused_qkv_attention_kernel"),
-    # K2 and K3 are one CUDA kernel; slice 2's main path launches only K2
+    ("K4 flash backward (dq, dk/dv)", r"flash_bwd_"),
+    # K2 and K3 are one CUDA kernel; slice 2's main path launches only K2,
+    # slice 3's train step both (K2 in the backbone, K3 with lse in the head)
     ("K2/K3 flash_attention", r"flash_attention_kernel"),
     ("conv (cuDNN)", r"fprop|conv|cudnn|implicit|winograd|dgrad"),
     ("gemm (cuBLAS)", r"gemm|cutlass|xmma|nvjet|cublas|Kernel2"),
@@ -64,16 +67,48 @@ def _busy_seconds(events) -> float:
 
 def profile_driver(model, batch, encode_batch: int, out: Path, label: str,
                    width: int = 5, overlap: int = 1) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
     from .slam import ChunkedPipeline
 
     pipe = ChunkedPipeline(model, encode_batch=encode_batch)
-    pipe.run_sequence(batch, chunk_width=width, num_overlap=overlap)  # warm-up
+    return profile_run(lambda: pipe.run_sequence(batch, chunk_width=width, num_overlap=overlap),
+                       out, label)
+
+
+def profile_train(out: Path, label: str = "train_global_20_5") -> dict:
+    """One Trainer step (after a warm-up step) of flagship(temporal_attention
+    =False) without its point head, with the train keys of the training
+    config, at bucket (20, 5) on a synthetic 40-frame GT batch: 3 chunks of
+    20, 20 and 10 frames."""
+    from .models import flagship
+    from .train import MultitaskLoss, Trainer
+    from .train.config import VKITTI_TRAIN_CFG
+    from .utils import make_synthetic_batch
+
+    model = flagship(device="cuda", seed=0, enable_point=False, temporal_attention=False)
+    cfg = dict(VKITTI_TRAIN_CFG, exp_name=label, logging={"log_dir": str(out / "logs")},
+               checkpoint={"save_dir": str(out / "ckpt")})
+    trainer = Trainer(cfg, model, MultitaskLoss(**cfg["loss"]))
+    state = trainer.init_state()
+    batch = make_synthetic_batch(B=1, N=40, H=154, W=518, seed=3)
+    chunks, merged = trainer._prepare_chunks(batch, 20, 5)
+    step_fn = trainer._get_step_fn(5)
+
+    def step():
+        _, metrics = step_fn(state, chunks, merged, trainer.generator)
+        float(metrics["objective"])
+
+    return profile_run(step, out, label)
+
+
+def profile_run(fn, out: Path, label: str) -> dict:
+    """Run ``fn`` once to warm up, then once under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pipe.run_sequence(batch, chunk_width=width, num_overlap=overlap)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     trace = out / f"trace_{label}.json"
@@ -134,6 +169,8 @@ def sdpa_yardstick() -> list[dict]:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--train-only", action="store_true",
+                    help="profile only the train step of slice 3")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA GPU")
@@ -147,6 +184,10 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     report = {"device": smi.stdout.strip() or torch.cuda.get_device_name(0)}
+    if args.train_only:
+        report["train_global_20_5"] = profile_train(out)
+        print(json.dumps(report, indent=1))
+        return
     batch = {"images": rng.uniform(0, 1, size=(1, 17, 3, 154, 518)).astype(np.float32)}
     model = flagship(device="cuda", seed=0)
     for label, eb in (("sequential", 1), ("encode_batch4", 4)):
@@ -158,6 +199,9 @@ def main() -> None:
     model = flagship_point_aligned(device="cuda", seed=0)
     report["point_75_30_sequential"] = profile_driver(model, batch, 1, out, "point_75_30",
                                                       width=75, overlap=30)
+    del model
+    torch.cuda.empty_cache()
+    report["train_global_20_5"] = profile_train(out)
     print(json.dumps(report, indent=1))
 
 

@@ -1,7 +1,8 @@
-"""Chunk scheduling and sequence assembly (port of the driver part of
+"""Chunk scheduling and sequence assembly (port of
 vitslam_tpu/slam/chunking.py): ``generate_chunks`` (index schedules),
-``chunk_batch`` (per-chunk slicing) and ``merge_chunk_outputs``
-(overlap-deduplicating concatenation)."""
+``chunk_batch`` (per-chunk slicing), ``merge_chunk_outputs``
+(overlap-deduplicating concatenation), ``normalize_extrinsics_and_points``
+(first-camera-centric GT normalisation) and ``check_and_fix_inf_nan``."""
 from __future__ import annotations
 
 import random
@@ -9,6 +10,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..geometry import closed_form_inverse_se3, pad_to_4x4
 
 # keys concatenated along the frame axis with overlap dedup
 FRAME_AXIS_KEYS = (
@@ -108,3 +111,49 @@ def merge_chunk_outputs(chunk_dicts: Sequence[dict], overlap: int) -> dict:
         else:
             merged[key] = vals[-1]
     return merged
+
+
+def check_and_fix_inf_nan(x: torch.Tensor, name: str = "tensor",
+                          hard_max: Optional[float] = None) -> torch.Tensor:
+    """NaN and +-Inf replaced by 0, optionally clamped to [-hard_max,
+    hard_max] (``name`` is the reference's label and changes nothing)."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    if hard_max is not None:
+        x = x.clamp(-hard_max, hard_max)
+    return x
+
+
+def normalize_extrinsics_and_points(extrinsics: torch.Tensor,
+                                    cam_points: Optional[torch.Tensor] = None,
+                                    world_points: Optional[torch.Tensor] = None,
+                                    depths: Optional[torch.Tensor] = None,
+                                    scale_by_points: bool = False,
+                                    point_masks: Optional[torch.Tensor] = None):
+    """Re-express GT w2c extrinsics (B, S, 3|4, 4) and world points
+    (B, S, H, W, 3) in the first camera's frame, optionally scaling the
+    scene to unit mean point distance. Returns (extrinsics (B, S, 3, 4),
+    cam_points, world_points, depths)."""
+    e = pad_to_4x4(extrinsics.float())
+    new_e = e @ closed_form_inverse_se3(e[:, 0])[:, None]
+    new_world = None
+    if world_points is not None:
+        R = e[:, 0, :3, :3]
+        t = e[:, 0, :3, 3]
+        new_world = (torch.einsum("bij,bshwj->bshwi", R, world_points.float())
+                     + t[:, None, None, None, :])
+    if scale_by_points:
+        if world_points is None or point_masks is None:
+            raise ValueError("scale_by_points needs world_points and point_masks")
+        dist = torch.linalg.vector_norm(new_world, dim=-1)
+        m = point_masks.float()
+        avg = ((dist * m).sum(dim=(1, 2, 3)) / (m.sum(dim=(1, 2, 3)) + 1e-3)).clamp(1e-6, 1e6)
+        new_world = new_world / avg[:, None, None, None, None]
+        new_e = new_e.clone()
+        new_e[:, :, :3, 3] = new_e[:, :, :3, 3] / avg[:, None, None]
+        if depths is not None:
+            depths = depths / avg[:, None, None, None]
+        if cam_points is not None:
+            cam_points = cam_points / avg[:, None, None, None, None]
+        return (check_and_fix_inf_nan(new_e[:, :, :3]), cam_points,
+                check_and_fix_inf_nan(new_world), depths)
+    return new_e[:, :, :3], cam_points, new_world, depths

@@ -1,5 +1,6 @@
 """ChunkedPipeline — the streaming driver around the per-chunk model step
-(port of vitslam_tpu/slam/pipeline.py, inference only).
+(port of vitslam_tpu/slam/pipeline.py, the inference driver; training runs
+its own chunk loop in ``train/train_step.py``).
 
 Two drivers give the same numbers:
 
@@ -12,7 +13,10 @@ Two drivers give the same numbers:
   to an 8-frame bucket: that padding only saves XLA recompiles.
 
 Each chunk's outputs are fetched to the host (``.cpu()``) as soon as its
-alignment ran; only the fixed-size context state stays on the device.
+alignment ran; only the fixed-size context state stays on the device. The
+GT alignment (``slam/gt_alignment.py``) runs on the host outputs:
+``per_chunk_scale_from_poses`` per chunk before the merge, every other type
+on the merged predictions.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from ..geometry import pad_to_4x4
 from .chunking import chunk_batch, generate_chunks, merge_chunk_outputs
+from .gt_alignment import align_outputs, per_chunk_scale_from_poses
 
 
 class ChunkedPipeline:
@@ -45,14 +50,14 @@ class ChunkedPipeline:
     @torch.inference_mode()
     def run_sequence(self, batch: dict, sample_mode: str = "chunk_overlap",
                      chunk_width: int = 5, num_overlap: int = 1,
-                     gt_alignment_type: str = "none") -> tuple[dict, dict]:
+                     gt_alignment_type: str = "none",
+                     seq_width: int = -1) -> tuple[dict, dict]:
         """Run the chunk-and-align loop over a batch with 'images'
-        (B, N, 3, H, W) and optional GT keys. Returns (predictions, merged GT
-        batch), merged along frames, on the host."""
-        if gt_alignment_type not in (None, "none"):
-            raise NotImplementedError(
-                f"gt_alignment_type={gt_alignment_type!r} needs slam/gt_alignment, "
-                "which is not ported yet")
+        (B, N, 3, H, W) and optional GT keys ('extrinsics', 'depths',
+        'point_masks', 'world_points', ...), then the GT alignment of
+        ``gt_alignment_type`` (``seq_width`` as in ``align_outputs``).
+        Returns (predictions, merged GT batch), merged along frames, on the
+        host."""
         images = batch["images"]
         indices = generate_chunks(images.shape[1], sample_mode, chunk_width, num_overlap)
         chunks = chunk_batch(batch, indices)
@@ -76,8 +81,14 @@ class ChunkedPipeline:
                 outputs, state = self.step(chunk["images"], num_overlap, state, gt_poses)
             chunk_outputs.append({k: v.cpu() for k, v in outputs.items()})
 
+        if gt_alignment_type == "per_chunk_scale_from_poses":
+            chunk_outputs = per_chunk_scale_from_poses(chunk_outputs, chunks)
         mo = 0 if sample_mode in ("chunk_gt", "two_chunks", "all") else num_overlap
-        return merge_chunk_outputs(chunk_outputs, mo), merge_chunk_outputs(chunks, mo)
+        predictions = merge_chunk_outputs(chunk_outputs, mo)
+        merged_batch = merge_chunk_outputs(chunks, mo)
+        predictions = align_outputs(predictions, merged_batch, gt_alignment_type, seq_width,
+                                    image_size_hw=tuple(images.shape[-2:]))
+        return predictions, merged_batch
 
     def _encode_all(self, chunks: list[dict], indices, seq_images) -> list:
         """Stage 1 of the two-stage driver: batch same-shape chunks along B,

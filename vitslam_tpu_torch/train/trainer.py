@@ -1,0 +1,219 @@
+"""Trainer (port of vitslam_tpu/train/trainer.py): per step a batch from
+``train_data``, a random (chunk width, overlap) with the reference's
+validity rules (or from ``shape_buckets``), first-frame GT normalisation,
+chunking, the train step, CSV logging, and checkpoints with resume through
+the ``_latest`` link. Seeding as in the reference: numpy draws from
+``(seed + rank) * max_steps`` (rank 0 here), the dropout and loss draws
+from a ``torch.Generator`` seeded with ``seed + rank``.
+
+``train_data`` is any object whose ``get_loader(epoch)`` yields batches of
+numpy arrays. Parts that belong to later slices raise NotImplementedError:
+``validate`` and ``test`` (the eval slice), more than one device or model
+shard and the orbax checkpoint backend (the distributed slice).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..io.checkpoint import CheckpointManager, load_checkpoint
+from ..slam import chunk_batch, generate_chunks, merge_chunk_outputs
+from ..slam.chunking import normalize_extrinsics_and_points
+from .logging_utils import CSVLogger, StepProgress
+from .losses import MultitaskLoss
+from .optim import build_optimizer, freeze_params
+from .train_step import TrainState, make_train_step
+
+
+def sample_chunk_shapes(rng: np.random.Generator, S: int, chunk_width_range, overlap_range,
+                        buckets=None) -> tuple[int, int]:
+    """A random (chunk_width, overlap): at least one full chunk fits and
+    overlap < width. With ``buckets``, a random valid bucket entry instead.
+    The numpy draws are the reference's, so one seed gives one sequence."""
+    if buckets:
+        valid = [(w, o) for (w, o) in buckets if S / w > 1 and o < w]
+        if valid:
+            w, o = valid[int(rng.integers(0, len(valid)))]
+            return int(w), int(o)
+    rev_w = np.arange(chunk_width_range[1], chunk_width_range[0] - 1, -1)
+    max_w = int(rev_w[int(np.argmax((S / rev_w) > 1))])
+    w = int(rng.integers(chunk_width_range[0], max_w + 1))
+    rev_o = np.arange(overlap_range[1], overlap_range[0] - 1, -1)
+    max_o = int(rev_o[int(np.argmax(rev_o < w))])
+    o = int(rng.integers(overlap_range[0], max_o + 1))
+    return w, o
+
+
+def _later_slice(what: str, slice_name: str):
+    raise NotImplementedError(f"{what} is not ported yet: it belongs to the {slice_name} "
+                              "slice of the port (ROADMAP queue 1)")
+
+
+class Trainer:
+    def __init__(self, cfg: dict, model, loss: MultitaskLoss, train_data=None,
+                 val_data=None, metrics=None, freeze_patterns=None, shape_buckets=None):
+        self.cfg = cfg
+        self.model = model
+        self.loss = loss
+        self.train_data = train_data
+        self.val_data = val_data
+        self.metrics = metrics
+        self.shape_buckets = shape_buckets
+
+        if int(cfg.get("num_devices", 0)) > 1 or int(cfg.get("num_model_shards", 1)) > 1:
+            _later_slice("training on more than one device", "distributed")
+        ckpt_cfg = cfg.get("checkpoint", {})
+        if str(ckpt_cfg.get("backend", "msgpack")) == "orbax":
+            _later_slice("the orbax (sharded) checkpoint backend", "distributed")
+
+        self.max_steps = int(cfg.get("max_steps", 1000))
+        self.sample_mode = cfg.get("sample_mode", "chunk_overlap")
+        self.gt_alignment_type = cfg.get("gt_alignment_type", "scale_from_depths")
+        cw = cfg.get("chunk_width", [3, 20])
+        ov = cfg.get("num_overlap", [1, 5])
+        self.chunk_width_range = cw if isinstance(cw, (list, tuple)) else [cw, cw]
+        self.overlap_range = ov if isinstance(ov, (list, tuple)) else [ov, ov]
+        self.val_freq = int(cfg.get("val_epoch_freq", 250))
+        self.accum_steps = int(cfg.get("accum_steps", 1))
+        self.exp_name = cfg.get("exp_name", "experiment")
+
+        self.loss.setup_scheduling(self.max_steps)
+        optim_cfg = cfg.get("optim", {})
+        lr_opts = optim_cfg.get("options", {}).get("lr", {})
+        self.optim_kwargs = dict(
+            max_lr=float(lr_opts.get("max_value", 5e-5)),
+            min_lr=float(lr_opts.get("min_value", 1e-8)),
+            total_steps=self.max_steps,
+            warmup_percent=float(lr_opts.get("linear_steps", 0.05)),
+            weight_decay=float(optim_cfg.get("optimizer", {}).get("weight_decay", 0.05)),
+            grad_clip_norm=float(optim_cfg.get("gradient_clip", {}).get("max_norm", 1.0)),
+            accum_steps=self.accum_steps)
+        self.freeze_patterns = list(freeze_patterns if freeze_patterns is not None
+                                    else optim_cfg.get("frozen_module_names", []))
+
+        log_cfg = cfg.get("logging", {})
+        self.logger = CSVLogger(log_cfg.get("log_dir", "logs"), self.exp_name)
+        self.log_freq = int(log_cfg.get("log_freq", 10))
+        self.ckpt = CheckpointManager(ckpt_cfg.get("save_dir", "ckpt"), self.exp_name,
+                                      save_freq=int(ckpt_cfg.get("save_freq", 500)))
+        self.resume = bool(ckpt_cfg.get("resume_from_checkpoint", False))
+
+        self.seed = int(cfg.get("seed_value", 42))
+        rank = 0
+        self.rng_np = np.random.default_rng((self.seed + rank) * self.max_steps)
+        self.generator = torch.Generator().manual_seed(self.seed + rank)
+        self.state: Optional[TrainState] = None
+        self.schedule = None
+        self._step_cache: dict = {}
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    # --- state -----------------------------------------------------------
+    def init_state(self, sample_batch: Optional[dict] = None) -> TrainState:
+        """Freeze by the patterns, build the optimizer over the trainable
+        parameters, and resume from the ``_latest`` link when asked to.
+        (The model already holds its weights; ``sample_batch`` is accepted
+        for the reference's signature.)"""
+        trainable = freeze_params(self.model, self.freeze_patterns)
+        optimizer, self.schedule = build_optimizer(trainable, **self.optim_kwargs)
+        self.state = TrainState(trainable=trainable, optimizer=optimizer, step=0)
+        if self.resume:
+            path = self.ckpt.resume_path()
+            if path:
+                self.restore(load_checkpoint(path))
+                print(f"resumed from {path} at step {self.state.step}")
+        return self.state
+
+    def state_dict(self) -> dict:
+        """The train state as saved: trainable tensors by name, optimizer
+        state, step."""
+        s = self.state
+        return {"trainable": {n: p.detach() for n, p in s.trainable.items()},
+                "optimizer": s.optimizer.state_dict(), "step": s.step}
+
+    def restore(self, saved: dict) -> None:
+        with torch.no_grad():
+            for n, p in self.state.trainable.items():
+                p.copy_(saved["trainable"][n])
+        self.state.optimizer.load_state_dict(saved["optimizer"])
+        self.state.step = int(saved["step"])
+
+    def _get_step_fn(self, num_overlap: int):
+        if num_overlap not in self._step_cache:
+            self._step_cache[num_overlap] = make_train_step(
+                self.model, self.loss, num_overlap, gt_alignment_type=self.gt_alignment_type,
+                use_gt_poses=self.sample_mode in ("chunk_gt", "two_chunks"))
+        return self._step_cache[num_overlap]
+
+    @staticmethod
+    def normalize_batch(batch: dict) -> dict:
+        """First-frame-centric GT normalisation before the forward pass
+        (scale_by_points=False, as the reference's training)."""
+        if "extrinsics" not in batch:
+            return batch
+        out = dict(batch)
+        world = batch.get("world_points")
+        e, _, w, _ = normalize_extrinsics_and_points(
+            torch.as_tensor(batch["extrinsics"]),
+            world_points=None if world is None else torch.as_tensor(world))
+        out["extrinsics"] = e.numpy()
+        if w is not None:
+            out["world_points"] = w.numpy()
+        return out
+
+    def _prepare_chunks(self, batch: dict, width: int, overlap: int):
+        batch = self.normalize_batch(batch)
+        S = batch["images"].shape[1]
+        indices = generate_chunks(S, self.sample_mode, width, overlap)
+        chunks_np = chunk_batch({k: v for k, v in batch.items() if isinstance(v, np.ndarray)},
+                                indices)
+        merged_np = merge_chunk_outputs(chunks_np, 0)
+        dev = self.device
+        put = lambda d: {k: torch.as_tensor(v, device=dev) for k, v in d.items()}  # noqa: E731
+        return tuple(put(c) for c in chunks_np), put(merged_np)
+
+    # --- loops -------------------------------------------------------------
+    def fit(self) -> TrainState:
+        if self.train_data is None:
+            raise ValueError("fit() needs train_data")
+        progress = StepProgress(self.max_steps, self.log_freq)
+        start_step = 0
+        if self.state is None:
+            self.init_state(next(self.train_data.get_loader(epoch=0)))
+            start_step = self.state.step
+        for step in range(start_step, self.max_steps):
+            batch = next(self.train_data.get_loader(epoch=step))
+            S = batch["images"].shape[1]
+            width, overlap = sample_chunk_shapes(self.rng_np, S, self.chunk_width_range,
+                                                 self.overlap_range, self.shape_buckets)
+            chunks, merged = self._prepare_chunks(batch, width, overlap)
+            self.state, metrics = self._get_step_fn(overlap)(self.state, chunks, merged,
+                                                             self.generator)
+            if step % self.log_freq == 0:
+                host = {k: float(v) for k, v in metrics.items()}
+                host["train/chunk_width"] = width
+                host["train/chunk_overlap"] = overlap
+                host["train/lr"] = float(self.schedule(step))
+                self.logger.log_metrics(host, step)
+                progress.update(step, host)
+            if (step + 1) % self.val_freq == 0:
+                self.validate(step)
+            self.ckpt.maybe_save(step + 1, self.state_dict())
+        self.ckpt.finish()
+        return self.state
+
+    def current_params(self) -> dict:
+        """name -> parameter of the model (trained and frozen)."""
+        return dict(self.model.named_parameters())
+
+    def validate(self, step: int = 0):
+        if self.val_data is None or self.metrics is None:
+            return {}
+        _later_slice("validation (eval/*, the Metrics orchestrator)", "eval")
+
+    def test(self):
+        _later_slice("the full-sequence test (eval/*, the Metrics orchestrator)", "eval")
