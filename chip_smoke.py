@@ -40,12 +40,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 8,260 / 10,738 / 6,608 tokens runs K3 with lse forward and K4
                 backward; then one step's head gradients through the kernels
                 held against the same step on plain attention.
+10. tail 5/1   — flagship(mlp_tail="both") over the 17-frame 5/1 sequence,
+                sequential driver: every backbone block's two residual tails
+                through K5 (144 launches a chunk); it and the slice 5/1
+                sequential run (same seed, tails off) each held against an
+                fp32 run of its own math with the same weights.
+11. eval       — the test mode's Metrics (the keys of
+                configs/test_featureAlignedVGGT_vkitti.yaml: scale_from_poses,
+                chunk 5 / overlap 1, ATE, RPE, Chamfer after ICP, the ICP cap
+                of 500,000 points) over a synthetic 17-frame 518x154 GT
+                sequence served by a BaseDataset, the tail model on the card;
+                then the same eval on the card and on the CPU over one set of
+                predictions (registered onto the GT points, ICP cap 20,000)
+                held to each other.
 
 The kernel phase also holds K3's lse output and K4 against their plain
-versions at the global head's shapes. Every path runs with the kernels'
-launch counts set to 0 just before it and reads them just after. The line
-before the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}.
+versions at the global head's shapes, and K5 at the mlp and proj tails of
+the 5/1 and 75/30 chunks. Every path runs with the kernels' launch counts
+set to 0 just before it and reads them just after. The line before the last
+is a JSON summary of the kernels; the last line is {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -71,6 +85,7 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                             "vitslam_tpu/ops/flash_attention.py:116"),
     "flash_attention_backward": ("cuda", "vitslam_tpu_torch/csrc/flash_attention_bwd.cu",
                                  "vitslam_tpu/ops/flash_attention.py:384"),
+    "mlp_tail": ("cuda", "vitslam_tpu_torch/csrc/mlp_tail.cu", "vitslam_tpu/ops/mlp_tail.py:54"),
 }
 # K4 is two TPU kernels, dq (:384) and dk/dv (:421); the port launches both
 # per call of flash_attention_backward
@@ -80,6 +95,10 @@ ALSO_REPLACES = {"flash_attention_backward": "vitslam_tpu/ops/flash_attention.py
 # run the head in bf16, and the kernels round P and dS to bf16 where the
 # plain versions keep fp32, so per-tensor relative L2 error up to 3e-2
 GRAD_RTOL = 3e-2
+# the eval on the card against the same eval on the CPU over one set of
+# predictions: fp32 on both, distances summed in another order, so per
+# metric relative error
+EVAL_RTOL = 1e-3
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -144,11 +163,12 @@ def counters():
         flash_attention_lse,
     )
     from vitslam_tpu_torch.ops.fused_attention import flat_flash_attention, fused_qkv_attention
+    from vitslam_tpu_torch.ops.mlp_tail import mlp_tail
 
     return {"fused_qkv_attention": fused_qkv_attention,
             "flat_flash_attention": flat_flash_attention, "flash_attention": flash_attention,
             "flash_attention_lse": flash_attention_lse,
-            "flash_attention_backward": flash_attention_backward}
+            "flash_attention_backward": flash_attention_backward, "mlp_tail": mlp_tail}
 
 
 def reset_launches() -> None:
@@ -263,14 +283,20 @@ def _sdpa_bwd_ms(q, k, v, dout) -> float:
 
 
 def _report(results: dict, name: str, case: str, main: bool, err: float, rl2: float,
-            ms: float, plain_ms: float, library_ms: float, flop: float, nbytes: int):
+            ms: float, plain_ms: float, library_ms, flop: float, nbytes: int, **extra):
+    """Print and keep one case. ``library_ms``: one torch call computing the
+    same function (SDPA), or None where there is none; ``extra`` carries
+    other yardsticks (K5: the unfused tail)."""
     bound_ms, bound_by = _bound(flop, nbytes)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    more = "".join(f" {k} {v:.4f} ms" for k, v in extra.items())
     print(f"[kernels] {name} {case}: max_abs_err {err:.3e} rel-L2 {rl2:.2e} kernel {ms:.4f} ms "
           f"({flop / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of bound {bound_ms:.4f} ms, "
-          f"{bound_by}) plain {plain_ms:.4f} ms SDPA-flash {library_ms:.4f} ms")
+          f"{bound_by}) plain {plain_ms:.4f} ms library {lib}{more}")
     results.setdefault(name, []).append(dict(
         case=case, main=main, max_abs_err=err, rel_l2=rl2, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flop / ms / 1e9))
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flop / ms / 1e9,
+        **extra))
 
 
 def kernels_k1(results: dict, g, dev):
@@ -445,6 +471,68 @@ def kernels_k3_lse_k4(results: dict, g, dev):
         torch.cuda.empty_cache()
 
 
+def kernels_k5(results: dict, g, dev):
+    """K5 at the backbone's two tail sites of a 5/1 chunk (M = 5 x 412 rows)
+    and of a 75/30 chunk (M = 75 x 412), C 1,024: the mlp site (gelu, F
+    4,096, no LayerNorm) and the proj site (F 1,024, LayerNorm). No torch
+    call computes K5's function, so library_ms is None; the yardstick is
+    the port's unfused tail on the same inputs (F.linear + gelu +
+    LayerScale + residual add + ln_apply, the fp32 weight cast per call),
+    which the main path runs with the tails off; tail_route_ms is K5 as a
+    block calls it (nn.layers.dense_tail: LayerScale folded into the fp32
+    weight, cast, then K5)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitslam_tpu_torch.nn.layers import Dense, dense_tail, ln_apply
+    from vitslam_tpu_torch.ops.mlp_tail import mlp_tail, mlp_tail_plain
+
+    C = 1024
+    cases = [  # (name, M, F, gelu, LayerNorm, main-path case)
+        ("mlp 5/1 M=2060 F=4096 C=1024 gelu", 2060, 4096, True, False, True),
+        ("proj 5/1 M=2060 F=1024 C=1024 LN", 2060, 1024, False, True, False),
+        ("mlp 75/30 M=30900 F=4096 C=1024 gelu", 30900, 4096, True, False, False),
+        ("proj 75/30 M=30900 F=1024 C=1024 LN", 30900, 1024, False, True, False),
+        # not on a path: the mlp site's GEMM without its gelu prologue, which
+        # shows what the in-kernel gelu costs
+        ("probe 5/1 M=2060 F=4096 C=1024 no gelu", 2060, 4096, False, False, False),
+    ]
+    for case, M, Fd, gelu, ln, main in cases:
+        randn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+        h = randn(M, Fd).to(torch.bfloat16)
+        res = randn(M, C).to(torch.bfloat16)
+        dense = Dense(Fd, C, dtype=torch.bfloat16, device=dev)
+        with torch.no_grad():
+            dense.weight.copy_(randn(C, Fd) / Fd ** 0.5)
+            dense.bias.copy_(0.1 * randn(C))
+        ls = 1.0 + 0.1 * randn(C)
+        gamma, beta = 1.0 + 0.1 * randn(C), 0.1 * randn(C)
+        w = (dense.weight * ls[:, None]).to(torch.bfloat16)  # LayerScale folded, as dense_tail
+        b = dense.bias * ls
+        kw = dict(gelu=gelu, ln=ln)
+        args = (h, w, b, res) + ((gamma, beta) if ln else ())
+        with torch.no_grad():
+            got = mlp_tail(*args, **kw)
+            want = mlp_tail_plain(*args, **kw)
+            got, want = (got, want) if ln else ((got,), (want,))
+            errs = [_check("K5", f"{case} {n}", a, c, ATOL)
+                    for a, c, n in zip(got, want, ("x", "y"))]
+            ms = _time_ms(lambda: mlp_tail(*args, **kw))
+            plain_ms = _time_ms(lambda: mlp_tail_plain(*args, **kw))
+            tail_ln = (gamma, beta) if ln else None
+            route_ms = _time_ms(lambda: dense_tail(dense, h, res, ls, tail_ln, gelu=gelu))
+
+            def unfused():
+                x = res + dense(F.gelu(h) if gelu else h) * ls.to(torch.bfloat16)
+                return (x, ln_apply(x, gamma, beta, torch.bfloat16)) if ln else x
+            unfused_ms = _time_ms(unfused)
+        _report(results, "mlp_tail", case, main, max(e[0] for e in errs), max(e[1] for e in errs),
+                ms, plain_ms, None, 2.0 * M * Fd * C, _nbytes(*args, *got),
+                unfused_ms=unfused_ms, tail_route_ms=route_ms)
+        del h, res, dense, w, got, want
+        torch.cuda.empty_cache()
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -455,6 +543,7 @@ def phase_kernels() -> dict:
     kernels_k2(results, g, dev)
     kernels_k3(results, g, dev)
     kernels_k3_lse_k4(results, g, dev)
+    kernels_k5(results, g, dev)
     return results
 
 
@@ -573,7 +662,9 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def phase_slice(smi: str) -> dict:
+def phase_slice(smi: str) -> tuple[dict, dict]:
+    """The flagship 5/1 through both drivers; returns the runs' stats and
+    the sequential run's predictions (the tail phase's reference)."""
     import torch
 
     from vitslam_tpu_torch.models import flagship
@@ -610,9 +701,10 @@ def phase_slice(smi: str) -> dict:
     bad = {k: v for k, v in errs.items() if not v <= DRIVER_RTOL}
     if bad:
         raise AssertionError(f"slice 5/1: drivers disagree: {bad}")
+    sequential = outs["sequential"]
     del model, outs
     _release()
-    return {f"slice 5/1 {label}": st for label, st in stats.items()}
+    return {f"slice 5/1 {label}": st for label, st in stats.items()}, sequential
 
 
 def phase_merge(smi: str) -> dict:
@@ -905,6 +997,198 @@ def phase_train(smi: str) -> dict:
     return runs
 
 
+def phase_tail(smi: str, tails_off: dict, off_stats: dict):
+    """flagship(mlp_tail="both") over the 17-frame 5/1 sequence, sequential
+    driver: all 72 backbone blocks of a chunk (2,060 rows each) take both
+    fused tails, 144 K5 launches a chunk. The two bf16 runs of the same
+    seed, tails on and off (slice 5/1 sequential), differ by bf16 rounding
+    amplified through 72 random-weight blocks, and by the tails' own math
+    (the LayerNorm's centered variance against ln_apply's E[x^2] - E[x]^2,
+    LayerScale folded into the weight). So each is held against an fp32
+    run of its own math with the same weights (plain attention; the tails
+    through K5's plain version): the K5 path may be no further from its
+    fp32 run than REFERENCE_FACTOR times the tails-off run's own bf16
+    error, plus 1e-3, as the reference phase holds the GPU. Returns the
+    model (the eval phase runs it) and the run's stats."""
+    import torch
+
+    import vitslam_tpu_torch.nn.layers as layers
+    from vitslam_tpu_torch.models import flagship
+    from vitslam_tpu_torch.ops import mlp_tail_plain, plain_attention_routes
+    from vitslam_tpu_torch.slam import ChunkedPipeline
+
+    model = flagship(device="cuda", seed=0, mlp_tail="both")
+    n_frames, H, W = 17, 154, 518
+    batch = _synthetic_sequence(n_frames, H, W, seed=0)
+    pred, stats = _drive(model, batch, "tail 5/1 sequential", smi, 5, 1)
+    _check_outputs("tail 5/1", {"sequential": pred}, {"pose_enc": (1, n_frames, 9),
+                                                      "depth": (1, n_frames, H, W, 1),
+                                                      "world_points": (1, n_frames, H, W, 3)})
+    n_chunks = pred["chunk_sim3_enc"].shape[1]
+    _expect("tail 5/1", stats["launches"], {"mlp_tail": 144 * n_chunks,
+                                            "fused_qkv_attention": 72 * n_chunks,
+                                            "flat_flash_attention": 0, "flash_attention": 0})
+    fp32 = {}
+    real = layers.mlp_tail
+    layers.mlp_tail = mlp_tail_plain  # fp32 CUDA tensors: K5's math without the kernel
+    try:
+        with plain_attention_routes():
+            for tail in ("off", "both"):
+                ref = flagship(device="cuda", seed=0, dtype=torch.float32, mlp_tail=tail)
+                fp32[tail], _ = ChunkedPipeline(ref).run_sequence(batch, chunk_width=5,
+                                                                  num_overlap=1)
+                del ref
+    finally:
+        layers.mlp_tail = real
+    e_on, e_off = output_errors(pred, fp32["both"]), output_errors(tails_off, fp32["off"])
+    errs = output_errors(pred, tails_off)
+    gap = output_errors(fp32["both"], fp32["off"])
+    rnd = lambda e: json.dumps({k: round(v, 5) for k, v in e.items()})  # noqa: E731
+    print(f"[tail 5/1] rel-L2 against fp32 of the same math: tails on {rnd(e_on)}, tails off "
+          f"{rnd(e_off)} (tol {REFERENCE_FACTOR} x off + 1e-3); bf16 on vs off {rnd(errs)}; "
+          f"fp32 on vs off {rnd(gap)}; {stats['fps']:.2f} (on) vs {off_stats['fps']:.2f} (off) "
+          "new-frames/s")
+    bad = {k: v for k, v in e_on.items() if not v <= REFERENCE_FACTOR * e_off[k] + 1e-3}
+    if bad:
+        raise AssertionError(f"tail 5/1: the K5 path is further from its fp32 math than bf16 "
+                             f"allows: {bad}")
+    stats.update(rel_l2_on_vs_off=errs, rel_l2_on_vs_fp32=e_on, rel_l2_off_vs_fp32=e_off,
+                 rel_l2_fp32_on_vs_off=gap)
+    del pred, fp32
+    _release()
+    return model, {"tail 5/1 sequential": stats}
+
+
+def _sequence_dataset(n_frames: int, H: int, W: int, seed: int):
+    """A one-sequence BaseDataset serving the port's synthetic GT batch
+    (images, cameras, depths, world points, masks) in the readers' per-frame
+    layout: the machine with the card has no OpenCV to read files."""
+    from vitslam_tpu_torch.data import BaseDataset, CommonConfig
+    from vitslam_tpu_torch.utils import make_synthetic_batch
+
+    class SyntheticSequence(BaseDataset):
+        def __init__(self):
+            super().__init__(CommonConfig(img_size=W, training=False))
+            self.frames = {k: v[0] for k, v in make_synthetic_batch(
+                B=1, N=n_frames, H=H, W=W, seed=seed).items()}
+            self.frames["cam_points"] = np.zeros_like(self.frames["world_points"])
+            self.sequence_list = ["synthetic"]
+            self.sequence_list_len = 1
+            self.seq_frame_num = [n_frames]
+
+        def get_seq_name(self, seq_index):
+            return self.sequence_list[seq_index]
+
+        def get_data(self, seq_index=None, img_per_seq=None, seq_name=None, ids=None,
+                     aspect_ratio=1.0, rng=None):
+            ids = np.arange(n_frames) if ids is None else np.asarray(ids)
+            out = {k: v[ids] for k, v in self.frames.items()}
+            return dict(out, seq_name=self.get_seq_name(seq_index), ids=ids,
+                        frame_num=len(ids))
+
+    return SyntheticSequence()
+
+
+def _metrics(**overrides):
+    """The test mode's Metrics with the metric keys of
+    configs/test_featureAlignedVGGT_vkitti.yaml (PyYAML is not on the
+    machine with the card: the keys are copied)."""
+    from vitslam_tpu_torch.config.loader import instantiate
+
+    node = {"_target_": "vitslam_tpu.eval.orchestrator.Metrics", "mode": "test",
+            "overlap": [1, 1], "chunk_width": [5, 5], "full_seq_sample_mode": "chunk_overlap",
+            "gt_alignment_type": "scale_from_poses", "use_random_sequences": False,
+            "trajectory_metrics": [
+                {"_target_": "vitslam_tpu.eval.trajectory.AbsoluteTrajectoryError"},
+                {"_target_": "vitslam_tpu.eval.trajectory.RelativePoseError"}],
+            "reconstruction_metrics": [
+                {"_target_": "vitslam_tpu.eval.reconstruction.ChamferDistanceMetrics"}],
+            "visualize": False, "log_dir": None}
+    return instantiate(dict(node, **overrides))
+
+
+def phase_eval(smi: str, model) -> dict:
+    """Metrics.compute_full_sequence_metrics with the tail model on the
+    card: the chunk pipeline with scale_from_poses, then ATE, RPE and
+    Chamfer after ICP at the shipped cap of 500,000 points, all on the
+    card; the eval's time split into inference, kNN + ICP and the rest.
+    Then one set of predictions, registered onto the GT points
+    (sim3_from_points, so that ICP starts well posed), scored on the card
+    and on the CPU at an ICP cap of 20,000 (the CPU's kNN would take
+    minutes at the full cap), the two held to each other."""
+    import torch
+
+    from vitslam_tpu_torch.eval import get_sequence_data, icp, reconstruction
+    from vitslam_tpu_torch.slam import ChunkedPipeline
+
+    n_frames, H, W = 17, 154, 518
+    ds = _sequence_dataset(n_frames, H, W, seed=5)
+    metrics = _metrics()
+    if metrics.max_points_for_icp_full_seq != 500000:
+        raise AssertionError("eval: the shipped ICP cap of the full-sequence eval is 500,000")
+    pipe = ChunkedPipeline(model)
+    times = {"inference": 0.0, "knn_icp": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[key] += time.perf_counter() - t
+            return out
+        return run
+
+    real = (metrics.run_sequence, icp.nn_search, reconstruction.nn_dists)
+    metrics.run_sequence = timed("inference", metrics.run_sequence)
+    icp.nn_search = timed("knn_icp", icp.nn_search)
+    reconstruction.nn_dists = timed("knn_icp", reconstruction.nn_dists)
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = metrics.compute_full_sequence_metrics([ds], pipe)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        metrics.run_sequence, icp.nn_search, reconstruction.nn_dists = real
+    rest = secs - times["inference"] - times["knn_icp"]
+    print(f"[eval] {json.dumps(res)}")
+    print(f"[eval] compute_full_sequence_metrics {secs:.3f} s on {smi}: inference "
+          f"{times['inference']:.3f} s, kNN + ICP {times['knn_icp']:.3f} s, rest {rest:.3f} s; "
+          f"launches {launches}")
+    keys = ("ate_rmse", "rpe_trans_rmse", "rpe_rot_rmse", "chamfer_distance_rmse",
+            "accuracy_rmse", "completion_rmse")
+    prefix = "SyntheticSequence_synthetic/"
+    if not all(np.isfinite(res.get(prefix + k, np.nan)) for k in keys):
+        raise AssertionError(f"eval: missing or non-finite metrics in {res}")
+    _expect("eval", launches, {"mlp_tail": 144 * 4})
+
+    check = _metrics(gt_alignment_type="sim3_from_points", max_points_for_icp_full_seq=20000)
+    seq = get_sequence_data(ds, 0, "synthetic", n_frames)
+    preds = check.run_sequence(seq, pipe)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card = check.sequence_metrics(preds, seq, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu = check.sequence_metrics(preds, seq, device=torch.device("cpu"))
+    cpu_s = time.perf_counter() - t
+    errs = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    print(f"[eval] registered predictions, ICP cap 20,000: card {json.dumps(card)} in "
+          f"{card_s:.3f} s, CPU {cpu_s:.3f} s; max rel difference {max(errs.values()):.2e} "
+          f"(tol {EVAL_RTOL})")
+    bad = {k: v for k, v in errs.items() if not v <= EVAL_RTOL or not np.isfinite(card[k])}
+    if card.keys() != cpu.keys() or bad:
+        raise AssertionError(f"eval: the card and the CPU disagree: {bad}")
+    return {"eval": dict(seconds=secs, inference_s=times["inference"],
+                         knn_icp_s=times["knn_icp"], rest_s=rest, launches=launches,
+                         metrics=res, check_card=card, check_cpu=cpu,
+                         check_max_rel=max(errs.values()))}
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     smi = phase_device()
@@ -913,18 +1197,24 @@ def main() -> int:
     phase_build()
     results = phase_kernels()
     phase_reference()
-    runs = phase_slice(smi)
+    runs, tails_off = phase_slice(smi)
     runs.update(phase_merge(smi))
     runs.update(phase_large_chunk(smi))
     runs.update(phase_global_head(smi))
     runs.update(phase_train(smi))
+    model, tail_run = phase_tail(smi, tails_off, runs["slice 5/1 sequential"])
+    runs.update(tail_run)
+    runs.update(phase_eval(smi, model))
+    del model
+    _release()
     # each kernel's headline numbers: its case at the shapes of the path
     # named here, and the launches of that path's run
     main_path = {"fused_qkv_attention": "slice 75/30 point sequential",
                  "flat_flash_attention": "slice 75/30 point sequential",
                  "flash_attention": "merge 5/1 p2s2 sequential",
                  "flash_attention_lse": "train global (20, 5)",
-                 "flash_attention_backward": "train global (20, 5)"}
+                 "flash_attention_backward": "train global (20, 5)",
+                 "mlp_tail": "tail 5/1 sequential"}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
@@ -938,8 +1228,9 @@ def main() -> int:
             max_abs_err=max(c["max_abs_err"] for c in cases), ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
+            **{k: main_case[k] for k in ("unfused_ms", "tail_route_ms") if k in main_case},
             main_path=main_path[name], main_case=main_case["case"],
-            launches_by_path={label: st["launches"][name] for label, st in runs.items()},
+            launches_by_path={label: st["launches"].get(name, 0) for label, st in runs.items()},
             cases=cases))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written CUDA
-kernels (K1, K2, K3 with its lse output, K4) against their plain PyTorch
+kernels (K1, K2, K3 with its lse output, K4, K5) against their plain PyTorch
 versions, gradients through every kernel wrapper, and the presets' default
 device. They import no JAX, so they
 also run on a machine with the card and without JAX:
@@ -31,6 +31,7 @@ from vitslam_tpu_torch.ops.fused_attention import (  # noqa: E402
     fused_qkv_attention,
     fused_qkv_attention_plain,
 )
+from vitslam_tpu_torch.ops.mlp_tail import mlp_tail, mlp_tail_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -280,3 +281,96 @@ def test_gradients_flow_through_k1_and_k2(cuda):
     want = torch.autograd.grad((plain(q, k, v).float() * w).sum(), (q, k, v))
     for g, ref in zip(got, want):
         assert _rel_l2(g, ref) <= 1e-2
+
+
+def _tail_inputs(rng, M, Fd, C, dev):
+    """h, w2 (C, F), b2, res, gamma, beta at the backbone's scales: unit h
+    and res, weights ~ 1/sqrt(F) (lecun), LayerScale-sized bias."""
+    h = _bf16(rng, (M, Fd), dev)
+    w2 = (torch.tensor(rng.normal(size=(C, Fd)) / np.sqrt(Fd), dtype=torch.float32,
+                       device=dev)).to(torch.bfloat16)
+    vec = lambda mu, sd: torch.tensor(rng.normal(mu, sd, C), dtype=torch.float32,  # noqa: E731
+                                      device=dev)
+    return h, w2, vec(0, 0.1), _bf16(rng, (M, C), dev), vec(1, 0.1), vec(0, 0.1)
+
+
+@pytest.mark.parametrize("M,Fd,gelu,ln", [
+    (2060, 4096, True, False),    # 5/1 mlp site
+    (2060, 1024, False, True),    # 5/1 proj site
+    (30900, 4096, True, False),   # 75/30 mlp site
+    (30900, 1024, False, True),   # 75/30 proj site
+    (77, 128, True, True),        # ragged M, both epilogues
+    (333, 64, False, False),      # one K slice
+])
+def test_k5_kernel_matches_plain(cuda, M, Fd, gelu, ln):
+    """K5 against the plain version in bf16 on the card, elementwise within
+    2e-2 + 2e-2 * |plain| and rel-L2 <= 1e-2 per output (as in
+    chip_smoke.py: both round x' and y to bf16 and sum F products in
+    another order; y's statistics come from the fp32 x' on both sides)."""
+    rng = np.random.default_rng(11)
+    args = _tail_inputs(rng, M, Fd, 1024 if M > 1000 else 256, cuda)
+    before = mlp_tail.launches
+    got = mlp_tail(*args, gelu=gelu, ln=ln)
+    torch.cuda.synchronize()
+    assert mlp_tail.launches == before + 1
+    want = mlp_tail_plain(*args, gelu=gelu, ln=ln)
+    if not ln:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert _rel_l2(g, w) <= 1e-2
+
+
+def test_k5_gradients_through_the_wrapper(cuda):
+    """Autograd through K5: the backward recomputes through the plain
+    version, so the gradients equal those of the plain version up to the
+    forward's bf16 rounding (which does not enter them)."""
+    rng = np.random.default_rng(12)
+    args = [t.requires_grad_() for t in _tail_inputs(rng, 1100, 256, 256, cuda)]
+    w = _bf16(rng, (1100, 256), cuda).float()
+    before = mlp_tail.launches
+    x, y = mlp_tail(*args, gelu=True, ln=True)
+    assert mlp_tail.launches == before + 1
+    got = torch.autograd.grad(((x.float() + y.float()) * w).sum(), args)
+    xp, yp = mlp_tail_plain(*args, gelu=True, ln=True)
+    want = torch.autograd.grad(((xp.float() + yp.float()) * w).sum(), args)
+    for g, ref in zip(got, want):
+        assert _rel_l2(g, ref) <= 1e-5
+
+
+def test_k5_rejects_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(13)
+    h, w2, b2, res, g, b = _tail_inputs(rng, 64, 128, 256, cuda)
+    with pytest.raises(ValueError):  # F not a multiple of 64
+        mlp_tail(h[:, :96].contiguous(), w2[:, :96].contiguous(), b2, res, g, b)
+    with pytest.raises(ValueError):  # C not a multiple of 128
+        mlp_tail(h, w2[:192].contiguous(), b2[:192], res[:, :192].contiguous(), g[:192], b[:192])
+    with pytest.raises(ValueError):  # LayerNorm rows beyond the shared memory
+        big = _tail_inputs(rng, 8, 64, 1536, cuda)
+        mlp_tail(*big)
+    with pytest.raises(TypeError):  # fp32 h
+        mlp_tail(h.float(), w2, b2, res, g, b)
+    with pytest.raises(ValueError):  # a strided h
+        mlp_tail(h.t().contiguous().t(), w2, b2, res, g, b)
+
+
+def test_flagship_block_tails_on_the_card(cuda):
+    """A full-width backbone block (1,024 wide, 16 heads, LayerScale) over
+    2,060 rows with mlp_tail="both": two K5 launches, and the output within
+    bf16 noise of the same block with the tails off."""
+    from vitslam_tpu_torch.nn.layers import Block, init_weights
+
+    blk = init_weights(Block(1024, 16, qk_norm=False, init_values=1.0, dtype=torch.bfloat16,
+                             device=cuda, mlp_tail="both"),
+                       torch.Generator(device=cuda).manual_seed(0))
+    off = Block(1024, 16, qk_norm=False, init_values=1.0, dtype=torch.bfloat16, device=cuda)
+    off.load_state_dict(blk.state_dict())
+    x = _bf16(np.random.default_rng(14), (5, 412, 1024), cuda)
+    before = mlp_tail.launches
+    with torch.no_grad():
+        got = blk(x)
+        want = off(x)
+    torch.cuda.synchronize()
+    assert mlp_tail.launches == before + 2
+    assert _rel_l2(got, want) <= 1e-2

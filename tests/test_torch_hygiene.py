@@ -1,5 +1,6 @@
 """Hygiene of the port package: it never imports JAX or flax, every module
-imports on its own, and the weight loader is strict."""
+imports on its own (and without OpenCV, PyYAML or matplotlib, which the
+machine with the card lacks), and the weight loader is strict."""
 import os
 import subprocess
 import sys
@@ -26,8 +27,18 @@ MODULES = [
     "vitslam_tpu_torch.train.train_step", "vitslam_tpu_torch.train.trainer",
     "vitslam_tpu_torch.train.logging_utils", "vitslam_tpu_torch.train.config",
     "vitslam_tpu_torch.io.checkpoint",
+    "vitslam_tpu_torch.ops.mlp_tail", "vitslam_tpu_torch.ops.knn", "vitslam_tpu_torch.eval",
+    "vitslam_tpu_torch.eval.icp", "vitslam_tpu_torch.eval.trajectory",
+    "vitslam_tpu_torch.eval.reconstruction", "vitslam_tpu_torch.eval.prepare",
+    "vitslam_tpu_torch.eval.orchestrator", "vitslam_tpu_torch.viz", "vitslam_tpu_torch.viz.plots",
+    "vitslam_tpu_torch.config", "vitslam_tpu_torch.config.loader", "vitslam_tpu_torch.data",
+    "vitslam_tpu_torch.data.preprocess", "vitslam_tpu_torch.data.base",
+    "vitslam_tpu_torch.data.dynamic", "vitslam_tpu_torch.data.vkitti", "vitslam_tpu_torch.cli",
     "chip_smoke",
 ]
+# installed here, absent on the machine with the card: the package must
+# import without them (they are imported where a file is read or a plot made)
+HOST_ONLY = ("cv2", "yaml", "matplotlib")
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -35,6 +46,16 @@ def test_module_imports_alone_without_jax_or_flax(module):
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax'))\n"
             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_package_imports_without_cv2_yaml_or_matplotlib():
+    block = "".join(f"sys.modules[{m!r}] = None\n" for m in HOST_ONLY)
+    code = ("import sys\n" + block + "import " + ", ".join(
+        m for m in MODULES if m.startswith("vitslam_tpu_torch")) + "\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -408,7 +408,7 @@ def test_checkpoint_resume_and_fit(tmp_path, monkeypatch):
         assert torch.equal(p.detach(), want.detach()), n
     with pytest.raises(KeyError):
         tckpt.load_model_params(step3, target)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # the test mode needs val_data and metrics
         again.test()
     with pytest.raises(NotImplementedError):
         ttrain.Trainer(dict(_cfg(tmp_path, 1), num_devices=2), fresh,

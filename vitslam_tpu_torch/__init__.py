@@ -1,8 +1,9 @@
 """vitslam_tpu_torch — the PyTorch + CUDA port of ``vitslam_tpu``.
 
 The JAX package ``vitslam_tpu`` is the reference; this package mirrors its
-layout (``geometry``, ``nn``, ``ops``, ``models``, ``slam``, ``io``) and its
-public names, so each module here has a counterpart of the same name there.
+layout (``geometry``, ``nn``, ``ops``, ``models``, ``slam``, ``io``,
+``train``, ``eval``, ``config``, ``data``, ``viz``, ``cli``) and its public
+names, so each module here has a counterpart of the same name there.
 It imports ``torch`` and never ``jax`` or ``flax``.
 
 Precision policy (as in the reference): fp32 parameters, bf16 compute in

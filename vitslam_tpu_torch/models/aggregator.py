@@ -10,6 +10,9 @@ vitslam_tpu/models/aggregator.py).
   both with 2-D RoPE (base 100), special tokens at grid position (0, 0);
 * each pair's output is concat(frame_out, global_out) -> (B, S, T, 2C); only
   the tapped layers are kept;
+* ``mlp_tail`` ("off" | "mlp" | "proj" | "both"): the fused block tails
+  (K5) of every patch-embed, frame and global block, as the reference's
+  ``fused_tail=True`` blocks under ``VITSLAM_MLP_TAIL``;
 * optional KV merge of the global attention (``merge_pool`` p > 1 and
   ``merge_stride`` s): anchor frames (every s-th, frame 0 included) give all
   their tokens as keys/values, every other frame its special tokens plus its
@@ -51,7 +54,8 @@ class PatchEmbedViT(nn.Module):
     def __init__(self, img_size: int = 518, patch_size: int = 14,
                  embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
                  mlp_ratio: float = 4.0, init_values: float = 1.0,
-                 num_register_tokens: int = 4, dtype=torch.bfloat16, device=None):
+                 num_register_tokens: int = 4, dtype=torch.bfloat16, device=None,
+                 mlp_tail: str = "off"):
         super().__init__()
         self.img_size, self.patch_size, self.embed_dim = img_size, patch_size, embed_dim
         self.num_register_tokens, self.dtype = num_register_tokens, dtype
@@ -64,7 +68,7 @@ class PatchEmbedViT(nn.Module):
                                 if num_register_tokens else None)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qk_norm=False,
-                  init_values=init_values, dtype=dtype, device=device)
+                  init_values=init_values, dtype=dtype, device=device, mlp_tail=mlp_tail)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, dtype, device=device)
 
@@ -107,10 +111,11 @@ class AggregatorLayer(nn.Module):
     """One frame-attention + global-attention pair."""
 
     def __init__(self, dim, num_heads, mlp_ratio, qk_norm, init_values,
-                 rope_base, dtype, device=None):
+                 rope_base, dtype, device=None, mlp_tail: str = "off"):
         super().__init__()
         kw = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm, init_values=init_values,
-                  rope="2d", rope_base=rope_base, dtype=dtype, device=device)
+                  rope="2d", rope_base=rope_base, dtype=dtype, device=device,
+                  mlp_tail=mlp_tail)
         self.frame_block = Block(dim, num_heads, **kw)
         self.global_block = Block(dim, num_heads, **kw)
 
@@ -148,7 +153,8 @@ class Aggregator(nn.Module):
                  patch_embed_heads: int = 16, qk_norm: bool = True,
                  init_values: float = 0.01, dtype=torch.bfloat16,
                  intermediate_layers: Sequence[int] = (4, 11, 17, 23),
-                 merge_pool: int = 0, merge_stride: int = 1, device=None):
+                 merge_pool: int = 0, merge_stride: int = 1, device=None,
+                 mlp_tail: str = "off"):
         super().__init__()
         self.merge_pool, self.merge_stride = merge_pool, merge_stride
         self.patch_size, self.embed_dim, self.num_heads = patch_size, embed_dim, num_heads
@@ -158,12 +164,12 @@ class Aggregator(nn.Module):
         self.patch_embed = PatchEmbedViT(
             img_size=img_size, patch_size=patch_size, embed_dim=embed_dim,
             depth=patch_embed_depth, num_heads=patch_embed_heads, dtype=dtype,
-            device=device)
+            device=device, mlp_tail=mlp_tail)
         self.camera_token = _param(2, 1, embed_dim, device=device)
         self.register_token = _param(2, num_register_tokens, embed_dim, device=device)
         self.layers = nn.ModuleList(
             AggregatorLayer(embed_dim, num_heads, mlp_ratio, qk_norm, init_values,
-                            rope_base, dtype, device)
+                            rope_base, dtype, device, mlp_tail)
             for _ in range(depth))
 
     def init_params(self, g):

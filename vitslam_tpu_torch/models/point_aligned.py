@@ -34,7 +34,8 @@ class PointAlignedVGGT(nn.Module):
                  enable_camera: bool = True, enable_depth: bool = False,
                  enable_point: bool = True, enable_track: bool = False,
                  dpt_frames_chunk: int = 0, global_merge_pool: int = 0,
-                 global_merge_stride: int = 1, dtype=torch.bfloat16, device=None):
+                 global_merge_stride: int = 1, dtype=torch.bfloat16, device=None,
+                 mlp_tail: str = "off"):
         super().__init__()
         if not enable_point:
             raise ValueError("the point-aligned variant needs the point head")
@@ -46,7 +47,8 @@ class PointAlignedVGGT(nn.Module):
             enable_camera=enable_camera, enable_depth=enable_depth,
             enable_point=True, enable_track=enable_track,
             dpt_frames_chunk=dpt_frames_chunk, global_merge_pool=global_merge_pool,
-            global_merge_stride=global_merge_stride, dtype=dtype, device=device)
+            global_merge_stride=global_merge_stride, dtype=dtype, device=device,
+            mlp_tail=mlp_tail)
 
     def embed_frames(self, images: torch.Tensor) -> torch.Tensor:
         """Per-frame patch embedding (the pipeline's unique-frame dedup)."""

@@ -43,7 +43,8 @@ class PoseAlignedVGGT(nn.Module):
                  enable_camera: bool = True, enable_depth: bool = True,
                  enable_point: bool = False, enable_track: bool = False,
                  dpt_frames_chunk: int = 0, global_merge_pool: int = 0,
-                 global_merge_stride: int = 1, dtype=torch.bfloat16, device=None):
+                 global_merge_stride: int = 1, dtype=torch.bfloat16, device=None,
+                 mlp_tail: str = "off"):
         super().__init__()
         if not enable_camera:
             raise ValueError("the pose-aligned variant needs the camera head")
@@ -55,7 +56,8 @@ class PoseAlignedVGGT(nn.Module):
             enable_camera=True, enable_depth=enable_depth,
             enable_point=enable_point, enable_track=enable_track,
             dpt_frames_chunk=dpt_frames_chunk, global_merge_pool=global_merge_pool,
-            global_merge_stride=global_merge_stride, dtype=dtype, device=device)
+            global_merge_stride=global_merge_stride, dtype=dtype, device=device,
+            mlp_tail=mlp_tail)
 
     def embed_frames(self, images: torch.Tensor) -> torch.Tensor:
         """Per-frame patch embedding (the pipeline's unique-frame dedup)."""

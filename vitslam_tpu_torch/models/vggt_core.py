@@ -1,7 +1,9 @@
 """VGGTCore — the backbone + decoder-head stack shared by the aligned model
 variants (port of vitslam_tpu/models/vggt_core.py): an Aggregator plus
 optional CameraHead / DPTHead(depth) / DPTHead(point). The TrackHead is not
-ported (every reference config disables it)."""
+ported (every reference config disables it). ``mlp_tail`` picks the
+backbone blocks' fused tail sites (``nn.layers.Block``); the heads never
+take it."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -25,7 +27,7 @@ class VGGTCore(nn.Module):
                  dpt_out_channels: Sequence[int] = (256, 512, 1024, 1024),
                  dpt_frames_chunk: int = 0, camera_trunk_depth: int = 4,
                  global_merge_pool: int = 0, global_merge_stride: int = 1,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, mlp_tail: str = "off"):
         super().__init__()
         if enable_track:
             raise NotImplementedError("the TrackHead is not ported yet")
@@ -35,7 +37,8 @@ class VGGTCore(nn.Module):
             depth=depth, num_heads=num_heads, patch_embed_depth=patch_embed_depth,
             patch_embed_heads=patch_embed_heads,
             intermediate_layers=intermediate_layers, merge_pool=global_merge_pool,
-            merge_stride=global_merge_stride, dtype=dtype, device=device)
+            merge_stride=global_merge_stride, dtype=dtype, device=device,
+            mlp_tail=mlp_tail)
         dim_in = 2 * embed_dim
         dpt = dict(dim_in=dim_in, features=dpt_features,
                    out_channels=tuple(dpt_out_channels), patch_size=patch_size,

@@ -1,6 +1,7 @@
 """Transformer building blocks (port of vitslam_tpu/nn/layers.py): Dense,
 LayerNorm, Mlp, LayerScale, qk-norm self- and cross-attention, pre-norm
-blocks with RoPE.
+blocks with RoPE, and the fused block tails (``Block(mlp_tail=...)``, kernel
+K5 through ``ops.mlp_tail``).
 
 Parameters are fp32; each module has a compute ``dtype`` (bf16 in the
 backbone) and casts its inputs and weights to it at each matmul, as flax
@@ -19,12 +20,20 @@ from torch import nn
 
 from ..ops.attention import ROUTE_COUNTS, attention_route, scaled_dot_product_attention
 from ..ops.fused_attention import flat_flash_attention, fused_qkv_attention
+from ..ops.mlp_tail import mlp_tail
 from .rope import apply_rope_1d, apply_rope_2d, apply_rope_cached, apply_rope_flat
 
 # default softmax shift of the bounded-logit path; raised to the provable
 # bound when the learned qk-norm gains exceed it
 QK_STATIC_MAX = 24.0
 LN_EPS = 1e-6
+# fused block tails: below this many block-input rows a block keeps its
+# unfused tails (the reference's _TAIL_MIN_ROWS)
+TAIL_MIN_ROWS = 1024
+# Block(mlp_tail=...) -> the tail sites that go through K5 (the reference
+# reads the same choice from VITSLAM_MLP_TAIL in _tail_sites)
+TAIL_SITES = {"off": frozenset(), "mlp": frozenset({"mlp"}), "proj": frozenset({"proj"}),
+              "both": frozenset({"mlp", "proj"})}
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -201,8 +210,29 @@ class LayerScale(nn.Module):
         return x * self.gamma.to(x.dtype)
 
 
+def dense_tail(dense: Dense, h, res, ls_gamma, tail_ln, gelu: bool):
+    """res + ls * dense(act(h)) [+ LayerNorm] through ``ops.mlp_tail`` (K5),
+    with LayerScale folded into the weights in fp32 (a per-column scale
+    commutes with the product): W cast to h's dtype, b kept in fp32.
+    Returns (x', LN(x')) when ``tail_ln`` = (scale, bias) is given, else
+    x'."""
+    w = dense.weight
+    b = dense.bias if dense.bias is not None else torch.zeros_like(w[:, 0])
+    if ls_gamma is not None:
+        w = w * ls_gamma[:, None]
+        b = b * ls_gamma
+    h2 = h.reshape(-1, h.shape[-1])
+    r2 = res.reshape(-1, res.shape[-1])
+    if tail_ln is not None:
+        x, y = mlp_tail(h2, w.to(h2.dtype), b, r2, tail_ln[0], tail_ln[1], gelu=gelu, ln=True)
+        return x.reshape(res.shape), y.reshape(res.shape)
+    return mlp_tail(h2, w.to(h2.dtype), b, r2, gelu=gelu, ln=False).reshape(res.shape)
+
+
 class Mlp(nn.Module):
-    """fc1 -> exact-erf GELU -> fc2."""
+    """fc1 -> exact-erf GELU -> fc2. With ``tail=(res, ls_gamma)`` the
+    caller asks for the fused tail: gelu + fc2 + LayerScale + residual in
+    K5, returning res + ls * fc2(gelu(fc1(x)))."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, bias: bool = True, dtype=torch.float32,
@@ -211,7 +241,9 @@ class Mlp(nn.Module):
         self.fc1 = Dense(in_features, hidden_features, bias, dtype, device)
         self.fc2 = Dense(hidden_features, out_features, bias, dtype, device)
 
-    def forward(self, x):
+    def forward(self, x, tail=None):
+        if tail is not None:
+            return dense_tail(self.fc2, self.fc1(x), tail[0], tail[1], None, gelu=True)
         return self.fc2(F.gelu(self.fc1(x)))
 
 
@@ -233,7 +265,10 @@ class Attention(nn.Module):
     the packed qkv projection, the LayerNorm params, the RoPE cache and the
     logit bound to ``fused_qkv_attention`` (K1 on CUDA); the flat route
     preps q/k once in the flat layout and streams them through
-    ``flat_flash_attention`` (K2); the flash route goes to K3."""
+    ``flat_flash_attention`` (K2); the flash route goes to K3. With
+    ``tail=(res, ls_gamma, ln_scale, ln_bias)`` the output projection,
+    LayerScale, residual add and the following LayerNorm run in K5 on every
+    route, and the call returns (x', LN(x'))."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = True,
                  proj_bias: bool = True, qk_norm: bool = True,
@@ -253,7 +288,13 @@ class Attention(nn.Module):
         return ((self.q_norm.weight, self.q_norm.bias),
                 (self.k_norm.weight, self.k_norm.bias))
 
-    def forward(self, x, pos=None, kv=None, pos_kv=None):
+    def _proj(self, out, tail):
+        if tail is None:
+            return self.proj(out)
+        res, ls_gamma, ln_scale, ln_bias = tail
+        return dense_tail(self.proj, out, res, ls_gamma, (ln_scale, ln_bias), gelu=False)
+
+    def forward(self, x, pos=None, kv=None, pos_kv=None, tail=None):
         """Self-attention over ``x`` (B, N, C). With ``kv`` given, queries
         come from ``x`` and keys/values from ``kv`` through the same qkv
         projection (the aggregator's KV-merged global attention), and
@@ -278,7 +319,7 @@ class Attention(nn.Module):
                 cos, sin, nsplit = pos
                 kwargs.update(cos=cos, sin=sin, q_ln=qp, k_ln=kp, nsplit=nsplit,
                               static_max=qk_shift_from(qp, kp, dh))
-            return self.proj(fused_qkv_attention(qkv, **kwargs))
+            return self._proj(fused_qkv_attention(qkv, **kwargs), tail)
         static_max = None
         if fast:
             cos, sin, nsplit = pos
@@ -290,8 +331,8 @@ class Attention(nn.Module):
             static_max = qk_shift_from(*self._norm_params(), dh)
             if route == "flat":
                 # prepped once in the flat layout, streamed with no relayout
-                return self.proj(flat_flash_attention(q, k, v, num_heads=h,
-                                                      static_max=static_max))
+                return self._proj(flat_flash_attention(q, k, v, num_heads=h,
+                                                       static_max=static_max), tail)
             q, k, v = (t.reshape(B, t.shape[1], h, dh).transpose(1, 2) for t in (q, k, v))
         else:
             q = qkv[..., :C].reshape(B, N, h, dh).transpose(1, 2)
@@ -302,7 +343,7 @@ class Attention(nn.Module):
                 static_max = qk_shift_from(*self._norm_params(), dh)
             q, k = _apply_rope(q, k, pos, pos_kv, self.rope, self.rope_base)
         out = scaled_dot_product_attention(q, k, v, route=route, static_max=static_max)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        return self._proj(out.transpose(1, 2).reshape(B, N, C), tail)
 
 
 class CrossAttention(nn.Module):
@@ -347,15 +388,25 @@ class CrossAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm ViT block: x + ls1(attn(norm1 x)); x + ls2(mlp(norm2 x))."""
+    """Pre-norm ViT block: x + ls1(attn(norm1 x)); x + ls2(mlp(norm2 x)).
+
+    ``mlp_tail`` ("off" | "mlp" | "proj" | "both") routes residual tails
+    through K5 (``ops.mlp_tail``) when the block input has at least
+    ``TAIL_MIN_ROWS`` rows: "proj" fuses the attention's output projection
+    + LayerScale + residual + norm2 (the LayerNorm's variance then is the
+    centered one, not ``ln_apply``'s E[x^2] - E[x]^2), "mlp" fuses gelu +
+    fc2 + LayerScale + residual. The frozen backbone's blocks take it; the
+    parameters are the same either way."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, proj_bias: bool = True,
                  qk_norm: bool = True, init_values: Optional[float] = None,
                  rope: Optional[str] = None, rope_base: float = 100.0,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, mlp_tail: str = "off"):
         super().__init__()
-        self.dtype = dtype
+        if mlp_tail not in TAIL_SITES:
+            raise ValueError(f"mlp_tail must be one of {sorted(TAIL_SITES)}, got {mlp_tail!r}")
+        self.dtype, self.tail_sites = dtype, TAIL_SITES[mlp_tail]
         self.norm1 = LayerNorm(dim, dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, proj_bias, qk_norm,
                               rope, rope_base, dtype, device)
@@ -369,11 +420,20 @@ class Block(nn.Module):
 
     def forward(self, x, pos=None, kv=None, pos_kv=None):
         kv_n = self.norm1(kv) if kv is not None else None
-        a = self.attn(self.norm1(x), pos, kv=kv_n, pos_kv=pos_kv)
-        if self.ls1 is not None:
-            a = self.ls1(a)
-        x = x + a
-        m = self.mlp(ln_apply(x, self.norm2.weight, self.norm2.bias, self.dtype))
+        sites = self.tail_sites if x.numel() // x.shape[-1] >= TAIL_MIN_ROWS else ()
+        ls1, ls2 = (None, None) if self.ls1 is None else (self.ls1.gamma, self.ls2.gamma)
+        if "proj" in sites:
+            x, y = self.attn(self.norm1(x), pos, kv=kv_n, pos_kv=pos_kv,
+                             tail=(x, ls1, self.norm2.weight, self.norm2.bias))
+        else:
+            a = self.attn(self.norm1(x), pos, kv=kv_n, pos_kv=pos_kv)
+            if self.ls1 is not None:
+                a = self.ls1(a)
+            x = x + a
+            y = ln_apply(x, self.norm2.weight, self.norm2.bias, self.dtype)
+        if "mlp" in sites:
+            return self.mlp(y, tail=(x, ls2))
+        m = self.mlp(y)
         if self.ls2 is not None:
             m = self.ls2(m)
         return x + m

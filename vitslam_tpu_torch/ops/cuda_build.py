@@ -35,6 +35,7 @@ ENTRY_POINTS = {
                         [_P] * 6 + [_I] * 5 + [_LL] * 12 + [_P]),
     "flash_attention_bwd": ("vitslam_flash_attention_bwd_bf16",
                             [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_LL] * 21 + [_P]),
+    "mlp_tail": ("vitslam_mlp_tail_bf16", [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]),
 }
 
 _lock = threading.Lock()

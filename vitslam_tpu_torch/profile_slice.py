@@ -4,9 +4,11 @@ pipeline over 17 frames per driver (slice 1), the flagship point-aligned
 model at chunk 75 / overlap 30 over 165 frames, sequential (slice 2), and
 one train step of the flagship's global-mode AlignmentHead at bucket
 (20, 5) on a 40-frame GT batch (slice 3); plus K1 beside torch's SDPA flash
-backend as a yardstick at the 5/1 attention shapes.
+backend as a yardstick at the 5/1 attention shapes. ``--tail-only``
+profiles one 5/1 chunk of the flagship with the fused block tails (K5)
+off and with both sites on (slice 4).
 
-    python -m vitslam_tpu_torch.profile_slice [--out profile_out] [--train-only]
+    python -m vitslam_tpu_torch.profile_slice [--out profile_out] [--train-only | --tail-only]
 
 Prints, per run: wall seconds of a steady run, device-busy seconds (the
 union of kernel intervals in the trace), the idle share, and the kernels
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 FAMILIES = [  # (family, regex on the kernel name), first match wins
+    ("K5 mlp_tail", r"mlp_tail_"),
     ("K1 fused_qkv_attention", r"fused_qkv_attention_kernel"),
     ("K4 flash backward (dq, dk/dv)", r"flash_bwd_"),
     # K2 and K3 are one CUDA kernel; slice 2's main path launches only K2,
@@ -171,6 +174,8 @@ def main() -> None:
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--train-only", action="store_true",
                     help="profile only the train step of slice 3")
+    ap.add_argument("--tail-only", action="store_true",
+                    help="profile only one 5/1 chunk with mlp_tail off and both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA GPU")
@@ -186,6 +191,16 @@ def main() -> None:
     report = {"device": smi.stdout.strip() or torch.cuda.get_device_name(0)}
     if args.train_only:
         report["train_global_20_5"] = profile_train(out)
+        print(json.dumps(report, indent=1))
+        return
+    if args.tail_only:
+        batch = {"images": rng.uniform(0, 1, size=(1, 5, 3, 154, 518)).astype(np.float32)}
+        for tail in ("off", "both"):
+            model = flagship(device="cuda", seed=0, mlp_tail=tail)
+            report[f"chunk_5_1_tail_{tail}"] = profile_driver(model, batch, 1, out,
+                                                              f"chunk_5_1_tail_{tail}")
+            del model
+            torch.cuda.empty_cache()
         print(json.dumps(report, indent=1))
         return
     batch = {"images": rng.uniform(0, 1, size=(1, 17, 3, 154, 518)).astype(np.float32)}

@@ -7,9 +7,11 @@ the ``_latest`` link. Seeding as in the reference: numpy draws from
 from a ``torch.Generator`` seeded with ``seed + rank``.
 
 ``train_data`` is any object whose ``get_loader(epoch)`` yields batches of
-numpy arrays. Parts that belong to later slices raise NotImplementedError:
-``validate`` and ``test`` (the eval slice), more than one device or model
-shard and the orbax checkpoint backend (the distributed slice).
+numpy arrays. ``validate`` (every ``val_epoch_freq`` steps) and ``test`` run
+``ChunkedPipeline.run_sequence`` with GT alignment and score it with the
+``eval.Metrics`` orchestrator, logging through the CSV logger. More than
+one device or model shard and the orbax checkpoint backend belong to the
+distributed slice and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from ..io.checkpoint import CheckpointManager, load_checkpoint
-from ..slam import chunk_batch, generate_chunks, merge_chunk_outputs
+from ..slam import ChunkedPipeline, chunk_batch, generate_chunks, merge_chunk_outputs
 from ..slam.chunking import normalize_extrinsics_and_points
 from .logging_utils import CSVLogger, StepProgress
 from .losses import MultitaskLoss
@@ -210,10 +212,48 @@ class Trainer:
         """name -> parameter of the model (trained and frozen)."""
         return dict(self.model.named_parameters())
 
-    def validate(self, step: int = 0):
+    def validate(self, step: int = 0) -> dict:
+        """One validation batch through the chunk pipeline at a width and
+        overlap drawn from the metrics' ranges (numpy seeded by seed and
+        step), GT-aligned; its losses at this step, the batch metrics and
+        the full-sequence metrics, logged under ``val/``."""
         if self.val_data is None or self.metrics is None:
             return {}
-        _later_slice("validation (eval/*, the Metrics orchestrator)", "eval")
+        pipeline = ChunkedPipeline(self.model)
+        if self.metrics.log_dir is None:
+            self.metrics.log_dir = self.logger.log_dir
+        batch = self.normalize_batch(next(self.val_data.get_loader(epoch=step)))
+        S = batch["images"].shape[1]
+        val_rng = np.random.default_rng(self.seed * 100003 + step)
+        width, overlap = sample_chunk_shapes(val_rng, S, self.metrics.chunk_width_range,
+                                             self.metrics.overlap_range)
+        preds, merged = pipeline.run_sequence(
+            {k: v for k, v in batch.items() if isinstance(v, np.ndarray)},
+            sample_mode=self.metrics.full_seq_sample_mode, chunk_width=width,
+            num_overlap=overlap, gt_alignment_type=self.gt_alignment_type)
+        val_losses = {"chunk_width": float(width), "chunk_overlap": float(overlap)}
+        try:
+            losses = self.loss(preds, merged, step,
+                               torch.Generator().manual_seed(self.seed * 100003 + step))
+            val_losses.update({k: float(v) for k, v in losses.items()})
+        except (KeyError, ValueError) as e:  # heads disabled / keys missing
+            val_losses["loss_error"] = float("nan")
+            print(f"val loss skipped: {e!r}")
+        batch_metrics, seq_metrics = self.metrics(preds, merged, pipeline,
+                                                  self.val_data.datasets)
+        out = {**val_losses, **batch_metrics, **seq_metrics}
+        self.logger.log_metrics({f"val/{k}": v for k, v in out.items()}, step)
+        return out
 
-    def test(self):
-        _later_slice("the full-sequence test (eval/*, the Metrics orchestrator)", "eval")
+    def test(self) -> dict:
+        """The full-sequence metrics of the model as it stands (its trained
+        or loaded weights), logged at step 0."""
+        if self.val_data is None or self.metrics is None:
+            raise ValueError("test() needs val_data and metrics")
+        if self.metrics.log_dir is None:
+            self.metrics.log_dir = self.logger.log_dir
+        seq_metrics = self.metrics.compute_full_sequence_metrics(
+            self.val_data.datasets, ChunkedPipeline(self.model),
+            rng=np.random.default_rng(self.seed))
+        self.logger.log_metrics(seq_metrics, 0)
+        return seq_metrics
