@@ -8,11 +8,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 1. device     — needs CUDA; prints torch.version.cuda, nvcc's version and
                 the card's name and power limit (nvidia-smi).
 2. build      — builds the CUDA kernels from csrc/ with nvcc (sm_90a), one
-                nvcc per source, all at once.
-3. kernels    — K1 (fused qkv attention), K2 (flat streaming attention) and
-                K3 (flash attention forward) against their plain PyTorch
-                versions in bf16 at the main paths' shapes (dh 64, 16
-                heads); max error, median kernel / plain / SDPA times, bound.
+                nvcc per source, all at once; per library ptxas' registers
+                and spills and the SASS counts of HGMMA (wgmma) and UTMALDG
+                (TMA loads), which must be nonzero for the attention forward.
+3. kernels    — K1 (fused qkv attention) and its prep kernel, K2 (flat
+                streaming attention) and K3 (flash attention forward)
+                against their plain PyTorch versions in bf16 at the main
+                paths' shapes (dh 64, 16 heads), and the K3 kernel's
+                in-kernel q fold bit for bit against torch's; max error,
+                device time per call (a back-to-back run), single-call time,
+                plain and SDPA times, bound.
 4. reference  — a small model with dh 64 through ChunkedPipeline on the GPU
                 (bf16, K1) and on the CPU (fp32, plain math), same weights.
 5. slice 5/1  — the flagship FeatureAlignedVGGT (seeded random weights) over
@@ -77,6 +82,10 @@ ROOT = Path(__file__).resolve().parent
 KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
     "fused_qkv_attention": ("cuda", "vitslam_tpu_torch/csrc/fused_attention.cu",
                             "vitslam_tpu/ops/fused_attention.py:75"),
+    # K1's LayerNorm + RoPE + scale fold, once per token and head: the TPU
+    # kernel's _prep_tile, which it runs on every tile inside _fused_kernel
+    "qk_prep": ("cuda", "vitslam_tpu_torch/csrc/fused_attention.cu",
+                "vitslam_tpu/ops/fused_attention.py:56"),
     "flat_flash_attention": ("cuda", "vitslam_tpu_torch/csrc/flash_attention.cu",
                              "vitslam_tpu/ops/fused_attention.py:483"),
     "flash_attention": ("cuda", "vitslam_tpu_torch/csrc/flash_attention.cu",
@@ -162,10 +171,14 @@ def counters():
         flash_attention_backward,
         flash_attention_lse,
     )
-    from vitslam_tpu_torch.ops.fused_attention import flat_flash_attention, fused_qkv_attention
+    from vitslam_tpu_torch.ops.fused_attention import (
+        flat_flash_attention,
+        fused_qkv_attention,
+        qk_prep,
+    )
     from vitslam_tpu_torch.ops.mlp_tail import mlp_tail
 
-    return {"fused_qkv_attention": fused_qkv_attention,
+    return {"fused_qkv_attention": fused_qkv_attention, "qk_prep": qk_prep,
             "flat_flash_attention": flat_flash_attention, "flash_attention": flash_attention,
             "flash_attention_lse": flash_attention_lse,
             "flash_attention_backward": flash_attention_backward, "mlp_tail": mlp_tail}
@@ -197,23 +210,97 @@ def phase_device():
     return smi
 
 
+def _cuobjdump():
+    """cuobjdump from the CUDA toolkit, else Triton's bundled copy, else None."""
+    import shutil
+
+    from vitslam_tpu_torch.ops.cuda_build import find_nvcc
+
+    found = shutil.which("cuobjdump")
+    cands = [found] if found else []
+    cands.append(str(Path(find_nvcc()).parent / "cuobjdump"))
+    try:
+        import triton
+
+        cands.append(str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if c and Path(c).exists()), None)
+
+
 def phase_build():
+    """Build every kernel library; per library print ptxas' registers and
+    spills per kernel and, from the SASS, the counts of HGMMA (wgmma) and
+    UTMALDG (TMA tile loads) instructions."""
     from vitslam_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build_all()
+    paths = cuda_build.build_all()
     print(f"[build] {len(cuda_build.ENTRY_POINTS)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
+    tool = _cuobjdump()
+    sass = {}
     for name, info in cuda_build.build_info.items():
         ptxas = " | ".join(line.strip() for line in info.get("log", "").splitlines()
                            if "registers" in line or "spill" in line)
-        print(f"[build] {name}: {info['seconds']:.1f} s (cached={info['cached']}); "
-              f"ptxas: {ptxas[:900]}")
+        if tool is None:
+            counts = "SASS: not available (no cuobjdump in the toolkit or Triton)"
+        else:
+            text = run([tool, "-sass", str(paths[name])])
+            sass[name] = {op: text.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
+            counts = "SASS: " + ", ".join(f"{op} {n}" for op, n in sass[name].items())
+        print(f"[build] {name}: {info['seconds']:.1f} s (cached={info['cached']}); {counts}; "
+              f"ptxas: {ptxas[:1500]}")
+    for name in ("fused_attention", "flash_attention"):
+        if name in sass and not (sass[name]["HGMMA"] and sass[name]["UTMALDG"]):
+            raise AssertionError(f"{name}: the attention forward must be wgmma + TMA, SASS "
+                                 f"counts {sass[name]}")
+    return sass
 
 
-def _time_ms(fn, iters: int = 20) -> float:
-    """Median of per-call times from CUDA events, after a warm-up; calls
-    longer than 50 ms are timed 3 times."""
+def _time_ms(fn, target_ms: float = 40.0) -> float:
+    """Device time per call: CUDA events around a run of back-to-back calls
+    after a warm-up, divided by their count. The calls are replays of a
+    CUDA graph that captured them (20 calls a graph for calls under 1 ms,
+    else one), so the run has no host enqueue in it and small kernels are
+    not hidden behind their wrappers' Python; a call that cannot be
+    captured runs eagerly instead (then a call shorter than its enqueue is
+    measured at the enqueue rate). ``_call_ms`` is the single-call view."""
+    import torch
+
+    def timed(run, n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    fn()
+    per_run, run = 1, fn
+    eager_one = timed(fn, 1)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        per_run = 20 if eager_one < 1.0 else 1
+        with torch.cuda.graph(graph):
+            for _ in range(per_run):
+                fn()
+        run = graph.replay
+        run()
+    except RuntimeError:
+        torch.cuda.synchronize()
+        per_run, run = 1, fn
+    one = timed(run, 1)
+    n = int(min(200, max(3, target_ms / max(one, 1e-3))))
+    return timed(run, n) / (n * per_run)
+
+
+def _call_ms(fn, iters: int = 20) -> float:
+    """Median of single-call times from CUDA events around one wrapper call
+    each, after a warm-up (host enqueue included: what a host-bound path
+    pays per call); calls longer than 50 ms are timed 3 times."""
     import torch
 
     def once():
@@ -283,28 +370,74 @@ def _sdpa_bwd_ms(q, k, v, dout) -> float:
 
 
 def _report(results: dict, name: str, case: str, main: bool, err: float, rl2: float,
-            ms: float, plain_ms: float, library_ms, flop: float, nbytes: int, **extra):
-    """Print and keep one case. ``library_ms``: one torch call computing the
-    same function (SDPA), or None where there is none; ``extra`` carries
-    other yardsticks (K5: the unfused tail)."""
+            fn, plain_ms: float, library_ms, flop: float, nbytes: int, **extra):
+    """Time the kernel's wrapper call ``fn`` (device time per call of a
+    back-to-back run, and the single-call time), print and keep one case.
+    ``library_ms``: one torch call computing the same function (SDPA), or
+    None where there is none; ``extra`` carries other yardsticks (K1: SDPA
+    without the prep; K5: the unfused tail)."""
+    ms, call_ms = _time_ms(fn), _call_ms(fn)
     bound_ms, bound_by = _bound(flop, nbytes)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    more = "".join(f" {k} {v:.4f} ms" for k, v in extra.items())
+    more = "".join(f" {k} {v:.4f}" + (" ms" if k.endswith("_ms") else "")
+                   for k, v in extra.items())
+    rate = f"{flop / ms / 1e9:.1f} TFLOP/s" if flop else f"{nbytes / ms / 1e6:.0f} GB/s"
     print(f"[kernels] {name} {case}: max_abs_err {err:.3e} rel-L2 {rl2:.2e} kernel {ms:.4f} ms "
-          f"({flop / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of bound {bound_ms:.4f} ms, "
-          f"{bound_by}) plain {plain_ms:.4f} ms library {lib}{more}")
+          f"per call back to back ({rate}, {bound_ms / ms:.1%} of bound {bound_ms:.4f} ms, "
+          f"{bound_by}), single call {call_ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}"
+          f"{more}")
     results.setdefault(name, []).append(dict(
-        case=case, main=main, max_abs_err=err, rel_l2=rl2, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flop / ms / 1e9,
-        **extra))
+        case=case, main=main, max_abs_err=err, rel_l2=rl2, ms=ms, call_ms=call_ms,
+        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+        tflops=flop / ms / 1e9, share_of_bound=bound_ms / ms, **extra))
+
+
+def _flat_prep_sdpa(qkv, heads, ln, cos, sin, nsplit):
+    """K1's yardstick with LayerNorm + RoPE: the port's own flat-route prep
+    (HeadLayerNorm(flat=True) + apply_rope_flat on q and k, as
+    nn.layers.Attention runs it for K2) followed by SDPA's flash backend on
+    the (B, H, N, 64) views; a zero-argument callable. Never on the port's
+    path."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vitslam_tpu_torch.nn.layers import HeadLayerNorm
+    from vitslam_tpu_torch.nn.rope import apply_rope_flat
+    from vitslam_tpu_torch.ops.fused_attention import _heads
+
+    C = qkv.shape[-1] // 3
+    norms = []
+    for scale, bias in ln:
+        m = HeadLayerNorm(heads, C // heads, dtype=torch.bfloat16, device=qkv.device)
+        with torch.no_grad():
+            m.weight.copy_(scale)
+            m.bias.copy_(bias)
+        norms.append(m)
+
+    def run():
+        with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            q = apply_rope_flat(norms[0](qkv[..., :C], flat=True), cos, sin, heads, nsplit)
+            k = apply_rope_flat(norms[1](qkv[..., C:2 * C], flat=True), cos, sin, heads, nsplit)
+            return F.scaled_dot_product_attention(_heads(q, heads), _heads(k, heads),
+                                                  _heads(qkv[..., 2 * C:], heads))
+    return run
 
 
 def kernels_k1(results: dict, g, dev):
+    """K1 (prep kernel + attention kernel, one wrapper call) and its prep
+    kernel alone (``qk_prep``) at the main paths' shapes."""
     import torch
 
     from vitslam_tpu_torch.nn.layers import qk_shift_from
     from vitslam_tpu_torch.nn.rope import patch_grid_positions, rope_cache_2d
-    from vitslam_tpu_torch.ops.fused_attention import fused_qkv_attention, fused_qkv_attention_plain
+    from vitslam_tpu_torch.ops.flash_attention import q_fold
+    from vitslam_tpu_torch.ops.fused_attention import (
+        fused_qkv_attention,
+        fused_qkv_attention_plain,
+        qk_prep,
+        qk_prep_plain,
+    )
 
     heads, dh = 16, 64
     C = heads * dh
@@ -331,31 +464,61 @@ def kernels_k1(results: dict, g, dev):
             kw.update(q_ln=ln[0], k_ln=ln[1], static_max=qk_shift_from(ln[0], ln[1], dh))
             tables += [t for pair in ln for t in pair]
             if prep is True:
-                # the main path's 2-D RoPE cache: 5 specials + an 11 x 37 grid
-                # per frame, in bf16
+                # the main path's 2-D RoPE cache, fp32 as the model passes it:
+                # 5 specials + an 11 x 37 grid per frame
                 pos = patch_grid_positions(B, 11, 37, 5, dev).repeat(1, -(-N // 412), 1)
                 cos, sin, nsplit = rope_cache_2d(pos[:, :N], dh)
-                kw.update(cos=cos.to(torch.bfloat16), sin=sin.to(torch.bfloat16), nsplit=nsplit)
-                tables += [kw["cos"], kw["sin"]]
+                kw.update(cos=cos, sin=sin, nsplit=nsplit)
+                tables += [cos, sin]
         if gain and gain > 1 and not float(kw["static_max"]) > 24.0:
             raise AssertionError(f"K1 {case}: the bound {float(kw['static_max'])} is not > 24")
         got = fused_qkv_attention(qkv, **kw)
         want = fused_qkv_attention_plain(qkv, **kw)
         atol = ATOL * max(1.0, float(kw.get("static_max", 0.0)) / 24.0)
         err, rl2 = _check("K1", case, got, want, atol)
-        ms = _time_ms(lambda: fused_qkv_attention(qkv, **kw))
         plain_ms = _time_ms(lambda: fused_qkv_attention_plain(qkv, **kw))
-        # yardstick: SDPA on the same q/k/v without K1's LayerNorm + RoPE prep
         q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(B, N, heads, dh).transpose(1, 2)
                    for i in range(3))
-        _report(results, "fused_qkv_attention", case, main, err, rl2, ms, plain_ms,
-                _sdpa_ms(q, k, v), 4.0 * B * heads * N * N * dh, _nbytes(qkv, got, *tables))
+        sdpa_ms = _sdpa_ms(q, k, v)  # SDPA on the same q/k/v, without K1's prep
+        library_ms = sdpa_ms
+        if prep is True:
+            library_ms = _time_ms(_flat_prep_sdpa(qkv, heads, ln, cos, sin, nsplit))
+        _report(results, "fused_qkv_attention", case, main, err, rl2,
+                lambda: fused_qkv_attention(qkv, **kw), plain_ms, library_ms,
+                4.0 * B * heads * N * N * dh, _nbytes(qkv, got, *tables), sdpa_ms=sdpa_ms)
+
+        if not prep:
+            del qkv, got, want
+            continue
+        # the prep kernel alone on the same inputs: bf16 outputs equal to
+        # the plain version's or one ulp from them (the LayerNorm sums run in
+        # another order), or within 1e-6 where RoPE cancels O(1) operands to
+        # near zero; at least 99.9% bit-identical
+        pkw = {k_: v_ for k_, v_ in kw.items() if k_ not in ("static_max",)}
+        pkw["fold"] = q_fold(dh)
+        got_p = qk_prep(qkv, **pkw)
+        want_p = qk_prep_plain(qkv, **pkw)
+        torch.cuda.synchronize()
+        errs, same = [], []
+        for a, b in zip(got_p, want_p):
+            a, b = a.float(), b.float()
+            same.append((a == b).float().mean().item())
+            if not ((a - b).abs() <= 1e-6 + 2.0 ** -7 * b.abs()).all() or same[-1] < 0.999:
+                raise AssertionError(f"qk_prep {case}: beyond one bf16 ulp of the plain version, "
+                                     f"or only {same[-1]:.5f} bit-identical")
+            errs.append((a - b).abs().max().item())
+        nb = _nbytes(qkv[..., :2 * C], *got_p, *tables)
+        _report(results, "qk_prep", case, main, max(errs), 0.0, lambda: qk_prep(qkv, **pkw),
+                _time_ms(lambda: qk_prep_plain(qkv, **pkw)), None, 0.0, nb,
+                bit_identical=min(same))
+        del qkv, got, want, got_p, want_p
+        torch.cuda.empty_cache()
 
 
 def kernels_k2(results: dict, g, dev):
     import torch
 
-    from vitslam_tpu_torch.ops.flash_attention import LOG2E
+    from vitslam_tpu_torch.ops.flash_attention import q_fold
     from vitslam_tpu_torch.ops.fused_attention import (
         _heads,
         flat_flash_attention,
@@ -364,6 +527,7 @@ def kernels_k2(results: dict, g, dev):
 
     heads, dh = 16, 64
     C = heads * dh
+    smax = torch.tensor(24.0, device=dev)  # the model's bound is a device scalar
     cases = [  # (name, B, Nq, Nk, main-path case)
         ("global 75/30 B=1 Nq=Nk=30900", 1, 30900, 30900, True),
         ("merged 75/30 p4s10 B=1 Nq=30900 Nk=5641", 1, 30900, 5641, False),
@@ -375,18 +539,43 @@ def kernels_k2(results: dict, g, dev):
         k = torch.randn((B, nk, C), generator=g, device=dev).to(torch.bfloat16)
         # v is a strided slice of a packed projection, as the model passes it
         v = torch.randn((B, nk, 3 * C), generator=g, device=dev).to(torch.bfloat16)[..., 2 * C:]
-        got = flat_flash_attention(q, k, v, num_heads=heads, static_max=24.0)
-        qs = (q.float() * (LOG2E / 8.0)).to(torch.bfloat16)  # the wrapper's scale fold
+        got = flat_flash_attention(q, k, v, num_heads=heads, static_max=smax)
+        qs = (q.float() * q_fold(dh)).to(torch.bfloat16)  # the kernel's scale fold
         want = flat_flash_attention_plain(qs, k, v, num_heads=heads)
         err, rl2 = _check("K2", case, got, want, ATOL)
         del want
-        ms = _time_ms(lambda: flat_flash_attention(q, k, v, num_heads=heads, static_max=24.0))
         plain_ms = _time_ms(lambda: flat_flash_attention_plain(qs, k, v, num_heads=heads))
         library_ms = _sdpa_ms(_heads(q, heads), _heads(k, heads), _heads(v, heads))
-        _report(results, "flat_flash_attention", case, main, err, rl2, ms, plain_ms,
-                library_ms, 4.0 * B * heads * nq * nk * dh, _nbytes(q, k, v, got))
+        _report(results, "flat_flash_attention", case, main, err, rl2,
+                lambda: flat_flash_attention(q, k, v, num_heads=heads, static_max=smax),
+                plain_ms, library_ms, 4.0 * B * heads * nq * nk * dh, _nbytes(q, k, v, got))
         del q, k, v, qs, got
         torch.cuda.empty_cache()
+
+
+def _check_q_fold(dev):
+    """The kernel folds scale * log2(e) into q in shared memory; K4's
+    wrapper rebuilds P from (q.float() * q_fold(D)).to(bf16). Read the
+    kernel's q back exactly: head j attends to the one key e_j with an
+    online max, so its lse is q^[:, j] (one product, exact in fp32) + log2(1).
+    Raises unless every element equals the torch fold bit for bit."""
+    import torch
+
+    from vitslam_tpu_torch.ops.flash_attention import flash_attention_lse, q_fold
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    for dh in (64, 128):
+        q1 = (3 * torch.randn((2060, dh), generator=g, device=dev)).to(torch.bfloat16)
+        q = q1.expand(1, dh, 2060, dh).contiguous()
+        k = torch.eye(dh, device=dev, dtype=torch.bfloat16).reshape(1, dh, 1, dh)
+        v = torch.zeros((1, dh, 1, dh), device=dev, dtype=torch.bfloat16)
+        _, lse = flash_attention_lse(q, k, v)
+        want = (q1.float() * q_fold(dh)).to(torch.bfloat16).float()
+        bad = (lse[0].t() != want).sum().item()
+        print(f"[kernels] in-kernel q fold at D {dh}: {want.numel() - bad} of {want.numel()} "
+              "elements bit-identical to the torch fold")
+        if bad:
+            raise AssertionError(f"the kernel's q fold differs from torch's at D {dh}")
 
 
 def kernels_k3(results: dict, g, dev):
@@ -394,6 +583,7 @@ def kernels_k3(results: dict, g, dev):
 
     from vitslam_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
+    _check_q_fold(dev)
     cases = [  # (name, B, H, Nq, Nk, bounded, main-path case)
         ("merged 5/1 p2s2 B=1 H=16 Nq=2060 Nk=1474 bounded", 1, 16, 2060, 1474, True, True),
         ("cross online-max B=1 H=16 Nq=1000 Nk=3000", 1, 16, 1000, 3000, False, False),
@@ -403,14 +593,14 @@ def kernels_k3(results: dict, g, dev):
         q = (2 * torch.randn((B, H, nq, 64), generator=g, device=dev)).to(torch.bfloat16)
         k = torch.randn((B, H, nk, 64), generator=g, device=dev).to(torch.bfloat16)
         v = torch.randn((B, H, nk, 64), generator=g, device=dev).to(torch.bfloat16)
-        smax = 24.0 if bounded else None
+        smax = torch.tensor(24.0, device=dev) if bounded else None
         got = flash_attention(q, k, v, static_max=smax)
         want = flash_attention_plain(q, k, v)
         err, rl2 = _check("K3", case, got, want, ATOL)
-        ms = _time_ms(lambda: flash_attention(q, k, v, static_max=smax))
         plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v))
-        _report(results, "flash_attention", case, main, err, rl2, ms, plain_ms,
-                _sdpa_ms(q, k, v), 4.0 * B * H * nq * nk * 64, _nbytes(q, k, v, got))
+        _report(results, "flash_attention", case, main, err, rl2,
+                lambda: flash_attention(q, k, v, static_max=smax), plain_ms, _sdpa_ms(q, k, v),
+                4.0 * B * H * nq * nk * 64, _nbytes(q, k, v, got))
 
 
 def kernels_k3_lse_k4(results: dict, g, dev):
@@ -420,11 +610,11 @@ def kernels_k3_lse_k4(results: dict, g, dev):
     import torch
 
     from vitslam_tpu_torch.ops.flash_attention import (
-        LOG2E,
         flash_attention_backward,
         flash_attention_backward_plain,
         flash_attention_lse,
         flash_attention_plain,
+        q_fold,
     )
 
     cases = [  # (name, B, H, Nq, Nk, D, bounded, main-path case)
@@ -441,18 +631,18 @@ def kernels_k3_lse_k4(results: dict, g, dev):
         k = torch.randn((B, H, nk, D), generator=g, device=dev).to(torch.bfloat16)
         v = torch.randn((B, H, nk, D), generator=g, device=dev).to(torch.bfloat16)
         dout = torch.randn((B, H, nq, D), generator=g, device=dev).to(torch.bfloat16)
-        smax = 24.0 if bounded else None
-        fold = LOG2E / D ** 0.5
+        smax = torch.tensor(24.0, device=dev) if bounded else None
+        fold = q_fold(D)
         q_eff = (q.float() * fold).to(torch.bfloat16).float() / fold
         out, lse = flash_attention_lse(q, k, v, static_max=smax)
         want_out, want_lse = flash_attention_plain(q_eff, k, v, with_lse=True)
         errs = [_check("K3-lse", case + " out", out, want_out, ATOL),
                 _check("K3-lse", case + " lse", lse, want_lse, ATOL)]
         del want_out, want_lse
-        ms = _time_ms(lambda: flash_attention_lse(q, k, v, static_max=smax))
         plain_ms = _time_ms(lambda: flash_attention_plain(q_eff, k, v, with_lse=True))
         _report(results, "flash_attention_lse", case, main, max(e[0] for e in errs),
-                max(e[1] for e in errs), ms, plain_ms, _sdpa_ms(q, k, v),
+                max(e[1] for e in errs), lambda: flash_attention_lse(q, k, v, static_max=smax),
+                plain_ms, _sdpa_ms(q, k, v),
                 4.0 * B * H * nq * nk * D, _nbytes(q, k, v, out, lse))
 
         got = flash_attention_backward(q, k, v, out, lse, dout)
@@ -460,12 +650,13 @@ def kernels_k3_lse_k4(results: dict, g, dev):
         errs = [_check("K4", f"{case} {name}", a, b, ATOL)
                 for a, b, name in zip(got, want, ("dq", "dk", "dv"))]
         del want
-        ms = _time_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout))
         plain_ms = _time_ms(lambda: flash_attention_backward_plain(q_eff, k, v, out, lse, dout))
         # the least work is five Nq x Nk x D products (S, dP, dq, dk, dv);
         # the two kernels recompute S and dP each, seven in all
         _report(results, "flash_attention_backward", case, main, max(e[0] for e in errs),
-                max(e[1] for e in errs), ms, plain_ms, _sdpa_bwd_ms(q, k, v, dout),
+                max(e[1] for e in errs),
+                lambda: flash_attention_backward(q, k, v, out, lse, dout), plain_ms,
+                _sdpa_bwd_ms(q, k, v, dout),
                 10.0 * B * H * nq * nk * D, _nbytes(q, k, v, out, lse, dout, *got))
         del q, k, v, dout, q_eff, out, lse, got
         torch.cuda.empty_cache()
@@ -517,7 +708,6 @@ def kernels_k5(results: dict, g, dev):
             got, want = (got, want) if ln else ((got,), (want,))
             errs = [_check("K5", f"{case} {n}", a, c, ATOL)
                     for a, c, n in zip(got, want, ("x", "y"))]
-            ms = _time_ms(lambda: mlp_tail(*args, **kw))
             plain_ms = _time_ms(lambda: mlp_tail_plain(*args, **kw))
             tail_ln = (gamma, beta) if ln else None
             route_ms = _time_ms(lambda: dense_tail(dense, h, res, ls, tail_ln, gelu=gelu))
@@ -526,9 +716,10 @@ def kernels_k5(results: dict, g, dev):
                 x = res + dense(F.gelu(h) if gelu else h) * ls.to(torch.bfloat16)
                 return (x, ln_apply(x, gamma, beta, torch.bfloat16)) if ln else x
             unfused_ms = _time_ms(unfused)
-        _report(results, "mlp_tail", case, main, max(e[0] for e in errs), max(e[1] for e in errs),
-                ms, plain_ms, None, 2.0 * M * Fd * C, _nbytes(*args, *got),
-                unfused_ms=unfused_ms, tail_route_ms=route_ms)
+            _report(results, "mlp_tail", case, main, max(e[0] for e in errs),
+                    max(e[1] for e in errs), lambda: mlp_tail(*args, **kw), plain_ms, None,
+                    2.0 * M * Fd * C, _nbytes(*args, *got), unfused_ms=unfused_ms,
+                    tail_route_ms=route_ms)
         del h, res, dense, w, got, want
         torch.cuda.empty_cache()
 
@@ -650,6 +841,8 @@ def _check_outputs(label: str, outs: dict, shapes: dict):
 
 
 def _expect(label: str, got: dict, want: dict):
+    """Launch counts of a path. K1 launches its prep kernel in the frame and
+    global attentions (LayerNorm + RoPE), not in the patch embed."""
     if any(got[k] != v for k, v in want.items()):
         raise AssertionError(f"{label}: kernel launches {got} != {want}")
 
@@ -686,12 +879,13 @@ def phase_slice(smi: str) -> tuple[dict, dict]:
     n_chunks = outs["sequential"]["chunk_sim3_enc"].shape[1]
     if n_chunks != 4:
         raise AssertionError(f"expected 4 chunks, got {n_chunks}")
-    # 72 K1 launches per encode: 24 patch-embed + 24 frame + 24 global
+    # 72 K1 launches per encode: 24 patch-embed + 24 frame + 24 global, the
+    # last 48 with the prep
     none = {"flat_flash_attention": 0, "flash_attention": 0}
     _expect("slice 5/1 sequential", stats["sequential"]["launches"],
-            dict(none, fused_qkv_attention=72 * n_chunks))
+            dict(none, fused_qkv_attention=72 * n_chunks, qk_prep=48 * n_chunks))
     _expect("slice 5/1 encode_batch=4", stats["encode_batch=4"]["launches"],
-            dict(none, fused_qkv_attention=72))
+            dict(none, fused_qkv_attention=72, qk_prep=48))
     if stats["encode_batch=4"]["embed"] != [24]:
         raise AssertionError(f"encode_batch=4: K1 in embed_frames {stats['encode_batch=4']} "
                              "!= [24] (24 in embed_frames + 48 in the encode)")
@@ -720,6 +914,7 @@ def phase_merge(smi: str) -> dict:
                                                        "world_points": (1, n_frames, H, W, 3)})
     n_chunks = pred["chunk_sim3_enc"].shape[1]
     _expect("merge 5/1", stats["launches"], {"fused_qkv_attention": 48 * n_chunks,
+                                             "qk_prep": 24 * n_chunks,
                                              "flash_attention": 24 * n_chunks,
                                              "flat_flash_attention": 0})
     del model, pred
@@ -753,12 +948,13 @@ def phase_large_chunk(smi: str) -> dict:
     _check_outputs("slice 75/30 point", {"sequential": seq, "encode_batch=2": bat}, shapes)
     # per chunk: K1 24 patch-embed + 24 frame (B=75, 412 tokens), K2 24 global
     _expect("slice 75/30 point sequential", stats["point sequential"]["launches"],
-            dict(none, fused_qkv_attention=48 * 3, flat_flash_attention=24 * 3))
+            dict(none, fused_qkv_attention=48 * 3, qk_prep=24 * 3, flat_flash_attention=24 * 3))
     # encode_batch=2: chunks 0+1 share 30 frames, so 120 unique frames are
     # embedded once (24 K1), then their frame attention (24 K1) and global
     # attention (24 K2, B=2); chunk 2 alone is encoded in full (48 K1, 24 K2)
     _expect("slice 75/30 point encode_batch=2", stats["point encode_batch=2"]["launches"],
-            dict(none, fused_qkv_attention=24 + 24 + 48, flat_flash_attention=48))
+            dict(none, fused_qkv_attention=24 + 24 + 48, qk_prep=24 + 24,
+                 flat_flash_attention=48))
     if stats["point encode_batch=2"]["embed"] != [24]:
         raise AssertionError(f"point encode_batch=2: K1 in embed_frames "
                              f"{stats['point encode_batch=2']['embed']} != [24]")
@@ -777,7 +973,7 @@ def phase_large_chunk(smi: str) -> dict:
     _check_outputs("slice 75/30 pose", {"sequential": pred},
                    {"pose_enc": (1, n_frames, 9), "depth": (1, n_frames, H, W, 1)})
     _expect("slice 75/30 pose sequential", stats["pose sequential"]["launches"],
-            dict(none, fused_qkv_attention=48 * 3, flat_flash_attention=24 * 3))
+            dict(none, fused_qkv_attention=48 * 3, qk_prep=24 * 3, flat_flash_attention=24 * 3))
     del model, pred
     _release()
 
@@ -801,7 +997,7 @@ def phase_large_chunk(smi: str) -> dict:
         layers.flat_flash_attention = real_k2
     _check_outputs("merge 75/30", {"one chunk": pred}, {"world_points": (1, width, H, W, 3)})
     _expect("merge 75/30", stats["point merged p4s10 one chunk"]["launches"],
-            dict(none, fused_qkv_attention=48, flat_flash_attention=24))
+            dict(none, fused_qkv_attention=48, qk_prep=24, flat_flash_attention=24))
     if set(shapes_seen) != {(30900, 5641)}:
         raise AssertionError(f"merge 75/30: K2 (Nq, Nk) {set(shapes_seen)} != {{(30900, 5641)}}")
     print("[merge 75/30] K2 ran 24 times with Nq=30900 over Nk=5641")
@@ -825,7 +1021,7 @@ def phase_global_head(smi: str) -> dict:
                    {"pose_enc": (1, n_frames, 9), "chunk_sim3_enc": (1, 2, 8)})
     # per chunk: 72 K1 in the backbone, 4 K3 in the head's global blocks
     # (2,065 keys in chunk 1, (5 + 2) x 413 = 2,891 in chunk 2)
-    _expect("global head 5/1", stats["launches"], {"fused_qkv_attention": 144,
+    _expect("global head 5/1", stats["launches"], {"fused_qkv_attention": 144, "qk_prep": 96,
                                                    "flash_attention": 8,
                                                    "flat_flash_attention": 0})
     import torch
@@ -1027,6 +1223,7 @@ def phase_tail(smi: str, tails_off: dict, off_stats: dict):
     n_chunks = pred["chunk_sim3_enc"].shape[1]
     _expect("tail 5/1", stats["launches"], {"mlp_tail": 144 * n_chunks,
                                             "fused_qkv_attention": 72 * n_chunks,
+                                            "qk_prep": 48 * n_chunks,
                                             "flat_flash_attention": 0, "flash_attention": 0})
     fp32 = {}
     real = layers.mlp_tail
@@ -1194,7 +1391,7 @@ def main() -> int:
     smi = phase_device()
     import torch
 
-    phase_build()
+    sass = phase_build()
     results = phase_kernels()
     phase_reference()
     runs, tails_off = phase_slice(smi)
@@ -1210,6 +1407,7 @@ def main() -> int:
     # each kernel's headline numbers: its case at the shapes of the path
     # named here, and the launches of that path's run
     main_path = {"fused_qkv_attention": "slice 75/30 point sequential",
+                 "qk_prep": "slice 75/30 point sequential",
                  "flat_flash_attention": "slice 75/30 point sequential",
                  "flash_attention": "merge 5/1 p2s2 sequential",
                  "flash_attention_lse": "train global (20, 5)",
@@ -1223,12 +1421,17 @@ def main() -> int:
         if launches == 0:
             raise AssertionError(f"{name} was not launched on {main_path[name]}")
         extra = {"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}
+        lib = Path(source).stem
+        if lib in sass:
+            extra["sass"] = sass[lib]
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces, **extra, launches=launches,
             max_abs_err=max(c["max_abs_err"] for c in cases), ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
-            **{k: main_case[k] for k in ("unfused_ms", "tail_route_ms") if k in main_case},
+            call_ms=main_case["call_ms"],
+            **{k: main_case[k] for k in ("unfused_ms", "tail_route_ms", "sdpa_ms")
+               if k in main_case},
             main_path=main_path[name], main_case=main_case["case"],
             launches_by_path={label: st["launches"].get(name, 0) for label, st in runs.items()},
             cases=cases))

@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written CUDA
-kernels (K1, K2, K3 with its lse output, K4, K5) against their plain PyTorch
-versions, gradients through every kernel wrapper, and the presets' default
+kernels (K1 with its prep kernel, K2, K3 with its lse output, K4, K5)
+against their plain PyTorch versions, the edges of the wgmma + TMA attention
+core (short and ragged tiles, batch boundaries, strided views, the in-kernel
+q fold), gradients through every kernel wrapper, and the presets' default
 device. They import no JAX, so they
 also run on a machine with the card and without JAX:
 
@@ -18,6 +20,7 @@ from vitslam_tpu_torch.nn.layers import qk_shift_from  # noqa: E402
 from vitslam_tpu_torch.nn.rope import patch_grid_positions, rope_cache_2d  # noqa: E402
 from vitslam_tpu_torch.ops.flash_attention import (  # noqa: E402
     LOG2E,
+    q_fold,
     flash_attention,
     flash_attention_backward,
     flash_attention_backward_plain,
@@ -30,6 +33,8 @@ from vitslam_tpu_torch.ops.fused_attention import (  # noqa: E402
     flat_flash_attention_plain,
     fused_qkv_attention,
     fused_qkv_attention_plain,
+    qk_prep,
+    qk_prep_plain,
 )
 from vitslam_tpu_torch.ops.mlp_tail import mlp_tail, mlp_tail_plain  # noqa: E402
 
@@ -71,10 +76,12 @@ def test_k1_kernel_matches_plain(cuda, B, nq, with_ln, with_rope, bounded):
         pos = patch_grid_positions(B, 11, -(-nq // 11), 0, cuda)[:, :nq]
         cos, sin, nsplit = rope_cache_2d(pos, dh)
         kw.update(cos=cos.to(torch.bfloat16), sin=sin.to(torch.bfloat16), nsplit=nsplit)
-    before = fused_qkv_attention.launches
+    before = (fused_qkv_attention.launches, qk_prep.launches)
     got = fused_qkv_attention(x, **kw)
     torch.cuda.synchronize()
-    assert fused_qkv_attention.launches == before + 1
+    prepped = with_ln or with_rope  # the patch embed's K1 is the attention kernel alone
+    assert (fused_qkv_attention.launches, qk_prep.launches) == (before[0] + 1,
+                                                                before[1] + prepped)
     want = fused_qkv_attention_plain(x, **kw)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
@@ -374,3 +381,136 @@ def test_flagship_block_tails_on_the_card(cuda):
     torch.cuda.synchronize()
     assert mlp_tail.launches == before + 2
     assert _rel_l2(got, want) <= 1e-2
+
+
+# ---- edges of the wgmma + TMA forward core (csrc/attention_fwd_sm90.cuh) ----
+
+@pytest.mark.parametrize("B,H,nq,nk,dh,bounded", [
+    (1, 2, 40, 300, 64, True),     # Nq < 64: one consumer warpgroup's rows, the other idle
+    (2, 3, 100, 1, 64, False),     # Nk = 1: one valid key in a 128-key tile
+    (1, 4, 257, 129, 128, False),  # Nk = one tile + 1, D 128
+    (1, 2, 33, 1, 128, True),      # Nq < 64 and Nk = 1 at D 128
+])
+def test_core_short_and_ragged_tiles(cuda, B, H, nq, nk, dh, bounded):
+    """K3 (with lse) where the tiles are mostly empty: TMA zero-fills the
+    rows past Nq and Nk, the kernel masks the keys and skips storing the
+    rows. Against the plain version on the kernel's own q (folded and
+    rounded as the kernel does): 2e-2 + 2e-2 * |plain|, lse 2e-2."""
+    rng = np.random.default_rng(20)
+    q = _bf16(rng, (B, H, nq, dh), cuda, 2.0)
+    k = _bf16(rng, (B, H, nk, dh), cuda)
+    v = _bf16(rng, (B, H, nk, dh), cuda)
+    fold = q_fold(dh)
+    q_eff = (q.float() * fold).to(torch.bfloat16).float() / fold
+    out, lse = flash_attention_lse(q, k, v, static_max=24.0 if bounded else None)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_attention_plain(q_eff, k, v, with_lse=True)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=0)
+
+
+def test_core_ragged_tile_stays_in_its_batch(cuda):
+    """B = 2 with Nk = 200: batch 0's second K/V tile is ragged, and the
+    rows past its end are batch 1's first rows in memory. Batch 1's keys
+    and values are huge, so a tensor map that read across the batch
+    boundary would move batch 0's output by O(100)."""
+    rng = np.random.default_rng(21)
+    B, H, nq, nk = 2, 2, 150, 200
+    q = _bf16(rng, (B, nq, H, 64), cuda).transpose(1, 2)
+    k = _bf16(rng, (B, nk, H, 64), cuda)
+    v = _bf16(rng, (B, nk, H, 64), cuda)
+    k[1] = 40.0
+    v[1] = 300.0
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v)
+    assert got[0].float().abs().max().item() < 10.0
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got[1].float(), want[1].float(), atol=2e-2 * 300, rtol=2e-2)
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+def test_core_d128_lse_on_strided_views(cuda, bounded):
+    """D 128 with an online max (and the fixed shift) and lse, on q/k/v
+    that are (B, H, N, D) views of one packed (B, N, 3, H, D) projection
+    (v a strided slice of it), into a (B, H, N, D) output view of a
+    (B, N, H, D) buffer."""
+    rng = np.random.default_rng(22)
+    B, H, N, dh = 2, 4, 333, 128
+    x = _bf16(rng, (B, N, 3 * H * dh), cuda)
+    q, k, v = (x[..., i * H * dh:(i + 1) * H * dh].reshape(B, N, H, dh).transpose(1, 2)
+               for i in range(3))
+    fold = q_fold(dh)
+    q_eff = (q.float() * fold).to(torch.bfloat16).float() / fold
+    out, lse = flash_attention_lse(q, k, v, static_max=24.0 if bounded else None)
+    torch.cuda.synchronize()
+    assert out.stride() == (N * H * dh, dh, H * dh, 1)
+    want_out, want_lse = flash_attention_plain(q_eff, k, v, with_lse=True)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+    assert _rel_l2(out, want_out) <= 1e-2
+    torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_core_q_fold_is_the_torch_fold(cuda, dh):
+    """The kernel folds scale * log2(e) into q in shared memory; K4 rebuilds
+    P from (q.float() * q_fold(D)).to(bf16). Read the kernel's q back
+    exactly: head j attends to one key, the unit vector e_j, with an online
+    max, so its lse is s = q^ . e_j = q^[:, j] (one product, exact in fp32)
+    and log2(l) = log2(1) = 0. Every element must equal the torch fold bit
+    for bit."""
+    rng = np.random.default_rng(23)
+    nq = 300
+    q1 = _bf16(rng, (nq, dh), cuda, 3.0)
+    q = q1.expand(1, dh, nq, dh).contiguous()
+    k = torch.eye(dh, device=cuda, dtype=torch.bfloat16).reshape(1, dh, 1, dh)
+    v = torch.zeros((1, dh, 1, dh), device=cuda, dtype=torch.bfloat16)
+    _, lse = flash_attention_lse(q, k, v)
+    torch.cuda.synchronize()
+    want = (q1.float() * q_fold(dh)).to(torch.bfloat16).float()
+    assert torch.equal(lse[0].t(), want)
+
+
+@pytest.mark.parametrize("B,N,with_ln,with_rope,nsplit", [
+    (75, 412, True, True, 2),     # 75/30 frame attention
+    (1, 2060, True, True, 2),     # 5/1 global attention
+    (3, 300, True, True, 1),      # 1-D RoPE
+    (2, 130, True, False, 2),     # LayerNorm only
+    (2, 130, False, True, 2),     # RoPE only
+    (5, 412, False, False, 2),    # patch embed: the fold only
+])
+def test_k1_prep_kernel_matches_plain(cuda, B, N, with_ln, with_rope, nsplit):
+    """K1's prep kernel against qk_prep_plain on the card: both compute in
+    fp32 in the same order and round once to bf16, but the LayerNorm sums
+    run in another order, so the fp32 values may differ in their last bits.
+    Each element is the plain version's bf16 value or one ulp from it (2^-7
+    relative), or, where RoPE's x cos + rot sin cancels O(1) operands to
+    near zero, within 1e-6 absolute (a few fp32 ulps of the operands); at
+    least 99.9% are bit-identical."""
+    rng = np.random.default_rng(24)
+    heads, dh = 16, 64
+    x = _bf16(rng, (B, N, 3 * heads * dh), cuda)
+    kw = dict(num_heads=heads, nsplit=nsplit, fold=q_fold(dh))
+    if with_ln:
+        kw.update(q_ln=[torch.tensor(rng.normal(m, 0.1, dh), dtype=torch.float32, device=cuda)
+                        for m in (1.0, 0.0)],
+                  k_ln=[torch.tensor(rng.normal(m, 0.1, dh), dtype=torch.float32, device=cuda)
+                        for m in (1.0, 0.0)])
+    if with_rope:
+        if nsplit == 2:
+            pos = patch_grid_positions(B, 11, -(-N // 11), 0, cuda)[:, :N]
+            cos, sin, _ = rope_cache_2d(pos, dh)
+        else:
+            from vitslam_tpu_torch.nn.rope import rope_cache_1d
+            cos, sin, _ = rope_cache_1d(torch.arange(N, device=cuda).expand(B, N), dh)
+        kw.update(cos=cos, sin=sin)
+    before = qk_prep.launches
+    got = qk_prep(x, **kw)
+    torch.cuda.synchronize()
+    assert qk_prep.launches == before + 1
+    want = qk_prep_plain(x, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=1e-6, rtol=2.0 ** -7)
+        assert (g != w).float().mean().item() <= 1e-3

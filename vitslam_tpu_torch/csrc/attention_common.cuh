@@ -1,11 +1,13 @@
-// Attention core shared by the port's Hopper kernels (fused_attention.cu,
-// K1; flash_attention.cu, K2 and K3; flash_attention_bwd.cu, K4): bf16
-// mma.sync m16n8k16 with fp32 accumulation, the exp2-domain softmax step
-// over one 64-key tile, the normalise-and-store epilogue, cp.async tile
-// loads into padded shared memory and the two warp-level products every
-// kernel is built from. All of it works on the register fragments of one
-// warp that owns 16 rows: lane l holds rows g = l / 4 and g + 8, and the
-// column pair c2 = 2 * (l % 4) of every 8-wide n-tile.
+// Warp-level mma.sync building blocks shared by the port's backward
+// attention kernels (flash_attention_bwd.cu, K4) and the fused block tail
+// (mlp_tail.cu, K5): bf16 mma.sync m16n8k16 with fp32 accumulation,
+// cp.async tile loads into padded shared memory, ldmatrix, the two
+// warp-level products X Y^T and P Y, re-packing an accumulator as A
+// fragments, and the scaled bf16 store. All of it works on the register
+// fragments of one warp that owns 16 rows: lane l holds rows g = l / 4 and
+// g + 8, and the column pair c2 = 2 * (l % 4) of every 8-wide n-tile. The
+// attention forward (K1-K3) is the wgmma + TMA core of
+// attention_fwd_sm90.cuh instead.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,20 +16,11 @@
 
 namespace vitslam {
 
-constexpr int kDh = 64;      // head dim of K1 (K2-K4 are templated on it)
-constexpr int kBlockN = 64;  // keys per inner iteration of the forward kernels
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Sum of the two bf16 halves of a packed pair, in fp32: the row sum l adds
-// the same rounded P values that enter the P V product.
-__device__ __forceinline__ float sum_bf16x2(uint32_t p) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&p);
-  return __low2float(v) + __high2float(v);
 }
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
@@ -150,73 +143,6 @@ __device__ __forceinline__ void pack_a(const float (&s)[kN / 8][4], uint32_t (&p
   }
 }
 
-// Mask the logits of keys >= n_keys (the ragged last tile) to -inf; k0 is
-// the tile's first key.
-__device__ __forceinline__ void mask_tail(float (&s)[kBlockN / 8][4], int k0, int n_keys,
-                                          int c2) {
-  if (k0 + kBlockN <= n_keys) return;
-#pragma unroll
-  for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (k0 + j * 8 + c2 + (e & 1) >= n_keys) s[j][e] = -INFINITY;
-    }
-  }
-}
-
-// One tile's softmax in the exp2 domain (q carries scale * log2(e)): with
-// kBounded the exponent shift is the fixed `shift`, else the running row
-// max m_row, with acc and l_row rescaled when it grows. P comes out in bf16
-// laid out directly as the A fragments of P V (key k-step t covers n-tiles
-// 2t and 2t+1), and its row sums are added to the lane's partial l_row.
-// kAcc = head dim / 8.
-template <bool kBounded, int kAcc>
-__device__ __forceinline__ void softmax_tile(float (&s)[kBlockN / 8][4], float (&acc)[kAcc][4],
-                                             float (&m_row)[2], float (&l_row)[2], float shift,
-                                             uint32_t (&pa)[kBlockN / 16][4]) {
-  float sub0, sub1;
-  if (kBounded) {
-    sub0 = sub1 = shift;
-  } else {
-    float mx0 = m_row[0], mx1 = m_row[1];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, o));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, o));
-    }
-    // the first tile always holds key 0, so mx is finite from here on
-    const float alpha0 = exp2f(m_row[0] - mx0);
-    const float alpha1 = exp2f(m_row[1] - mx1);
-    m_row[0] = mx0;
-    m_row[1] = mx1;
-    l_row[0] *= alpha0;
-    l_row[1] *= alpha1;
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) {
-      acc[j][0] *= alpha0;
-      acc[j][1] *= alpha0;
-      acc[j][2] *= alpha1;
-      acc[j][3] *= alpha1;
-    }
-    sub0 = mx0;
-    sub1 = mx1;
-  }
-#pragma unroll
-  for (int t = 0; t < kBlockN / 16; ++t) {
-    pa[t][0] = pack_bf16(exp2f(s[2 * t][0] - sub0), exp2f(s[2 * t][1] - sub0));
-    pa[t][1] = pack_bf16(exp2f(s[2 * t][2] - sub1), exp2f(s[2 * t][3] - sub1));
-    pa[t][2] = pack_bf16(exp2f(s[2 * t + 1][0] - sub0), exp2f(s[2 * t + 1][1] - sub0));
-    pa[t][3] = pack_bf16(exp2f(s[2 * t + 1][2] - sub1), exp2f(s[2 * t + 1][3] - sub1));
-    l_row[0] += sum_bf16x2(pa[t][0]) + sum_bf16x2(pa[t][2]);
-    l_row[1] += sum_bf16x2(pa[t][1]) + sum_bf16x2(pa[t][3]);
-  }
-}
-
 // Write the warp's rows of acc * scale0 (row g) and acc * scale1 (row
 // g + 8) as bf16. row0 / row1 point at the lane's column pair (head column
 // offset + c2) of rows g and g + 8 of the output, or are null for a row
@@ -234,20 +160,6 @@ __device__ __forceinline__ void store_scaled(const float (&acc)[kAcc][4], float 
       *reinterpret_cast<uint32_t*>(row1 + j * 8) = pack_bf16(acc[j][2] * scale1, acc[j][3] * scale1);
     }
   }
-}
-
-// Epilogue: reduce l over the lane quad (l_row then holds the full row
-// sums in every lane of the quad), normalise, and write the warp's rows as
-// bf16 (see store_scaled).
-template <int kAcc>
-__device__ __forceinline__ void store_rows(const float (&acc)[kAcc][4], float (&l_row)[2],
-                                           __nv_bfloat16* row0, __nv_bfloat16* row1) {
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l_row[0] += __shfl_xor_sync(kFull, l_row[0], o);
-    l_row[1] += __shfl_xor_sync(kFull, l_row[1], o);
-  }
-  store_scaled(acc, 1.0f / fmaxf(l_row[0], 1e-30f), 1.0f / fmaxf(l_row[1], 1e-30f), row0, row1);
 }
 
 }  // namespace vitslam

@@ -1,272 +1,299 @@
-// Fused qkv-packed self-attention for Hopper (sm_90a), bf16 in, bf16 out.
+// Fused qkv-packed self-attention for Hopper (sm_90a), bf16 in, bf16 out:
+// K1 of the port, a prep kernel and the wgmma + TMA attention core.
 //
-// Replaces: vitslam_tpu/ops/fused_attention.py::_fused_kernel (the Pallas
-// TPU kernel behind fused_qkv_attention). Same math: q/k/v are sliced per
-// head straight out of the packed (B, N, 3C) projection (row stride 3C,
-// nothing transposed in device memory); optional per-head LayerNorm (fp32
-// stats E[x^2] - E[x]^2, eps 1e-6) and RoPE x*cos + rotate_half_multi(x)*sin
-// run on the q and k tiles in registers; scale*log2(e) is folded into q;
-// S = Q K^T in bf16 with fp32 accumulation, key columns >= N masked (a padded
-// key row would come out of LayerNorm as the bias vector, which is not zero
-// mass); exp2-domain softmax with either a fixed shift (qk-norm bounds the
-// logits) or an online row max; P V accumulated in fp32 beside the row sum
-// l; output acc / max(l, 1e-30) written as bf16 into the head's column slice
-// of the flat (B, N, C) output.
+// Replaces: vitslam_tpu/ops/fused_attention.py::_fused_kernel (:75, the
+// Pallas TPU kernel behind fused_qkv_attention; its q/k prep is _prep_tile,
+// :56). Same math: q/k/v are sliced per head straight out of the packed
+// (B, N, 3C) projection; optional per-head LayerNorm (fp32 stats
+// E[x^2] - E[x]^2 without a clamp, eps 1e-6) and RoPE
+// x*cos + rotate_half_multi(x)*sin on q and k; scale*log2(e) folded into q;
+// exp2-domain softmax with a fixed shift (qk-norm bounds the logits) or an
+// online row max; the output written as flat (B, N, C).
 //
-// What bounds it on the H100: at dh = 64 the work is two N^2*dh products per
-// head (the global attention of the flagship at N = 2060 with 16 heads is
-// 4 * 2060^2 * 64 * 16 = 17.4 GFLOP), while the bytes moved are O(N*C), so
-// the kernel is tensor-core bound. The design keeps both products on the
-// tensor cores (mma.sync m16n8k16 bf16 -> fp32) and keeps S and P in
-// registers: the softmax runs on the accumulator fragments, and P is
-// re-packed as the A operand of the P V product without a trip through
-// shared memory. One CTA of 4 warps owns a 64-row q tile of one (batch,
-// head); each warp owns 16 rows. The q tile is prepped once; each 64-key
-// tile is prepped as it arrives (LayerNorm + RoPE on k are recomputed per q
-// tile: O(N*dh) per tile against O(N*dh*64) for Q K^T). V is stored
-// transposed in shared memory so its B fragments are single 32-bit loads.
-// The softmax step and the epilogue are the attention core it shares with
-// flash_attention.cu (attention_common.cuh).
-// Not done yet: wgmma, TMA, cp.async double buffering and preparing K once.
+// What bounds it on the H100: at N = 412 (a frame) the bytes (3C in, C out
+// per token) and the products weigh about the same; at N = 2,060 the two
+// N^2 * 64 products per head dominate. The TPU kernel preps every K tile
+// again for every q tile (33 times per key at N = 2,060); here:
+// - qk_prep_kernel reads each (token, head) of q and k once, in 16-byte
+//   chunks (8 lanes per head row: the LayerNorm sums are 3 shuffles, the
+//   RoPE partner chunk is lane ^ 2 or lane ^ 4), applies LayerNorm, RoPE
+//   and (q only) the scale fold in fp32 with the plain version's operation
+//   order, rounds once to bf16 (where the TPU kernel rounds too) and writes
+//   q^ and k^ to scratch the wrapper allocates.
+// - the attention is attention_fwd_sm90.cuh's core at head dim 64 on
+//   q^, k^ and V read straight from the qkv slice through a tensor map with
+//   row stride 3C (never copied). Without LayerNorm and RoPE (patch embed)
+//   there is no prep launch: the core reads q and k from qkv too and folds
+//   the scale into its Q tile, as for K2/K3 (a prep pass that only folded
+//   would cost a read and a write of q, 13% of the call at 75/30).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_common.cuh"
+#include "attention_fwd_sm90.cuh"
 
 namespace {
 
-using vitslam::kBlockN;
-using vitslam::kDh;
-using vitslam::kFull;
-using vitslam::mma_bf16_16816;
-using vitslam::pack_bf16;
-
-constexpr int kBlockM = 64;      // q rows per CTA
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kBlockM / kWarps;  // 16
-constexpr int kStride = kDh + 8;  // padded smem row (bf16): conflict-free fragment loads
+constexpr int kDh = 64;
+constexpr int kChunks = kDh / 8;  // 16-byte chunks (8 bf16) per head row
+constexpr int kPrepThreads = 256;
 constexpr float kLnEps = 1e-6f;
+constexpr unsigned kFull = 0xffffffffu;
 
-// LayerNorm + RoPE of one token row of one head, spread over a warp: lane l
-// holds elements 2l and 2l+1. All 32 lanes must call it together.
-template <bool kLn, bool kRope>
-__device__ __forceinline__ void prep_row(float& x0, float& x1, int lane,
-                                         const float* __restrict__ ln_scale,
-                                         const float* __restrict__ ln_bias,
-                                         const float* __restrict__ cos_row,
-                                         const float* __restrict__ sin_row,
-                                         int nsplit) {
-  const int d = 2 * lane;
-  if (kLn) {
-    float s = x0 + x1;
-    float ss = x0 * x0 + x1 * x1;
+struct PrepParams {
+  const __nv_bfloat16* qkv;  // (B, N, 3C) contiguous
+  __nv_bfloat16* q_out;      // (B, N, C) contiguous
+  __nv_bfloat16* k_out;      // (B, N, C) contiguous, or null without a k prep
+  const float* cos;          // (B, N, dh) rows at (tab_sb, tab_sn) element strides
+  const float* sin;
+  long long tab_sb, tab_sn;
+  const float* ln[4];  // q scale, q bias, k scale, k bias: fp32 (dh,)
+  int B, N, H, nsplit;
+  float q_fold;
+};
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float (&x)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(kFull, s, o);
-      ss += __shfl_xor_sync(kFull, ss, o);
+  for (int e = 0; e < 4; ++e) {
+    x[2 * e] = __low2float(h[e]);
+    x[2 * e + 1] = __high2float(h[e]);
+  }
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&x)[8]) {
+  uint4 v;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) w[e] = vitslam::sm90::pack_bf16(x[2 * e], x[2 * e + 1]);
+  *reinterpret_cast<uint4*>(dst) = v;
+}
+
+__device__ __forceinline__ void load8f(const float* src, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+// LayerNorm + RoPE of one head row held by 8 lanes (this lane: columns
+// d0 .. d0 + 7), in the plain version's order: (x - mean) * rsqrt(var +
+// eps), * scale, + bias; x * cos + rot * sin. All 32 lanes call it.
+template <bool kLn, bool kRope>
+__device__ __forceinline__ void prep8(float (&x)[8], int d0, const float* scale,
+                                      const float* bias, const float (&c)[8], const float (&s)[8],
+                                      int partner_xor, bool lower) {
+  if (kLn) {
+    float sum = 0.f, sq = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      sum += x[e];
+      sq = __fadd_rn(sq, __fmul_rn(x[e], x[e]));  // no FMA: the plain version rounds x^2
     }
-    const float mean = s * (1.0f / kDh);
-    const float var = ss * (1.0f / kDh) - mean * mean;
+#pragma unroll
+    for (int off = 1; off < kChunks; off <<= 1) {
+      sum += __shfl_xor_sync(kFull, sum, off);
+      sq += __shfl_xor_sync(kFull, sq, off);
+    }
+    const float mean = sum * (1.0f / kDh);
+    const float var = __fsub_rn(sq * (1.0f / kDh), __fmul_rn(mean, mean));
     const float inv = rsqrtf(var + kLnEps);
-    x0 = (x0 - mean) * inv * ln_scale[d] + ln_bias[d];
-    x1 = (x1 - mean) * inv * ln_scale[d + 1] + ln_bias[d + 1];
+    float w[8], bb[8];
+    load8f(scale + d0, w);
+    load8f(bias + d0, bb);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      x[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x[e], mean), inv), w[e]), bb[e]);
+    }
   }
   if (kRope) {
-    // rotate_half_multi: within each of nsplit blocks of seg elements,
-    // out[t] = -x[t + half] for t < half, out[t] = x[t - half] otherwise.
-    // half is even, so both of a lane's elements share one partner lane.
-    const int seg = kDh / nsplit;
+    // rotate_half_multi: within each block of 64 / nsplit columns,
+    // rot[d] = -x[d + half] in the lower half, x[d - half] in the upper;
+    // the partner chunk is lane ^ (half / 8)
+    float r[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float pv = __shfl_xor_sync(kFull, x[e], partner_xor);
+      r[e] = lower ? -pv : pv;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = __fadd_rn(__fmul_rn(x[e], c[e]), __fmul_rn(r[e], s[e]));
+  }
+}
+
+template <bool kLn, bool kRope>
+__global__ void __launch_bounds__(kPrepThreads) qk_prep_kernel(const PrepParams p) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kPrepThreads + threadIdx.x;
+  const int chunk = static_cast<int>(idx % kChunks);
+  const long long rh = idx / kChunks;  // (token row, head), head fastest
+  const long long rows = static_cast<long long>(p.B) * p.N;
+  // lanes of one head row are all in or all out (8 | 32): no early return
+  // before the shuffles
+  const bool valid = rh < rows * p.H;
+  const long long r = valid ? rh / p.H : 0;
+  const int h = valid ? static_cast<int>(rh % p.H) : 0;
+  const int C = p.H * kDh;
+  const int d0 = chunk * 8;
+  const __nv_bfloat16* src = p.qkv + r * 3 * C + h * kDh + d0;
+
+  float c[8], s[8];
+  int partner_xor = 0;
+  bool lower = false;
+  if (kRope) {
+    const long long b = r / p.N, n = r % p.N;
+    load8f(p.cos + b * p.tab_sb + n * p.tab_sn + d0, c);
+    load8f(p.sin + b * p.tab_sb + n * p.tab_sn + d0, s);
+    const int seg = kDh / p.nsplit;
     const int half = seg / 2;
-    const bool lower = (d % seg) < half;
-    const int src = lower ? lane + half / 2 : lane - half / 2;
-    const float p0 = __shfl_sync(kFull, x0, src);
-    const float p1 = __shfl_sync(kFull, x1, src);
-    const float r0 = lower ? -p0 : p0;
-    const float r1 = lower ? -p1 : p1;
-    x0 = x0 * cos_row[d] + r0 * sin_row[d];
-    x1 = x1 * cos_row[d + 1] + r1 * sin_row[d + 1];
+    partner_xor = half / 8;
+    lower = (d0 % seg) < half;
+  }
+  float x[8];
+  load8(src, x);
+  prep8<kLn, kRope>(x, d0, p.ln[0], p.ln[1], c, s, partner_xor, lower);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = __fmul_rn(x[e], p.q_fold);
+  if (valid) store8(p.q_out + r * C + h * kDh + d0, x);
+  if (kLn || kRope) {
+    load8(src + C, x);
+    prep8<kLn, kRope>(x, d0, p.ln[2], p.ln[3], c, s, partner_xor, lower);
+    if (valid) store8(p.k_out + r * C + h * kDh + d0, x);
   }
 }
 
-template <bool kLn, bool kRope, bool kBounded>
-__global__ void __launch_bounds__(kThreads)
-fused_qkv_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
-                           __nv_bfloat16* __restrict__ out,
-                           const float* __restrict__ cos_tab,
-                           const float* __restrict__ sin_tab,
-                           const float* __restrict__ ln,  // [q_scale|q_bias|k_scale|k_bias], 4*kDh
-                           const float* __restrict__ shift_ptr,
-                           int N, int H, int nsplit, float qscale) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBlockM][kStride];
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN][kStride];
-  __shared__ __align__(16) __nv_bfloat16 vt_s[kDh][kStride];  // [dim][key]
-
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int C = H * kDh;
-  const size_t row_stride = 3 * static_cast<size_t>(C);
-  const __nv_bfloat16* qkv_b = qkv + static_cast<size_t>(b) * N * row_stride;
-  const float* cos_b = kRope ? cos_tab + static_cast<size_t>(b) * N * kDh : nullptr;
-  const float* sin_b = kRope ? sin_tab + static_cast<size_t>(b) * N * kDh : nullptr;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;        // fragment row group
-  const int c2 = (lane & 3) * 2;  // fragment column pair
-
-  // ---- q tile: prep once, fold scale*log2(e), keep as A fragments ----
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = warp * kRowsPerWarp + r;
-    const int n = q0 + row;  // warp-uniform
-    float x0 = 0.f, x1 = 0.f;
-    if (n < N) {
-      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-          qkv_b + n * row_stride + h * kDh + 2 * lane);
-      x0 = __low2float(v);
-      x1 = __high2float(v);
-      prep_row<kLn, kRope>(x0, x1, lane, ln, ln + kDh,
-                           kRope ? cos_b + static_cast<size_t>(n) * kDh : nullptr,
-                           kRope ? sin_b + static_cast<size_t>(n) * kDh : nullptr, nsplit);
-      x0 *= qscale;
-      x1 *= qscale;
-    }
-    *reinterpret_cast<uint32_t*>(&q_s[row][2 * lane]) = pack_bf16(x0, x1);
-  }
-  __syncwarp();
-  uint32_t qa[kDh / 16][4];
-  {
-    const int r0 = warp * kRowsPerWarp + g;
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(&q_s[r0][kk * 16 + c2]);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(&q_s[r0 + 8][kk * 16 + c2]);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(&q_s[r0][kk * 16 + 8 + c2]);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(&q_s[r0 + 8][kk * 16 + 8 + c2]);
-    }
-  }
-
-  float acc[kDh / 8][4];
-#pragma unroll
-  for (int j = 0; j < kDh / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  }
-  // rows g and g+8 of this warp's 16: running max (online) and the lane's
-  // partial row sums (reduced over the quad at the end)
-  float m_row[2] = {-INFINITY, -INFINITY};
-  float l_row[2] = {0.f, 0.f};
-  const float shift = kBounded ? *shift_ptr : 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous k/v tile
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = warp * kRowsPerWarp + r;
-      const int n = k0 + row;  // warp-uniform
-      float x0 = 0.f, x1 = 0.f;
-      __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
-      if (n < N) {
-        const __nv_bfloat16* tok = qkv_b + n * row_stride + h * kDh + 2 * lane;
-        const __nv_bfloat162 k = *reinterpret_cast<const __nv_bfloat162*>(tok + C);
-        v = *reinterpret_cast<const __nv_bfloat162*>(tok + 2 * C);
-        x0 = __low2float(k);
-        x1 = __high2float(k);
-        prep_row<kLn, kRope>(x0, x1, lane, ln + 2 * kDh, ln + 3 * kDh,
-                             kRope ? cos_b + static_cast<size_t>(n) * kDh : nullptr,
-                             kRope ? sin_b + static_cast<size_t>(n) * kDh : nullptr, nsplit);
-      }
-      *reinterpret_cast<uint32_t*>(&k_s[row][2 * lane]) = pack_bf16(x0, x1);
-      vt_s[2 * lane][row] = v.x;
-      vt_s[2 * lane + 1][row] = v.y;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&k_s[j * 8 + g][kk * 16 + c2]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&k_s[j * 8 + g][kk * 16 + 8 + c2]);
-        mma_bf16_16816(s[j], qa[kk], b0, b1);
-      }
-    }
-    vitslam::mask_tail(s, k0, N, c2);
-    // P in bf16, laid out directly as the A fragments of P V
-    uint32_t pa[kBlockN / 16][4];
-    vitslam::softmax_tile<kBounded>(s, acc, m_row, l_row, shift, pa);
-
-    // O += P V over 8 n-tiles of the head dim
-#pragma unroll
-    for (int j = 0; j < kDh / 8; ++j) {
-#pragma unroll
-      for (int t = 0; t < kBlockN / 16; ++t) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&vt_s[j * 8 + g][t * 16 + c2]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&vt_s[j * 8 + g][t * 16 + 8 + c2]);
-        mma_bf16_16816(acc[j], pa[t], b0, b1);
-      }
-    }
-  }
-
-  // ---- finalize: normalise, write the head's column slice ----
-  const int n0 = q0 + warp * kRowsPerWarp + g;
-  const int n1 = n0 + 8;
-  __nv_bfloat16* out_b = out + static_cast<size_t>(b) * N * C + h * kDh + c2;
-  vitslam::store_rows(acc, l_row, n0 < N ? out_b + static_cast<size_t>(n0) * C : nullptr,
-                      n1 < N ? out_b + static_cast<size_t>(n1) * C : nullptr);
+template <bool kLn, bool kRope>
+cudaError_t launch_prep(const PrepParams& p, cudaStream_t stream) {
+  const long long threads = static_cast<long long>(p.B) * p.N * p.H * kChunks;
+  const long long blocks = (threads + kPrepThreads - 1) / kPrepThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  qk_prep_kernel<kLn, kRope><<<static_cast<unsigned>(blocks), kPrepThreads, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
-template <bool kLn, bool kRope, bool kBounded>
-void launch(const void* qkv, void* out, const void* cos_tab, const void* sin_tab,
-            const void* ln, const void* shift, int B, int N, int H, int nsplit,
-            float qscale, cudaStream_t stream) {
-  const dim3 grid((N + kBlockM - 1) / kBlockM, H, B);
-  fused_qkv_attention_kernel<kLn, kRope, kBounded><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      static_cast<const float*>(cos_tab), static_cast<const float*>(sin_tab),
-      static_cast<const float*>(ln), static_cast<const float*>(shift), N, H, nsplit, qscale);
+// K1's attention: the core at head dim 64 on q^ (already folded) or, for
+// the patch embed, on the raw q slice (kFold: the core folds it).
+template <bool kBounded, bool kFold>
+__global__ void __launch_bounds__(vitslam::sm90::kThreads, 1)
+    fused_qkv_attention_kernel(const __grid_constant__ vitslam::sm90::FwdParams p) {
+  vitslam::sm90::attention_fwd<kDh, kBounded, kFold>(p);
+}
+
+// What the prep takes (the entry points return cudaErrorInvalidValue else).
+bool check_prep(const void* q_scale, const void* q_bias, const void* k_scale, const void* k_bias,
+               const void* cos, const void* sin, const void* k_out, int B, int N, int H, int dh,
+               int nsplit) {
+  const bool do_ln = q_scale != nullptr;
+  const bool do_rope = cos != nullptr;
+  return dh == kDh && B >= 1 && N >= 1 && H >= 1 && (nsplit == 1 || nsplit == 2) &&
+         (!do_rope || sin != nullptr) &&
+         (!do_ln || (q_bias != nullptr && k_scale != nullptr && k_bias != nullptr)) &&
+         (!(do_ln || do_rope) || k_out != nullptr);
+}
+
+cudaError_t prep(const void* qkv, void* q_out, void* k_out, const void* cos, const void* sin,
+                 long long tab_sb, long long tab_sn, const void* q_scale, const void* q_bias,
+                 const void* k_scale, const void* k_bias, int B, int N, int H, int nsplit,
+                 float q_fold, cudaStream_t s) {
+  PrepParams p{static_cast<const __nv_bfloat16*>(qkv),
+               static_cast<__nv_bfloat16*>(q_out),
+               static_cast<__nv_bfloat16*>(k_out),
+               static_cast<const float*>(cos),
+               static_cast<const float*>(sin),
+               tab_sb,
+               tab_sn,
+               {static_cast<const float*>(q_scale), static_cast<const float*>(q_bias),
+                static_cast<const float*>(k_scale), static_cast<const float*>(k_bias)},
+               B,
+               N,
+               H,
+               nsplit,
+               q_fold};
+  if (q_scale != nullptr) {
+    return cos != nullptr ? launch_prep<true, true>(p, s) : launch_prep<true, false>(p, s);
+  }
+  return cos != nullptr ? launch_prep<false, true>(p, s) : launch_prep<false, false>(p, s);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). qkv: bf16 (B, N, 3*H*dh)
-// contiguous; out: bf16 (B, N, H*dh) contiguous; cos/sin: fp32 (B, N, dh)
-// contiguous, or null without RoPE; ln: fp32 [q_scale|q_bias|k_scale|k_bias]
-// (4*dh), or null without LayerNorm; shift: fp32 device scalar holding the
-// log2-domain softmax shift, or null for the online row max. Launches on
-// `stream`, allocates nothing, and returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape it does not support).
-extern "C" int vitslam_fused_qkv_attention_bf16(const void* qkv, void* out,
-                                                const void* cos_tab, const void* sin_tab,
-                                                const void* ln, const void* shift,
-                                                int B, int N, int H, int dh, int nsplit,
-                                                float qscale, void* stream) {
-  if (dh != kDh || N < 1 || B < 1 || H < 1 || (nsplit != 1 && nsplit != 2)) {
+// Plain C entry points (bound with ctypes); each launches on `stream`,
+// allocates nothing, and returns cudaGetLastError() after its launches
+// (cudaErrorInvalidValue for what it does not take).
+//
+// The prep alone: qkv bf16 (B, N, 3*H*64) contiguous, 16-byte aligned;
+// q_out bf16 (B, N, H*64) contiguous, written with LN + RoPE of q, times
+// q_fold, in bf16; k_out the same for k without the fold, or null when
+// there is neither LayerNorm nor RoPE. cos/sin: fp32 with a contiguous last
+// dim of at least 64 at element strides (tab_sb, tab_sn) of (batch, token),
+// 16-byte aligned rows, or null without RoPE; ln_*: fp32 (64,) contiguous
+// and 16-byte aligned, all four or none.
+extern "C" int vitslam_qk_prep_bf16(const void* qkv, void* q_out, void* k_out, const void* cos,
+                                    const void* sin, long long tab_sb, long long tab_sn,
+                                    const void* q_scale, const void* q_bias, const void* k_scale,
+                                    const void* k_bias, int B, int N, int H, int dh, int nsplit,
+                                    float q_fold, void* stream) {
+  if (!check_prep(q_scale, q_bias, k_scale, k_bias, cos, sin, k_out, B, N, H, dh, nsplit)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool do_ln = ln != nullptr;
-  const bool do_rope = cos_tab != nullptr && sin_tab != nullptr;
-  const bool bounded = shift != nullptr;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VITSLAM_LAUNCH(L, R, Bd) \
-  launch<L, R, Bd>(qkv, out, cos_tab, sin_tab, ln, shift, B, N, H, nsplit, qscale, s)
-  if (do_ln) {
-    if (do_rope) {
-      if (bounded) VITSLAM_LAUNCH(true, true, true); else VITSLAM_LAUNCH(true, true, false);
-    } else {
-      if (bounded) VITSLAM_LAUNCH(true, false, true); else VITSLAM_LAUNCH(true, false, false);
-    }
-  } else {
-    if (do_rope) {
-      if (bounded) VITSLAM_LAUNCH(false, true, true); else VITSLAM_LAUNCH(false, true, false);
-    } else {
-      if (bounded) VITSLAM_LAUNCH(false, false, true); else VITSLAM_LAUNCH(false, false, false);
-    }
+  return static_cast<int>(prep(qkv, q_out, k_out, cos, sin, tab_sb, tab_sn, q_scale, q_bias,
+                               k_scale, k_bias, B, N, H, nsplit, q_fold,
+                               static_cast<cudaStream_t>(stream)));
+}
+
+// K1: the prep (arguments as above; q_fold = scale * log2(e)) into the
+// scratch q_hat and k_hat, then the attention core over q^, k^ and the v
+// slice of qkv (row stride 3C, read in place) into out, bf16 (B, N, H*64)
+// contiguous: two launches. Without LayerNorm and RoPE (q_hat and k_hat
+// null) there is nothing to prep: one launch of the core on the q and k
+// slices of qkv, folding q_fold into q in shared memory as K2/K3 do (the
+// same fp32 multiply and one rounding as the prep's). static_max: fp32
+// device scalar holding the natural-log logit bound (the shift is
+// static_max * log2(e)), or null for the online row max.
+extern "C" int vitslam_fused_qkv_attention_bf16(
+    const void* qkv, void* q_hat, void* k_hat, void* out, const void* cos, const void* sin,
+    long long tab_sb, long long tab_sn, const void* q_scale, const void* q_bias,
+    const void* k_scale, const void* k_bias, const void* static_max, int B, int N, int H, int dh,
+    int nsplit, float q_fold, void* stream) {
+  const bool prepped = q_scale != nullptr || cos != nullptr;
+  if (!check_prep(q_scale, q_bias, k_scale, k_bias, cos, sin, k_hat, B, N, H, dh, nsplit) ||
+      prepped != (q_hat != nullptr) || B > 65535 || H > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef VITSLAM_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (prepped) {
+    err = prep(qkv, q_hat, k_hat, cos, sin, tab_sb, tab_sn, q_scale, q_bias, k_scale, k_bias, B,
+               N, H, nsplit, q_fold, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+
+  using vitslam::sm90::launch_fwd;
+  const long long C = static_cast<long long>(H) * kDh;
+  const long long n = N;
+  const __nv_bfloat16* qkv_b = static_cast<const __nv_bfloat16*>(qkv);
+  // q^ and k^ are (B, N, C); the raw q and k slices of qkv have row stride 3C
+  const void* q = prepped ? q_hat : static_cast<const void*>(qkv_b);
+  const void* k = prepped ? k_hat : static_cast<const void*>(qkv_b + C);
+  const long long qk_sn = prepped ? C : 3 * C;
+  vitslam::sm90::FwdParams p{};
+  p.o = static_cast<__nv_bfloat16*>(out);
+  p.o_sb = n * C;
+  p.o_sh = kDh;
+  p.o_sn = C;
+  p.static_max = static_cast<const float*>(static_max);
+  p.nq = N;
+  p.nk = N;
+  p.q_fold = q_fold;
+  const long long qs[3] = {n * qk_sn, kDh, qk_sn};
+  const long long vs[3] = {n * 3 * C, kDh, 3 * C};
+  const void* v = qkv_b + 2 * C;
+  const bool bounded = static_max != nullptr;
+  auto kernel = prepped ? (bounded ? fused_qkv_attention_kernel<true, false>  // q^ arrives folded
+                                   : fused_qkv_attention_kernel<false, false>)
+                        : (bounded ? fused_qkv_attention_kernel<true, true>
+                                   : fused_qkv_attention_kernel<false, true>);
+  return static_cast<int>(launch_fwd<kDh>(kernel, p, q, k, v, B, H, qs, qs, vs, s));
 }

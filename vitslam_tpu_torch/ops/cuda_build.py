@@ -26,16 +26,21 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# source stem -> (C entry point, argtypes)
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# source stem -> {C entry point: argtypes}
 ENTRY_POINTS = {
-    "fused_attention": ("vitslam_fused_qkv_attention_bf16",
-                        [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
-    "flash_attention": ("vitslam_flash_attention_bf16",
-                        [_P] * 6 + [_I] * 5 + [_LL] * 12 + [_P]),
-    "flash_attention_bwd": ("vitslam_flash_attention_bwd_bf16",
-                            [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_LL] * 21 + [_P]),
-    "mlp_tail": ("vitslam_mlp_tail_bf16", [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]),
+    "fused_attention": {
+        "vitslam_qk_prep_bf16": [_P] * 5 + [_LL] * 2 + [_P] * 4 + [_I] * 5 + [_F, _P],
+        "vitslam_fused_qkv_attention_bf16": [_P] * 6 + [_LL] * 2 + [_P] * 5 + [_I] * 5
+                                            + [_F, _P],
+    },
+    "flash_attention": {
+        "vitslam_flash_attention_bf16": [_P] * 6 + [_I] * 5 + [_LL] * 12 + [_P],
+    },
+    "flash_attention_bwd": {
+        "vitslam_flash_attention_bwd_bf16": [_P] * 9 + [_I] * 5 + [_F] + [_LL] * 21 + [_P],
+    },
+    "mlp_tail": {"vitslam_mlp_tail_bf16": [_P] * 8 + [_I] * 5 + [_F, _P]},
 }
 
 _lock = threading.Lock()
@@ -101,14 +106,14 @@ def build_all() -> dict[str, Path]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (every kernel is built on the
-    first call), with its entry point's argtypes set."""
+    first call), with its entry points' argtypes set."""
     with _lock:
         if name not in _libs:
             paths = build_all()
             lib = ctypes.CDLL(str(paths[name]))
-            fn_name, argtypes = ENTRY_POINTS[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in ENTRY_POINTS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return _libs[name]

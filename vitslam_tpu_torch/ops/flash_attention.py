@@ -30,11 +30,22 @@ KERNEL_HEAD_DIMS = (64, 128)
 PLAIN_MAX_LOGITS = 1 << 28
 
 
-def shift_tensor(static_max, device) -> torch.Tensor:
-    """The log2-domain softmax shift as a device scalar: the kernels read it
-    from device memory, so a shift computed on the device never syncs."""
-    t = torch.as_tensor(static_max, dtype=torch.float32, device=device)
-    return (t.detach().reshape(1) * LOG2E).contiguous()
+def q_fold(dh: int) -> float:
+    """scale * log2(e) for head dim dh: the factor every forward kernel folds
+    into q in fp32 before one rounding to bf16 (the kernels compute the same
+    double), and K4's wrapper folds the same way to rebuild P."""
+    return LOG2E / math.sqrt(dh)
+
+
+def static_max_operand(static_max, device) -> torch.Tensor:
+    """The natural-log logit bound as an fp32 device scalar, the form the
+    kernels read (they multiply it by log2(e) themselves, so a bound
+    computed on the device never syncs and costs no launch here). A 1-element
+    fp32 tensor on ``device`` is used as it is; anything else is converted."""
+    t = torch.as_tensor(static_max).detach()
+    if t.dtype != torch.float32 or t.device != device or t.numel() != 1:
+        t = t.to(device=device, dtype=torch.float32)
+    return t.reshape(1)
 
 
 def _row_blocks(q: torch.Tensor, nk: int) -> int:
@@ -96,34 +107,66 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: float | None 
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+TMA_BOX_COLS = 64   # head-dim columns per TMA box: one 128-byte swizzle row
+TMA_BOX_ROWS = 128  # tokens per box: the kernels' Q and K/V tiles
+TMA_SWIZZLE = 128   # bytes
+
+
+def tma_geometry(t: torch.Tensor) -> dict:
+    """The tensor map the attention kernels encode for a (B, H, N, D) bf16
+    view (``csrc/attention_fwd_sm90.cuh::make_map``): dims (D, N, H, B)
+    innermost first, byte strides of the token, head and batch dims (an
+    extent-1 head or batch dim takes the token stride, since it is never
+    stepped), boxes of 64 columns by 128 rows, 128-byte swizzle, zero fill
+    out of bounds. Raises ValueError on what TMA does not take: a head dim
+    other than 64 or 128, a strided head dim, byte strides or a base address
+    not 16-byte aligned, strides of 2^40 bytes or more."""
+    if t.dim() != 4 or t.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"TMA view must be (B, H, N, D) with D in {KERNEL_HEAD_DIMS}, "
+                         f"got {tuple(t.shape)}")
+    B, H, N, D = t.shape
+    sb, sh, sn, sd = t.stride()
+    es = t.element_size()
+    row = sn * es
+    strides = (row, sh * es if H > 1 else row, sb * es if B > 1 else row)
+    if sd != 1:
+        raise ValueError(f"TMA view needs a contiguous head dim, got strides {t.stride()}")
+    if any(s % 16 or s <= 0 or s >= 1 << 40 for s in strides):
+        raise ValueError(f"TMA byte strides must be positive multiples of 16 below 2^40, "
+                         f"got {strides} (element strides {t.stride()})")
+    if t.data_ptr() % 16:
+        raise ValueError(f"TMA base address must be 16-byte aligned, got {t.data_ptr():#x}")
+    return dict(dims=(D, N, H, B), strides=strides, box=(TMA_BOX_COLS, TMA_BOX_ROWS, 1, 1),
+                swizzle=TMA_SWIZZLE)
+
+
 def _check_kernel_operands(kernel: str, ref: torch.Tensor, **tensors) -> None:
     """Raise on what the kernels do not take: bf16 (B, H, N, D) tensors on
     ref's device with D in KERNEL_HEAD_DIMS, a contiguous head dim and
-    16-byte aligned rows (rows are copied 16 bytes at a time)."""
+    16-byte aligned rows and base (the TMA maps' and the 16-byte loads'
+    rule, ``tma_geometry``)."""
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != ref.device:
             raise ValueError(f"{kernel} kernel: {name} on {t.device}, q on {ref.device}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{kernel} kernel takes bf16, got {name} {t.dtype}")
-        if t.dim() != 4 or t.shape[-1] not in KERNEL_HEAD_DIMS:
-            raise ValueError(f"{kernel} kernel takes (B, H, N, D) with D in "
-                             f"{KERNEL_HEAD_DIMS}, got {name} {tuple(t.shape)}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{kernel} kernel needs a contiguous head dim and "
-                             f"16-byte aligned rows, got {name} strides {t.stride()}")
+        try:
+            tma_geometry(t)
+        except ValueError as e:
+            raise ValueError(f"{kernel} kernel: {name}: {e}") from None
 
 
 def _strides(*tensors) -> list[int]:
     return [s for t in tensors for s in t.stride()[:3]]
 
 
-def launch_streaming(q, k, v, out, shift, lse=None) -> None:
-    """Launch ``csrc/flash_attention.cu`` on (B, H, N, D) bf16 views q (with
-    scale * log2(e) folded in), k, v and out, D 64 or 128, addressed through
-    their strides; ``shift`` is a device scalar from ``shift_tensor`` or None
-    for an online row max; ``lse``, if given, an fp32 (B, H, Nq) contiguous
-    buffer for the log2-domain row logsumexp. Raises on what the kernel does
-    not take."""
+def launch_streaming(q, k, v, out, static_max, lse=None) -> None:
+    """Launch ``csrc/flash_attention.cu`` on (B, H, N, D) bf16 views q, k, v
+    and out, D 64 or 128, addressed through their strides; the kernel folds
+    ``q_fold(D)`` into q itself. ``static_max`` is a device scalar from
+    ``static_max_operand`` (the natural-log bound) or None for an online
+    row max; ``lse``, if given, an fp32 (B, H, Nq) contiguous buffer for the
+    log2-domain row logsumexp. Raises on what the kernel does not take."""
     from .cuda_build import library
 
     _check_kernel_operands("flash attention", q, q=q, k=k, v=v, out=out)
@@ -140,7 +183,7 @@ def launch_streaming(q, k, v, out, shift, lse=None) -> None:
     with torch.cuda.device(q.device):
         err = library("flash_attention").vitslam_flash_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if shift is None else shift.data_ptr(),
+            None if static_max is None else static_max.data_ptr(),
             None if lse is None else lse.data_ptr(), B, H, nq, nk, dh,
             *_strides(q, k, v, out), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -148,16 +191,15 @@ def launch_streaming(q, k, v, out, shift, lse=None) -> None:
 
 
 def _forward_kernel(q, k, v, static_max, lse):
-    """The CUDA forward: q scaled by log2(e) / sqrt(D) in fp32 and rounded
-    to bf16; the output is a (B, H, Nq, D) view of a (B, Nq, H, D) buffer,
+    """The CUDA forward on q as it comes (the kernel folds scale * log2(e)
+    into it); the output is a (B, H, Nq, D) view of a (B, Nq, H, D) buffer,
     so the caller's merge of the heads back to (B, Nq, H*D) is free."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     B, H, nq, dh = q.shape
-    qs = (q.float() * (LOG2E / math.sqrt(dh))).to(torch.bfloat16)
     out = torch.empty((B, nq, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
-    shift = None if static_max is None else shift_tensor(static_max, q.device)
-    launch_streaming(qs, k, v, out, shift, lse)
+    smax = None if static_max is None else static_max_operand(static_max, q.device)
+    launch_streaming(q, k, v, out, smax, lse)
     return out
 
 
@@ -184,8 +226,9 @@ def flash_attention_backward(q, k, v, out, lse, dout):
     and lse and the output's gradient, in q's, k's and v's dtypes. CPU
     tensor: ``flash_attention_backward_plain``; CUDA tensor: the dq and dk/dv
     kernels of ``csrc/flash_attention_bwd.cu`` (bf16, D 64 or 128), or an
-    error. q is scaled by log2(e) / sqrt(D) and rounded to bf16 exactly as
-    the forward did, so the rebuilt P is the forward's.
+    error. q is scaled by ``q_fold(D)`` and rounded to bf16 exactly as the
+    forward kernel does in shared memory, so the rebuilt P is the
+    forward's.
     ``flash_attention_backward.launches`` counts kernel launches (each
     launches both kernels)."""
     if q.device.type == "cpu":
@@ -200,7 +243,7 @@ def flash_attention_backward(q, k, v, out, lse, dout):
     B, H, nq, dh = q.shape
     nk = k.shape[2]
     scale = 1.0 / math.sqrt(dh)
-    qs = (q.float() * (LOG2E * scale)).to(torch.bfloat16)
+    qs = (q.float() * q_fold(dh)).to(torch.bfloat16)
     dq = torch.empty((B, nq, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
     dk = torch.empty((B, nk, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
     dv = torch.empty((B, nk, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)

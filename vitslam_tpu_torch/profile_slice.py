@@ -23,7 +23,6 @@ import argparse
 import gzip
 import json
 import re
-import statistics
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -33,6 +32,7 @@ import torch
 
 FAMILIES = [  # (family, regex on the kernel name), first match wins
     ("K5 mlp_tail", r"mlp_tail_"),
+    ("K1 qk_prep", r"qk_prep_kernel"),
     ("K1 fused_qkv_attention", r"fused_qkv_attention_kernel"),
     ("K4 flash backward (dq, dk/dv)", r"flash_bwd_"),
     # K2 and K3 are one CUDA kernel; slice 2's main path launches only K2,
@@ -135,24 +135,22 @@ def profile_run(fn, out: Path, label: str) -> dict:
 
 def sdpa_yardstick() -> list[dict]:
     """K1 (no prep, online max) vs torch SDPA's flash backend on the same
-    q/k/v at the main path's shapes; median ms from CUDA events."""
+    q/k/v at the main path's shapes; ms per call from CUDA events around 30
+    back-to-back calls after a warm-up."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from .ops.fused_attention import fused_qkv_attention
 
-    def med(fn, iters=30):
+    def per_call(fn, iters=30):
         fn()
-        torch.cuda.synchronize()
-        ts = []
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
         for _ in range(iters):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
             fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-        return statistics.median(ts)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / iters
 
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -160,9 +158,9 @@ def sdpa_yardstick() -> list[dict]:
         qkv = torch.randn((B, N, 3 * 1024), generator=g, device="cuda").to(torch.bfloat16)
         q, k, v = (qkv[..., i * 1024:(i + 1) * 1024].reshape(B, N, 16, 64).transpose(1, 2)
                    .contiguous() for i in range(3))
-        k1 = med(lambda: fused_qkv_attention(qkv, num_heads=16))
+        k1 = per_call(lambda: fused_qkv_attention(qkv, num_heads=16))
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            fl = med(lambda: F.scaled_dot_product_attention(q, k, v))
+            fl = per_call(lambda: F.scaled_dot_product_attention(q, k, v))
         flop = 4.0 * B * 16 * N * N * 64
         rows.append(dict(B=B, N=N, k1_ms=k1, sdpa_flash_ms=fl,
                          k1_tflops=flop / k1 / 1e9, sdpa_tflops=flop / fl / 1e9))
