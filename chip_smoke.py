@@ -9,8 +9,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 the card's name and power limit (nvidia-smi).
 2. build      — builds the CUDA kernels from csrc/ with nvcc (sm_90a), one
                 nvcc per source, all at once; per library ptxas' registers
-                and spills and the SASS counts of HGMMA (wgmma) and UTMALDG
-                (TMA loads), which must be nonzero for the attention forward.
+                and spills and the SASS counts of HGMMA (wgmma), UTMALDG
+                (TMA loads) and HMMA (mma.sync): every library must be wgmma
+                + TMA (HGMMA and UTMALDG nonzero, HMMA zero).
 3. kernels    — K1 (fused qkv attention) and its prep kernel, K2 (flat
                 streaming attention) and K3 (flash attention forward)
                 against their plain PyTorch versions in bf16 at the main
@@ -50,6 +51,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 through K5 (144 launches a chunk); it and the slice 5/1
                 sequential run (same seed, tails off) each held against an
                 fp32 run of its own math with the same weights.
+    tail 75/30 — flagship_point_aligned(mlp_tail="both") over the 165-frame
+                sequence (3 chunks of 75 / 30): K5 at 30,900 rows, 144
+                launches a chunk, finite outputs of the slice's shapes, its
+                rate beside the tails-off point run.
 11. eval       — the test mode's Metrics (the keys of
                 configs/test_featureAlignedVGGT_vkitti.yaml: scale_from_poses,
                 chunk 5 / overlap 1, ATE, RPE, Chamfer after ICP, the ICP cap
@@ -60,9 +65,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 held to each other.
 
 The kernel phase also holds K3's lse output and K4 against their plain
-versions at the global head's shapes, and K5 at the mlp and proj tails of
-the 5/1 and 75/30 chunks. Every path runs with the kernels' launch counts
-set to 0 just before it and reads them just after. The line before the last
+versions at the global head's shapes (and K4's outputs from two runs to
+each other: bit-identical), and K5 at the mlp and proj
+tails of the 5/1 and 75/30 chunks, beside torch.mm of the same operands.
+Every path runs with the kernels' launch counts set to 0 just before it
+and reads them just after. The line before the last
 is a JSON summary of the kernels; the last line is {"ok": true, "device":
 {...}}.
 """
@@ -96,8 +103,8 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                                  "vitslam_tpu/ops/flash_attention.py:384"),
     "mlp_tail": ("cuda", "vitslam_tpu_torch/csrc/mlp_tail.cu", "vitslam_tpu/ops/mlp_tail.py:54"),
 }
-# K4 is two TPU kernels, dq (:384) and dk/dv (:421); the port launches both
-# per call of flash_attention_backward
+# K4 is two TPU kernels, dq (:384) and dk/dv (:421); the port's one backward
+# kernel (with its prep and dq passes) replaces both
 ALSO_REPLACES = {"flash_attention_backward": "vitslam_tpu/ops/flash_attention.py:421"}
 # head gradients of one train step through the kernels (bf16: K3 with lse,
 # K4) against the same step on plain attention (the plain K3 and K4): both
@@ -251,10 +258,10 @@ def phase_build():
             counts = "SASS: " + ", ".join(f"{op} {n}" for op, n in sass[name].items())
         print(f"[build] {name}: {info['seconds']:.1f} s (cached={info['cached']}); {counts}; "
               f"ptxas: {ptxas[:1500]}")
-    for name in ("fused_attention", "flash_attention"):
-        if name in sass and not (sass[name]["HGMMA"] and sass[name]["UTMALDG"]):
-            raise AssertionError(f"{name}: the attention forward must be wgmma + TMA, SASS "
-                                 f"counts {sass[name]}")
+    for name, counts in sass.items():
+        if not (counts["HGMMA"] and counts["UTMALDG"]) or counts["HMMA"]:
+            raise AssertionError(f"{name}: every kernel library must be wgmma + TMA and no "
+                                 f"mma.sync, SASS counts {counts}")
     return sass
 
 
@@ -603,6 +610,21 @@ def kernels_k3(results: dict, g, dev):
                 4.0 * B * H * nq * nk * 64, _nbytes(q, k, v, got))
 
 
+def _rerun_difference(case: str, first, second) -> float:
+    """K4 twice on the same inputs: its key blocks add into dq's fp32
+    accumulator in key order, so dq, dk and dv are bit-identical. Returns
+    the largest dq difference (0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K4 {case}: {name} differs between two runs by "
+                                 f"{(a.float() - b.float()).abs().max().item()}")
+    print(f"[kernels] K4 {case}: dq, dk and dv of two runs bit-identical")
+    return 0.0
+
+
 def kernels_k3_lse_k4(results: dict, g, dev):
     """K3 with its lse output and K4 against their plain versions in fp32 on
     the query the kernels see (q * scale * log2(e) rounded to bf16, scaled
@@ -650,14 +672,17 @@ def kernels_k3_lse_k4(results: dict, g, dev):
         errs = [_check("K4", f"{case} {name}", a, b, ATOL)
                 for a, b, name in zip(got, want, ("dq", "dk", "dv"))]
         del want
+        again = flash_attention_backward(q, k, v, out, lse, dout)
+        rerun = _rerun_difference(case, got, again)
+        del again
         plain_ms = _time_ms(lambda: flash_attention_backward_plain(q_eff, k, v, out, lse, dout))
-        # the least work is five Nq x Nk x D products (S, dP, dq, dk, dv);
-        # the two kernels recompute S and dP each, seven in all
+        # five Nq x Nk x D products (S, dP, dv, dk, dq), each done once
         _report(results, "flash_attention_backward", case, main, max(e[0] for e in errs),
                 max(e[1] for e in errs),
                 lambda: flash_attention_backward(q, k, v, out, lse, dout), plain_ms,
                 _sdpa_bwd_ms(q, k, v, dout),
-                10.0 * B * H * nq * nk * D, _nbytes(q, k, v, out, lse, dout, *got))
+                10.0 * B * H * nq * nk * D, _nbytes(q, k, v, out, lse, dout, *got),
+                dq_rerun_max_abs=rerun)
         del q, k, v, dout, q_eff, out, lse, got
         torch.cuda.empty_cache()
 
@@ -671,7 +696,8 @@ def kernels_k5(results: dict, g, dev):
     LayerScale + residual add + ln_apply, the fp32 weight cast per call),
     which the main path runs with the tails off; tail_route_ms is K5 as a
     block calls it (nn.layers.dense_tail: LayerScale folded into the fp32
-    weight, cast, then K5)."""
+    weight, cast, then K5); gemm_ms is torch.mm of the same bf16 h and W,
+    the product alone, timed as a floor and never called by the port."""
     import torch
     import torch.nn.functional as F
 
@@ -716,10 +742,12 @@ def kernels_k5(results: dict, g, dev):
                 x = res + dense(F.gelu(h) if gelu else h) * ls.to(torch.bfloat16)
                 return (x, ln_apply(x, gamma, beta, torch.bfloat16)) if ln else x
             unfused_ms = _time_ms(unfused)
+            # the product alone, as a floor: cuBLAS on the same bf16 h and W
+            gemm_ms = _time_ms(lambda: torch.mm(h, w.t()))
             _report(results, "mlp_tail", case, main, max(e[0] for e in errs),
                     max(e[1] for e in errs), lambda: mlp_tail(*args, **kw), plain_ms, None,
                     2.0 * M * Fd * C, _nbytes(*args, *got), unfused_ms=unfused_ms,
-                    tail_route_ms=route_ms)
+                    tail_route_ms=route_ms, gemm_ms=gemm_ms)
         del h, res, dense, w, got, want
         torch.cuda.empty_cache()
 
@@ -1045,16 +1073,6 @@ def phase_global_head(smi: str) -> dict:
     return {"global head 5/1 sequential": stats}
 
 
-class _OneBatch:
-    """train_data for the Trainer: the same synthetic GT batch every step."""
-
-    def __init__(self, batch: dict):
-        self.batch = batch
-
-    def get_loader(self, epoch):
-        yield self.batch
-
-
 def _train(smi: str, label: str, temporal: bool, bucket, batch: dict, steps: int = 3):
     """Trainer.fit for `steps` steps at one (width, overlap) bucket; checks
     finite losses, moved trainable and bit-identical frozen tensors."""
@@ -1063,23 +1081,18 @@ def _train(smi: str, label: str, temporal: bool, bucket, batch: dict, steps: int
 
     import torch
 
+    from vitslam_tpu_torch.head_grad_check import head_trainer
     from vitslam_tpu_torch.models import flagship
     from vitslam_tpu_torch.ops import ROUTE_COUNTS
-    from vitslam_tpu_torch.train import MultitaskLoss, Trainer, partition_params
-    from vitslam_tpu_torch.train.config import VKITTI_TRAIN_CFG
+    from vitslam_tpu_torch.train import partition_params
 
     # the training config (configs/train_featureAlignedVGGT_vkitti.yaml,
     # copied as VKITTI_TRAIN_CFG) runs the model without its point head
     model = flagship(device="cuda", seed=0, enable_point=False, temporal_attention=temporal)
     n_params = sum(p.numel() for p in model.parameters())
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    cfg = dict(VKITTI_TRAIN_CFG, max_steps=steps,
-               logging={"log_dir": f"{tmp}/logs", "log_freq": 1},
-               checkpoint={"save_dir": f"{tmp}/ckpt", "save_freq": 10 ** 9,
-                           "resume_from_checkpoint": False})
-    trainer = Trainer(cfg, model, MultitaskLoss(**cfg["loss"]), train_data=_OneBatch(batch),
-                      shape_buckets=[list(bucket)])
-    trainable, frozen = partition_params(model, cfg["optim"]["frozen_module_names"])
+    trainer = head_trainer(model, batch, bucket, steps, tmp)
+    trainable, frozen = partition_params(model, trainer.cfg["optim"]["frozen_module_names"])
     before_t = {n: p.detach().clone() for n, p in trainable.items()}
     before_f = {n: p.detach().clone() for n, p in frozen.items()}
     steps_seen = []
@@ -1139,9 +1152,7 @@ def phase_train(smi: str) -> dict:
     """The training slice at full flagship width: the shipped temporal head
     (no kernel in its backward: every head attention has < 512 keys), then
     the global head, whose global attention runs K3 with lse and K4."""
-    import torch
-
-    from vitslam_tpu_torch.train import loss_and_grads
+    from vitslam_tpu_torch.head_grad_check import head_grad_errors
     from vitslam_tpu_torch.utils import make_synthetic_batch
 
     batch = make_synthetic_batch(B=1, N=40, H=154, W=518, seed=3)
@@ -1161,34 +1172,20 @@ def phase_train(smi: str) -> dict:
             {"flash_attention_lse": 3 * 12, "flash_attention_backward": 3 * 12})
 
     # one step's head gradients, kernels vs plain attention, same dropout
-    # and large offset
-    chunks, merged = trainer._prepare_chunks(batch, 20, 5)
-    args = (model, trainer.loss, trainer.state.trainable, chunks, merged, trainer.state.step, 5,
-            trainer.gt_alignment_type)
-    reset_launches()
-    kernel_losses, kernel = loss_and_grads(*args, generator=torch.Generator().manual_seed(11))
-    torch.cuda.synchronize()
-    k_launches = read_launches()
-    plain_losses, plain = loss_and_grads(*args, generator=torch.Generator().manual_seed(11),
-                                         plain_attention=True)
-    torch.cuda.synchronize()
-    p_launches = read_launches()
-    if k_launches["flash_attention_backward"] != 12 or \
-            p_launches["flash_attention_backward"] != 12:
-        raise AssertionError(f"{label}: K4 launches kernel path {k_launches}, "
-                             f"plain path {p_launches} (12, then none more)")
-    errs = {n: (torch.linalg.vector_norm((kernel[n] - plain[n]).float())
-                / torch.linalg.vector_norm(plain[n].float()).clamp_min(1e-30)).item()
-            for n in kernel if plain[n].abs().max() > 0}
-    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
-    obj = (kernel_losses["objective"].item(), plain_losses["objective"].item())
-    print(f"[{label}] head gradients, kernels vs plain attention: {len(errs)} tensors, "
+    # and large offset (vitslam_tpu_torch.head_grad_check, per seed)
+    res = head_grad_errors(trainer, batch, (20, 5))
+    if res["k4_calls"] != (12, 0):
+        raise AssertionError(f"{label}: K4 calls kernel path, plain path {res['k4_calls']} "
+                             "(12, 0)")
+    worst = list(res["errs"].items())[:5]
+    obj = res["objective"]
+    print(f"[{label}] head gradients, kernels vs plain attention: {len(res['errs'])} tensors, "
           f"max rel-L2 {worst[0][1]:.3e} (tol {GRAD_RTOL}); worst {worst}; "
           f"objective {obj[0]:.6g} vs {obj[1]:.6g}")
     if not worst[0][1] <= GRAD_RTOL:
         raise AssertionError(f"{label}: head gradients disagree: {worst}")
     runs[label]["grad_rel_l2_max"] = worst[0][1]
-    del model, trainer, kernel, plain
+    del model, trainer, res
     _release()
     return runs
 
@@ -1254,6 +1251,32 @@ def phase_tail(smi: str, tails_off: dict, off_stats: dict):
     del pred, fp32
     _release()
     return model, {"tail 5/1 sequential": stats}
+
+
+def phase_tail_large(smi: str, off_stats: dict) -> dict:
+    """flagship_point_aligned(mlp_tail="both") over the 165-frame sequence
+    at chunk 75 / overlap 30, sequential driver: every backbone block's two
+    residual tails through K5 at 30,900 rows, 144 launches a chunk. Checked
+    for finite outputs of the slice's shapes and the launch counts; no
+    numeric gate (the tails' bf16 spread is an open question, ROADMAP S1).
+    Prints its rate beside the tails-off point run of slice 75/30."""
+    from vitslam_tpu_torch.models import flagship_point_aligned
+
+    n_frames, H, W, width, overlap = 165, 154, 518, 75, 30
+    batch = _synthetic_sequence(n_frames, H, W, seed=2)
+    model = flagship_point_aligned(device="cuda", seed=0, mlp_tail="both")
+    pred, stats = _drive(model, batch, "tail 75/30 point sequential", smi, width, overlap)
+    _check_outputs("tail 75/30", {"sequential": pred},
+                   {"pose_enc": (1, n_frames, 9), "world_points": (1, n_frames, H, W, 3),
+                    "world_points_conf": (1, n_frames, H, W)})
+    _expect("tail 75/30", stats["launches"], {"mlp_tail": 144 * 3, "fused_qkv_attention": 48 * 3,
+                                              "qk_prep": 24 * 3, "flat_flash_attention": 24 * 3,
+                                              "flash_attention": 0})
+    print(f"[tail 75/30] {stats['fps']:.2f} (tails on) vs {off_stats['fps']:.2f} (off) "
+          "new-frames/s")
+    del model, pred
+    _release()
+    return {"tail 75/30 point sequential": stats}
 
 
 def _sequence_dataset(n_frames: int, H: int, W: int, seed: int):
@@ -1404,6 +1427,7 @@ def main() -> int:
     runs.update(phase_eval(smi, model))
     del model
     _release()
+    runs.update(phase_tail_large(smi, runs["slice 75/30 point sequential"]))
     # each kernel's headline numbers: its case at the shapes of the path
     # named here, and the launches of that path's run
     main_path = {"fused_qkv_attention": "slice 75/30 point sequential",
@@ -1430,7 +1454,7 @@ def main() -> int:
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
             call_ms=main_case["call_ms"],
-            **{k: main_case[k] for k in ("unfused_ms", "tail_route_ms", "sdpa_ms")
+            **{k: main_case[k] for k in ("unfused_ms", "tail_route_ms", "gemm_ms", "sdpa_ms")
                if k in main_case},
             main_path=main_path[name], main_case=main_case["case"],
             launches_by_path={label: st["launches"].get(name, 0) for label, st in runs.items()},

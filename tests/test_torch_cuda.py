@@ -351,10 +351,13 @@ def test_k5_rejects_what_it_does_not_take(cuda):
     h, w2, b2, res, g, b = _tail_inputs(rng, 64, 128, 256, cuda)
     with pytest.raises(ValueError):  # F not a multiple of 64
         mlp_tail(h[:, :96].contiguous(), w2[:, :96].contiguous(), b2, res, g, b)
-    with pytest.raises(ValueError):  # C not a multiple of 128
+    with pytest.raises(ValueError):  # C not a multiple of 256 (a CTA's 256 columns)
         mlp_tail(h, w2[:192].contiguous(), b2[:192], res[:, :192].contiguous(), g[:192], b[:192])
-    with pytest.raises(ValueError):  # LayerNorm rows beyond the shared memory
-        big = _tail_inputs(rng, 8, 64, 1536, cuda)
+    with pytest.raises(ValueError):  # a multiple of 128, not of 256
+        wide = _tail_inputs(rng, 8, 64, 384, cuda)
+        mlp_tail(*wide)
+    with pytest.raises(ValueError):  # LayerNorm rows wider than a cluster of 8 CTAs
+        big = _tail_inputs(rng, 8, 64, 2304, cuda)
         mlp_tail(*big)
     with pytest.raises(TypeError):  # fp32 h
         mlp_tail(h.float(), w2, b2, res, g, b)
@@ -514,3 +517,126 @@ def test_k1_prep_kernel_matches_plain(cuda, B, N, with_ln, with_rope, nsplit):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), atol=1e-6, rtol=2.0 ** -7)
         assert (g != w).float().mean().item() <= 1e-3
+
+
+# ---- K4 (csrc/flash_attention_bwd.cu) at its edges ----
+
+def _k4_inputs(rng, B, H, nq, nk, dh, dev):
+    """q, k, v, dO as strided (B, H, N, D) views of (B, N, H, D) buffers,
+    the head's layout, and the forward's output and lse on them."""
+    q, k, v = (_bf16(rng, (B, n, H, dh), dev, sc).transpose(1, 2)
+               for n, sc in ((nq, 2.0), (nk, 1.0), (nk, 1.0)))
+    dout = _bf16(rng, (B, nq, H, dh), dev).transpose(1, 2)
+    out, lse = flash_attention_lse(q, k, v)
+    return q, k, v, dout, out, lse
+
+
+@pytest.mark.parametrize("B,H,nq,nk,dh", [
+    (2, 3, 1, 65, 128),      # one query: a tile of one row
+    (1, 4, 63, 129, 64),     # less than a 64-query half; one key past a key block
+    (2, 2, 65, 1, 128),      # one key: dS = P (dP - Dvec) is zero in exact arithmetic
+    (1, 3, 129, 63, 64),     # ragged both ways
+    (1, 16, 2060, 1474, 64),   # the KV-merged cross shape
+    (1, 8, 2060, 1474, 128),
+])
+def test_k4_ragged_strided_and_masked_rows(cuda, B, H, nq, nk, dh):
+    """K4 against its plain version on the query the kernels see, with every
+    fifth query row's lse set to +inf (P = 0 for that row: the padding rule
+    of the reference). Elementwise 2e-2 + 2e-2 * |plain| and rel-L2 <= 1e-2;
+    with one key dq and dk are rounding noise around zero (P = 1, dP =
+    Dvec), so for them only the elementwise bound applies. Masked rows get
+    dq = 0 exactly."""
+    rng = np.random.default_rng(30)
+    q, k, v, dout, out, lse = _k4_inputs(rng, B, H, nq, nk, dh, cuda)
+    lse = lse.clone()
+    lse[:, :, ::5] = float("inf")
+    fold = q_fold(dh)
+    q_eff = (q.float() * fold).to(torch.bfloat16).float() / fold
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before + 1
+    want = flash_attention_backward_plain(q_eff, k, v, out, lse, dout)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2, msg=name)
+        if nk > 1 or name == "dv":
+            assert _rel_l2(g, w) <= 1e-2, name
+    assert (got[0][:, :, ::5] == 0).all()
+
+
+def test_k4_dq_differs_between_runs_by_one_ulp_at_most(cuda):
+    """dq's key blocks add into its fp32 accumulator by atomic bulk adds,
+    one key block after another in key order: two runs give bit-identical
+    dq, dk and dv (no element differs, so none by more than one ulp), at
+    D 128 and at D 64 with more key blocks than the card has SMs."""
+    rng = np.random.default_rng(31)
+    for shape in ((1, 8, 2060, 2060, 128), (2, 16, 300, 20000, 64)):
+        q, k, v, dout, out, lse = _k4_inputs(rng, *shape, cuda)
+        first = flash_attention_backward(q, k, v, out, lse, dout)
+        second = flash_attention_backward(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), shape
+
+
+# ---- K5 (csrc/mlp_tail.cu) at its edges ----
+
+@pytest.mark.parametrize("gelu,ln", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 2060, 30900])
+def test_k5_rows_and_epilogues(cuda, M, gelu, ln):
+    """K5 at every row count the edges reach (one row, a 64-row tile and
+    one row less or more, the 5/1 and 75/30 chunks, which take 64- and
+    128-row tiles) with the gelu and the cluster LayerNorm on and off,
+    against the plain version: 2e-2 + 2e-2 * |plain| and rel-L2 <= 1e-2."""
+    rng = np.random.default_rng(32)
+    Fd, C = (1024, 1024) if M > 1000 else (128, 512)
+    args = _tail_inputs(rng, M, Fd, C, cuda)
+    before = mlp_tail.launches
+    got = mlp_tail(*args, gelu=gelu, ln=ln)
+    torch.cuda.synchronize()
+    assert mlp_tail.launches == before + 1
+    want = mlp_tail_plain(*args, gelu=gelu, ln=ln)
+    got, want = (got, want) if ln else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == (M, C) and torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert _rel_l2(g, w) <= 1e-2
+
+
+@pytest.mark.parametrize("M,ln", [(65, True), (2060, True), (130, False)])
+def test_k5_leaves_rows_past_m_untouched(cuda, M, ln):
+    """The C entry point on x and y buffers 64 rows taller than M, filled
+    with a sentinel: rows < M are written, rows >= M keep the sentinel."""
+    from vitslam_tpu_torch.ops.cuda_build import library
+
+    rng = np.random.default_rng(33)
+    C = 1024
+    h, w2, b2, res, g, bt = _tail_inputs(rng, M, 256, C, cuda)
+    sentinel = -12345.0
+    x = torch.full((M + 64, C), sentinel, dtype=torch.bfloat16, device=cuda)
+    y = torch.full((M + 64, C), sentinel, dtype=torch.bfloat16, device=cuda)
+    err = library("mlp_tail").vitslam_mlp_tail_bf16(
+        h.data_ptr(), w2.data_ptr(), b2.data_ptr(), res.data_ptr(), g.data_ptr(), bt.data_ptr(),
+        x.data_ptr(), y.data_ptr(), M, 256, C, 1, int(ln), 1e-6,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert (x[M:] == sentinel).all() and (x[:M] != sentinel).all()
+    assert (y[M:] == sentinel).all()
+    assert (y[:M] != sentinel).all() if ln else (y[:M] == sentinel).all()
+
+
+def test_k5_gelu_is_the_exact_gelu_over_every_bf16_input(cuda):
+    """K5's in-kernel gelu against torch's exact-erf gelu on the card: every
+    finite bf16 value below 1e30 in magnitude goes through the tail with W
+    = I, b = 0 and a zero residual, so x' = bf16(gelu(h)). Both evaluate
+    x / 2 (1 + erf(x / sqrt(2))) with erff in fp32: bit-identical."""
+    bits = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    h = bits.reshape(256, 256).to(cuda)
+    h = torch.where(torch.isfinite(h.float()) & (h.float().abs() < 1e30), h, torch.zeros_like(h))
+    eye = torch.eye(256, dtype=torch.bfloat16, device=cuda)
+    x = mlp_tail(h, eye, torch.zeros(256, device=cuda), torch.zeros_like(h), gelu=True, ln=False)
+    want = torch.nn.functional.gelu(h.float()).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)

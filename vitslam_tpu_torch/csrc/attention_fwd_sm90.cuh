@@ -40,6 +40,8 @@
 //   same outputs as exp2f on the measured shapes, and faster at D 64).
 // - Epilogue: O / max(l, 1e-30) in bf16 through the output's strides, rows
 //   >= Nq not stored; lse = shift + log2(l), or row max + log2(l).
+// The maps, barriers, TMA and wgmma pieces are sm90_common.cuh's, shared
+// with K4 and K5.
 // Tried on the H100 and dropped (PERF.md, Findings): issuing the next tile's
 // Q K^T before this tile's P V within a warpgroup (no faster at D 64, much
 // slower at D 128), FA3's ping-pong barriers between the two consumer
@@ -53,6 +55,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace vitslam {
 namespace sm90 {
 
@@ -60,63 +64,7 @@ constexpr int kBlockM = 128;  // query rows per CTA: two consumer warpgroups of 
 constexpr int kBlockN = 128;  // keys per K/V tile
 constexpr int kConsumers = 2;
 constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kBoxCols = 64;                        // head-dim columns per TMA box (128 bytes)
 constexpr int kBoxBytes = kBlockN * kBoxCols * 2;   // one 128-row box: 16 KB
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
-
-// ---- host: tensor maps ------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the
-// library needs no -lcuda.
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess) {
-      return nullptr;
-    }
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess) {
-      return nullptr;
-    }
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D map over a bf16 tensor addressed as (batch, head, token, dim) with
-// element strides (sb, sh, sn) and a contiguous head dim of d columns:
-// dims (d, n, H, B), boxes of 64 columns by kBlockN rows, 128-byte swizzle,
-// zero fill out of bounds. Strides and base must be 16-byte aligned.
-inline bool make_map(CUtensorMap* map, const void* base, int d, int n, int H, int B,
-                     long long sb, long long sh, long long sn) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  // a dimension of extent 1 is never stepped: give it a legal stride
-  const long long row = 2LL * sn;
-  const long long head = H > 1 ? 2LL * sh : row;
-  const long long batch = B > 1 ? 2LL * sb : row;
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(head),
-                                 static_cast<cuuint64_t>(batch)};
-  const cuuint32_t box[4] = {kBoxCols, kBlockN, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 struct FwdParams {
   CUtensorMap q_map, k_map, v_map;
@@ -127,154 +75,6 @@ struct FwdParams {
   int nq, nk;
   float q_fold;  // scale * log2(e), folded into the Q tile by the kFold instances
 };
-
-// ---- device: barriers, TMA, wgmma ---------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: 8-row
-// groups 1024 bytes apart (SBO); LBO, the stride between 64-element MN
-// atoms, is not used by any operand here (each spans one atom).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  uint64_t d = (addr & 0x3FFFFu) >> 4;
-  d |= static_cast<uint64_t>(1) << 16;            // LBO (unused): 16 bytes
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;    // SBO: 1024 bytes
-  d |= static_cast<uint64_t>(1) << 62;            // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin an accumulator's registers at this point of the program, so the
-// compiler moves no access to them across a wgmma fence or wait.
-template <int kN>
-__device__ __forceinline__ void fence_regs(float (&d)[kN][4]) {
-#pragma unroll
-  for (int j = 0; j < kN; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-  }
-}
-
-// d (64 x 128) = or += A (64 x 16, K-major, smem) B^T (128 x 16, K-major, smem)
-__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[16][4], uint64_t da, uint64_t db,
-                                                    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64) += A (64 x 16 from registers) B (16 x 64, MN-major smem)
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[8][4], const uint32_t (&a)[4],
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 2^x as one MUFU instruction. Results below 2^-126 flush to zero: with the
-// fixed shift that is where the shift stops being exact anyway (bound - row
-// max > 126 in log2 units, as in the TPU kernel); with the online max such
-// a P is under 2^-126 of the row's largest.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float sum_bf16x2(uint32_t p) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&p);
-  return __low2float(v) + __high2float(v);
-}
 
 // ---- the kernel -----------------------------------------------------------------
 
@@ -433,7 +233,7 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
         }
       }
       // generic-proxy writes, read next by wgmma through the async proxy
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_async_smem();
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     }
 
@@ -463,7 +263,7 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
                             kk > 0);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(sc);
 
       const int valid = p.nk - it * kBlockN;
@@ -491,7 +291,7 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
         }
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c) fence_regs(o[c]);
       mbar_arrive(empty + 8 * s);  // this thread is done with the stage

@@ -1,5 +1,5 @@
 // Flash attention backward for Hopper (sm_90a), bf16 in, bf16 out: K4 of
-// the port, two kernels.
+// the port.
 //
 // Replaces:
 //   vitslam_tpu/ops/flash_attention.py::_flash_bwd_dq_kernel (:384) and
@@ -7,328 +7,614 @@
 //   the FA2 backward of softmax(Q K^T * scale) V from the saved output O
 //   and the log2-domain row logsumexp (K3's lse output), self or cross
 //   (Nq != Nk), head dim 64 or 128.
-// Math, per (batch, head), with qs = q * scale * log2(e) (rounded to bf16
-// by the wrapper, as the forward's q) and Dvec = rowsum(dO * O) (computed
-// in fp32 by the wrapper, as the reference computes it in XLA):
+// Math, per (batch, head), with qs = q * scale * log2(e) rounded to bf16
+// (the forward's q, bit for bit) and Dvec = rowsum(dO * O) in fp32:
 //   P  = exp2(qs K^T - lse)            rebuilt per tile, no max tracking
 //   dP = dO V^T,  dS = P * (dP - Dvec)
 //   dq = scale * dS K,  dk = dS^T qs / log2(e),  dv = P^T dO
 // dS and P enter their products rounded to bf16 (the reference casts them
 // to the input dtype); every product accumulates in fp32.
-// Masks: keys >= Nk get P = 0 in both kernels (their zero-filled rows
-// would otherwise carry exp2(-lse) of mass); query rows >= Nq get lse =
-// +inf and Dvec = 0, so P = 0 and they add nothing to dk and dv (the
-// reference pads lse with +inf the same way). Rows past the end are never
-// stored.
+// Masks: keys >= Nk get P = 0 (TMA's zero fill is not mass-free: a zero
+// key row has logit 0); query rows >= Nq get lse = +inf and Dvec = 0, so
+// P = dS = 0 and they add nothing to dk, dv or dq. Rows past the end are
+// never stored.
 //
-// What bounds it on the H100: five Nq x Nk x D products per head (two in
-// each kernel recompute S and dP, then dq; dk and dv), 10 Nq Nk D H FLOP,
-// against O((Nq + Nk) D) bytes: tensor-core bound (the AlignmentHead's
-// global attention at 10,738 tokens, 8 heads of 128: 1.18 ms at 989
-// TFLOP/s). Design: the TPU grid's sequential K (or Q) axis becomes a loop
-// inside the CTA, so nothing is carried between CTAs and no atomics are
-// needed: the dq kernel gives each CTA 128 query rows (16 per warp) and
-// streams K/V tiles of 64 keys; the dk/dv kernel gives each CTA 128 key
-// rows and streams Q/dO tiles (64 queries at D = 64, 32 at D = 128, so the
-// two fp32 accumulators of 2 x D / 2 registers each fit beside the tile's
-// logits) with their lse and Dvec. Tiles come through a two-stage cp.async
-// ring (the next tile loads while this one computes); the rows a CTA owns
-// stay in shared memory and their fragments are re-read with ldmatrix per
-// tile, which keeps registers for the accumulators. S, dP and dS stay in
-// registers: the products are mma.sync m16n8k16 bf16 -> fp32 over the
-// fragment layouts of attention_common.cuh (mma_xyt for X Y^T, mma_py for
-// P Y with the P fragments re-packed from an accumulator tile). One CTA
-// per SM (up to 255 registers a thread). Not done yet: wgmma, TMA, warp
-// specialisation, and a single kernel that computes S and dP once for all
-// three gradients (with atomics on dq).
+// What bounds it on the H100: five Nq x Nk x D products per head (S, dP,
+// dv, dk, dq), 10 Nq Nk D H FLOP, against O((Nq + Nk) D) bytes, so it is
+// tensor-core bound (the AlignmentHead's global attention at 10,738 tokens,
+// 8 heads of 128: 1.19 ms at 989 TFLOP/s).
+//
+// Design, FA3's backward: three launches per call.
+// 1. flash_bwd_prep_kernel, one warp per query row: Dvec = rowsum(dO * O)
+//    in fp32; qs = bf16(q * scale * log2(e)) with the forward kernel's fp32
+//    multiply; lse and Dvec copied into buffers padded to a multiple of 128
+//    rows (+inf and 0 past Nq); the fp32 dq accumulator and its tiles'
+//    counters zeroed.
+// 2. flash_bwd_kernel: a CTA owns 128 keys (two consumer warpgroups of 64
+//    keys each; one producer warp issues every load). K and V are loaded
+//    once by TMA; (qs, dO) tiles of kBq queries (64 at D 128, 128 at D 64)
+//    with their lse and Dvec stream through a 2-stage mbarrier ring (TMA
+//    for the tiles, bulk copies for the rows). Per tile and warpgroup,
+//    five wgmma products, S and dP computed once:
+//      S^T = K qs^T and dP^T = V dO^T (both operands in shared memory);
+//      P^T = exp2(S^T - lse), dS^T = P^T (dP^T - Dvec) in registers;
+//      dv += P^T dO and dk += dS^T qs (A from registers);
+//      dS^T goes to shared memory (double-buffered), the two warpgroups
+//      meet at a named barrier, and each computes one 64 x 64 block of
+//      this key block's dq contribution, dS K over all 128 keys (at D 128
+//      each warpgroup takes one 64-column half, at D 64 one 64-query
+//      half), and stages it in shared memory. A dq writer warp per
+//      consumer warpgroup adds the staged block into the fp32 accumulator
+//      by one TMA bulk reduce-add (cp.reduce.async.bulk .add.f32), in key
+//      block order: it waits until the accumulator tile's counter equals
+//      its key block, adds, waits for the add to land, and increments the
+//      counter. So every dq element is summed over the key blocks in the
+//      same order on every run, and dq is bit-reproducible. The consumers
+//      go on with the next tile meanwhile; they wait only for the staging
+//      buffer, which the writer frees once the add has read it.
+//    dk and dv leave registers once, in the epilogue.
+// The order relies on CTAs starting in the order of their linear index (key
+// block fastest), so a CTA's predecessor is resident or done when it
+// waits; a writer that waits ~10 s traps instead of hanging the card.
+// 3. flash_bwd_dq_kernel: dq = scale * accumulator, bf16, through dq's
+//    strides.
+// The accumulator is laid out in 64 x 64 tiles (batch, head, 64-query
+// block, 64-column box), each tile in the order the consumer's wgmma
+// fragments leave the registers, so the staging writes are 16-byte and
+// free of bank conflicts: within a tile, thread t's (t = warp * 32 + lane
+// of the warpgroup) accumulator element e of n8 block j (row warp * 16 +
+// lane / 4 + 8 * (e / 2), column j * 8 + 2 * (lane % 4) + e % 2) is at
+// float (j * 128 + t) * 4 + e.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
-using vitslam::load_tile;
-using vitslam::mma_py;
-using vitslam::mma_xyt;
-using vitslam::pack_a;
+using namespace vitslam::sm90;
+using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;  // rows a CTA owns: queries (dq) or keys (dk/dv)
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kKeys = 128;          // keys per CTA
+constexpr int kThreads = 3 * 128;   // two consumer warpgroups + the producer's (loads, dq writers)
+constexpr int kRowPad = 128;        // lse / Dvec / accumulator rows padded to a multiple of it
+constexpr int kAccTile = 64 * 64;   // floats of one accumulator tile
+constexpr int kPrepThreads = 256;
 
 template <int kD>
-struct Tiles {
-  static constexpr int kStride = kD + 8;  // padded smem row (bf16), 16-B aligned
-  static constexpr int kTileK = 64;                 // keys per tile of the dq kernel
-  static constexpr int kTileQ = kD == 128 ? 32 : 64;  // queries per tile of the dk/dv kernel
-  static constexpr size_t kRowBytes = sizeof(__nv_bfloat16) * kStride;
-  // dq: q and dO of the CTA's rows + 2 stages of k and v
-  static constexpr size_t kDqSmem = kRowBytes * (2 * kRows + 4 * kTileK);
-  // dk/dv: k and v of the CTA's rows + 2 stages of qs and dO + 2 stages of lse and Dvec
-  static constexpr size_t kDkvSmem =
-      kRowBytes * (2 * kRows + 4 * kTileQ) + sizeof(float) * 4 * kTileQ;
+struct Bwd {
+  static constexpr int kBoxes = kD / kBoxCols;         // 64-column boxes of a row
+  static constexpr int kBq = kD == 128 ? 64 : 128;     // queries per streamed tile
+  static constexpr int kQH = kBq / 64;                 // 64-query halves of a tile
+  static constexpr int kStages = 2;
+  static constexpr int kKvBox = kKeys * 128;           // bytes of a 128-row box
+  static constexpr int kKvTile = kBoxes * kKvBox;
+  static constexpr int kQBox = kBq * 128;
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kRowBytes = kBq * 4;            // a tile's lse (or Dvec)
+  static constexpr int kDsBytes = kQH * kKeys * 128;   // dS^T: kQH blocks of [128 keys][64 queries]
+  // shared memory, every tile 1024-byte aligned: K, V, qs stages, dO
+  // stages, dS^T double buffer, dq staging per consumer, lse/Dvec rows,
+  // barriers (kv_full, full[kStages], empty[kStages], staged[2], freed[2])
+  static constexpr int kK = 0;
+  static constexpr int kV = kKvTile;
+  static constexpr int kQ = 2 * kKvTile;
+  static constexpr int kDo = kQ + kStages * kQTile;
+  static constexpr int kDs = kDo + kStages * kQTile;
+  static constexpr int kStaging = kDs + 2 * kDsBytes;
+  static constexpr int kRows = kStaging + 2 * kAccTile * 4;
+  static constexpr int kBar = kRows + kStages * 2 * kRowBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages + 4) + 1024;
 };
 
-struct Params {
-  const __nv_bfloat16* q;   // carries scale * log2(e)
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  const float* lse;   // (B, H, nq) fp32, log2 domain
-  const float* dvec;  // (B, H, nq) fp32, rowsum(dO * O)
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
-  int nq, nk;
+struct BwdParams {
+  CUtensorMap q_map, k_map, v_map, do_map;  // qs (contiguous), k, v, dO
+  const float* lse;   // (B, H, nq_pad): +inf past nq
+  const float* dvec;  // (B, H, nq_pad): 0 past nq
+  float* dq_acc;      // the accumulator tiles
+  int* dq_lock;       // per accumulator tile: the key blocks added so far
+  bf16* dk;
+  bf16* dv;
+  long long dk_sb, dk_sh, dk_sn, dv_sb, dv_sh, dv_sn;
+  int nq, nk, nq_pad, H;
+};
+
+// Wait until *lock == turn (acquire, GPU scope), then order the async
+// proxy's next global accesses after it. Traps after ~10 s (a predecessor
+// CTA that never ran) instead of hanging.
+__device__ __forceinline__ void wait_turn(const int* lock, int turn) {
+  const long long t0 = clock64();
+  int v;
+  while (true) {
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(lock) : "memory");
+    if (v == turn) break;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// After this thread's bulk operations have completed: order them before
+// the release of the next turn.
+__device__ __forceinline__ void pass_turn(int* lock) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(lock) : "memory");
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_kernel(const __grid_constant__ BwdParams p) {
+  using S = Bwd<kD>;
+  constexpr int kBoxes = S::kBoxes;
+  constexpr int kBq = S::kBq;
+  constexpr int kStages = S::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // 1024-byte aligned: the swizzle atom
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t k_s = base + S::kK;
+  const uint32_t v_s = base + S::kV;
+  const uint32_t bar = base + S::kBar;
+  const uint32_t kv_full = bar;
+  const uint32_t full = bar + 8;                   // + 8 * stage
+  const uint32_t empty = bar + 8 * (1 + kStages);  // + 8 * stage
+  const uint32_t staged = bar + 8 * (1 + 2 * kStages);  // + 8 * warpgroup: a dq block is staged
+  const uint32_t freed = staged + 16;                    // + 8 * warpgroup: its staging is free
+
+  const int k0 = blockIdx.x * kKeys;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (p.nq + kBq - 1) / kBq;
+  const long long bh = static_cast<long long>(b) * p.H + h;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);
+    }
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(staged + 8 * w, 128);
+      mbar_init(freed + 8 * w, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // a consumer warpgroup's dq block of tile it: a 64-query half (D 64) or
+  // a 64-column box (D 128), as the accumulator tile of that block
+  const auto acc_tile = [](int it, int wg) {
+    return static_cast<long long>(it * S::kQH + (S::kQH == 2 ? wg : 0)) * kBoxes +
+           (S::kQH == 2 ? 0 : wg);
+  };
+  const long long acc_tiles = static_cast<long long>(p.nq_pad / 64) * kBoxes;  // per (b, h)
+
+  if (threadIdx.x >= 2 * 128) {
+    // ---- producer warpgroup: one thread issues every load; warps 1 and 2
+    // write dq for consumer warpgroups 0 and 1 ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int pw = (threadIdx.x - 2 * 128) / 32;
+    if ((pw == 1 || pw == 2) && threadIdx.x % 32 == 0) {
+      const int w = pw - 1;
+      const uint32_t staging = base + S::kStaging + w * kAccTile * 4;
+      float* const acc_b = p.dq_acc + bh * acc_tiles * kAccTile;
+      int* const lock_b = p.dq_lock + bh * acc_tiles;
+      for (int it = 0; it < n_tiles; ++it) {
+        mbar_wait(staged + 8 * w, it & 1);
+        const long long tile = acc_tile(it, w);
+        wait_turn(lock_b + tile, blockIdx.x);  // the key blocks before this one have added
+        bulk_reduce_add_f32(acc_b + tile * kAccTile, staging, kAccTile * 4);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(freed + 8 * w);
+        bulk_wait();  // the add has landed
+        pass_turn(lock_b + tile);
+      }
+    }
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(kv_full, 2 * S::kKvTile);
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c) {
+        tma_load_4d(k_s + c * S::kKvBox, &p.k_map, kv_full, c * kBoxCols, k0, h, b);
+        tma_load_4d(v_s + c * S::kKvBox, &p.v_map, kv_full, c * kBoxCols, k0, h, b);
+      }
+      const float* lse_b = p.lse + bh * p.nq_pad;
+      const float* dvec_b = p.dvec + bh * p.nq_pad;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);  // round 0 passes at once
+        const uint32_t f = full + 8 * s;
+        mbar_expect_tx(f, 2 * S::kQTile + 2 * S::kRowBytes);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c) {
+          tma_load_4d(base + S::kQ + s * S::kQTile + c * S::kQBox, &p.q_map, f, c * kBoxCols,
+                      it * kBq, h, b);
+          tma_load_4d(base + S::kDo + s * S::kQTile + c * S::kQBox, &p.do_map, f, c * kBoxCols,
+                      it * kBq, h, b);
+        }
+        const uint32_t rows = base + S::kRows + s * 2 * S::kRowBytes;
+        bulk_load(rows, lse_b + it * kBq, S::kRowBytes, f);
+        bulk_load(rows + S::kRowBytes, dvec_b + it * kBq, S::kRowBytes, f);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 keys each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = lane >> 2;        // fragment row group
+  const int c2 = (lane & 3) * 2;  // fragment column pair
+  const int r0 = wg * 64 + warp * 16 + g;  // the CTA's key rows of this thread: r0, r0 + 8
+  const bool key0 = k0 + r0 < p.nk;
+  const bool key1 = k0 + r0 + 8 < p.nk;
+  const uint32_t wg_rows = wg * 64 * 128;  // byte offset of this warpgroup's keys in a K/V box
+  // this warpgroup's dq block of every tile: a 64-query half (D 64) or a
+  // 64-column box (D 128)
+  const int q_half = S::kQH == 2 ? wg : 0;
+  const int c_box = S::kQH == 2 ? 0 : wg;
+  const uint32_t staging = base + S::kStaging + wg * kAccTile * 4;
+
+  float dk[kBoxes][8][4], dv[kBoxes][8][4];
+#pragma unroll
+  for (int c = 0; c < kBoxes; ++c) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[c][j][e] = dv[c][j][e] = 0.f;
+    }
+  }
+  mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    mbar_wait(full + 8 * s, (it / kStages) & 1);
+    const uint32_t q_tile = base + S::kQ + s * S::kQTile;
+    const uint32_t do_tile = base + S::kDo + s * S::kQTile;
+    const float* lse_s = reinterpret_cast<const float*>(gbase + S::kRows + s * 2 * S::kRowBytes);
+    const float* dvec_s = lse_s + kBq;
+
+    // S^T = K qs^T, dP^T = V dO^T: k16 slice kk of the head dim lies in box
+    // kk / 4 at byte 32 * (kk % 4)
+    float st[kBq / 8][4], dpt[kBq / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint64_t da = desc_sw128(k_s + (kk / 4) * S::kKvBox + wg_rows + (kk % 4) * 32);
+      const uint64_t db = desc_sw128(q_tile + (kk / 4) * S::kQBox + (kk % 4) * 32);
+      if constexpr (kBq == 64) {
+        wgmma_ss_m64n64k16<0, 0>(st, da, db, kk > 0);
+      } else {
+        wgmma_ss_m64n128k16(st, da, db, kk > 0);
+      }
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint64_t da = desc_sw128(v_s + (kk / 4) * S::kKvBox + wg_rows + (kk % 4) * 32);
+      const uint64_t db = desc_sw128(do_tile + (kk / 4) * S::kQBox + (kk % 4) * 32);
+      if constexpr (kBq == 64) {
+        wgmma_ss_m64n64k16<0, 0>(dpt, da, db, kk > 0);
+      } else {
+        wgmma_ss_m64n128k16(dpt, da, db, kk > 0);
+      }
+    }
+    wgmma_commit();
+
+    // P^T while dP^T is in flight: rows are keys, columns queries
+    wgmma_wait<1>();
+    fence_regs(st);
+#pragma unroll
+    for (int j = 0; j < kBq / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = e < 2 ? key0 : key1;
+        st[j][e] = valid ? fast_exp2(st[j][e] - lse_s[j * 8 + c2 + (e & 1)]) : 0.f;
+      }
+    }
+    uint32_t pa[kBq / 16][4];
+#pragma unroll
+    for (int t16 = 0; t16 < kBq / 16; ++t16) {
+      pa[t16][0] = pack_bf16(st[2 * t16][0], st[2 * t16][1]);
+      pa[t16][1] = pack_bf16(st[2 * t16][2], st[2 * t16][3]);
+      pa[t16][2] = pack_bf16(st[2 * t16 + 1][0], st[2 * t16 + 1][1]);
+      pa[t16][3] = pack_bf16(st[2 * t16 + 1][2], st[2 * t16 + 1][3]);
+    }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    uint32_t dsa[kBq / 16][4];
+#pragma unroll
+    for (int j = 0; j < kBq / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dpt[j][e] = st[j][e] * (dpt[j][e] - dvec_s[j * 8 + c2 + (e & 1)]);
+      }
+    }
+    // dS^T into shared memory as [key][query] rows of 64 queries, 128-byte
+    // swizzled: the MN-major A operand of the dq product
+    unsigned char* const ds = gbase + S::kDs + (it & 1) * S::kDsBytes;
+#pragma unroll
+    for (int t16 = 0; t16 < kBq / 16; ++t16) {
+      dsa[t16][0] = pack_bf16(dpt[2 * t16][0], dpt[2 * t16][1]);
+      dsa[t16][1] = pack_bf16(dpt[2 * t16][2], dpt[2 * t16][3]);
+      dsa[t16][2] = pack_bf16(dpt[2 * t16 + 1][0], dpt[2 * t16 + 1][1]);
+      dsa[t16][3] = pack_bf16(dpt[2 * t16 + 1][2], dpt[2 * t16 + 1][3]);
+      unsigned char* const blk = ds + (t16 / 4) * kKeys * 128 + r0 * 128 + c2 * 2;
+      const int chunk = 2 * (t16 % 4);
+      const int sw = r0 & 7;  // rows r0 and r0 + 8 share their swizzle phase
+      *reinterpret_cast<uint32_t*>(blk + ((chunk ^ sw) << 4)) = dsa[t16][0];
+      *reinterpret_cast<uint32_t*>(blk + 8 * 128 + ((chunk ^ sw) << 4)) = dsa[t16][1];
+      *reinterpret_cast<uint32_t*>(blk + (((chunk + 1) ^ sw) << 4)) = dsa[t16][2];
+      *reinterpret_cast<uint32_t*>(blk + 8 * 128 + (((chunk + 1) ^ sw) << 4)) = dsa[t16][3];
+    }
+    fence_async_smem();
+
+    // dv += P^T dO, dk += dS^T qs: k16 slice t16 of the queries is rows
+    // 16 t16.. of each dO / qs box (MN-major B)
+#pragma unroll
+    for (int c = 0; c < kBoxes; ++c) {
+      fence_regs(dv[c]);
+      fence_regs(dk[c]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int t16 = 0; t16 < kBq / 16; ++t16) {
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c) {
+        wgmma_rs_m64n64k16(dv[c], pa[t16], desc_sw128(do_tile + c * S::kQBox + t16 * 2048));
+      }
+    }
+#pragma unroll
+    for (int t16 = 0; t16 < kBq / 16; ++t16) {
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c) {
+        wgmma_rs_m64n64k16(dk[c], dsa[t16], desc_sw128(q_tile + c * S::kQBox + t16 * 2048));
+      }
+    }
+    wgmma_commit();
+
+    // dq block = dS K over the CTA's 128 keys: both warpgroups' dS^T are
+    // in shared memory past this barrier
+    named_sync(1, 2 * 128);
+    float dq[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < kKeys / 16; ++k16) {
+      wgmma_ss_m64n64k16<1, 1>(
+          dq, desc_sw128(smem_u32(ds) + q_half * kKeys * 128 + k16 * 2048),
+          desc_sw128(k_s + c_box * S::kKvBox + k16 * 2048), k16 > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(pa);
+    fence_regs(dsa);
+#pragma unroll
+    for (int c = 0; c < kBoxes; ++c) {
+      fence_regs(dv[c]);
+      fence_regs(dk[c]);
+    }
+    mbar_arrive(empty + 8 * s);  // this thread is done with the stage
+
+    // stage the dq block for this warpgroup's dq writer, once its last add
+    // has read the staging
+    if (it > 0) mbar_wait(freed + 8 * wg, (it - 1) & 1);
+    float4* const st4 = reinterpret_cast<float4*>(gbase + (staging - base));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      st4[j * 128 + t] = make_float4(dq[j][0], dq[j][1], dq[j][2], dq[j][3]);
+    }
+    fence_async_smem();
+    mbar_arrive(staged + 8 * wg);
+  }
+
+  // ---- epilogue: dk (qs carries scale * log2(e): / log2(e) leaves scale), dv ----
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + r0 + 8 * half;
+    if (key >= p.nk) continue;
+    bf16* dkr = p.dk + b * p.dk_sb + h * p.dk_sh + key * p.dk_sn + c2;
+    bf16* dvr = p.dv + b * p.dv_sb + h * p.dv_sh + key * p.dv_sn + c2;
+#pragma unroll
+    for (int c = 0; c < kBoxes; ++c) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = c * kBoxCols + j * 8;
+        *reinterpret_cast<uint32_t*>(dkr + col) = pack_bf16(
+            dk[c][j][2 * half] * (1.0f / kLog2e), dk[c][j][2 * half + 1] * (1.0f / kLog2e));
+        *reinterpret_cast<uint32_t*>(dvr + col) =
+            pack_bf16(dv[c][j][2 * half], dv[c][j][2 * half + 1]);
+      }
+    }
+  }
+}
+
+struct PrepParams {
+  const bf16* q;
+  const bf16* out;
+  const bf16* dout;
+  const float* lse;  // (B, H, nq) contiguous
+  bf16* qs;          // (B, H, nq, D) contiguous
+  float* lse_pad;
+  float* dvec_pad;
+  float* dq_acc;
+  int* dq_lock;
+  long long q_sb, q_sh, q_sn, o_sb, o_sh, o_sn, do_sb, do_sh, do_sn;
+  long long rows;  // B * H * nq_pad
+  int H, nq, nq_pad;
+  float fold;
+};
+
+// One warp per padded query row: zero its share of the accumulator (and,
+// on the first row of a 64-row block, the block's tile counters), and for
+// a real row fold q, take Dvec = rowsum(dO * O) and copy the lse.
+template <int kD>
+__global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(const PrepParams p) {
+  constexpr int kPer = kD / 32;  // columns per lane: 2 or 4
+  const long long row = (static_cast<long long>(blockIdx.x) * kPrepThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= p.rows) return;
+  float* acc = p.dq_acc + row * kD + lane * kPer;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) acc[e] = 0.f;
+  if (row % 64 == 0 && lane < kD / 64) p.dq_lock[row / 64 * (kD / 64) + lane] = 0;
+  const long long bh = row / p.nq_pad;
+  const int n = static_cast<int>(row % p.nq_pad);
+  if (n >= p.nq) {
+    if (lane == 0) {
+      p.lse_pad[row] = INFINITY;
+      p.dvec_pad[row] = 0.f;
+    }
+    return;
+  }
+  const int b = static_cast<int>(bh / p.H);
+  const int h = static_cast<int>(bh % p.H);
+  const int col = lane * kPer;
+  const bf16* q = p.q + b * p.q_sb + h * p.q_sh + n * p.q_sn + col;
+  const bf16* o = p.out + b * p.o_sb + h * p.o_sh + n * p.o_sn + col;
+  const bf16* d = p.dout + b * p.do_sb + h * p.do_sh + n * p.do_sn + col;
+  bf16* qs = p.qs + (bh * p.nq + n) * kD + col;
+  float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPer; e += 2) {
+    const float2 qv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q + e));
+    const float2 ov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + e));
+    const float2 dv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d + e));
+    sum += dv.x * ov.x + dv.y * ov.y;
+    *reinterpret_cast<uint32_t*>(qs + e) =
+        pack_bf16(__fmul_rn(qv.x, p.fold), __fmul_rn(qv.y, p.fold));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
+  if (lane == 0) {
+    p.lse_pad[row] = p.lse[bh * p.nq + n];
+    p.dvec_pad[row] = sum;
+  }
+}
+
+struct DqParams {
+  const float* dq_acc;
+  bf16* dq;
+  long long dq_sb, dq_sh, dq_sn;
+  long long pairs;  // B * H * nq * D / 2
+  int H, nq, nq_pad;
   float scale;
-  // element strides of (batch, head, token); the head dim is contiguous
-  long long q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, do_sb, do_sh, do_sn;
-  long long dq_sb, dq_sh, dq_sn, dk_sb, dk_sh, dk_sn, dv_sb, dv_sh, dv_sn;
 };
 
-// dq = scale * sum over key tiles of dS K, dS = exp2(S - lse) * (dO V^T - Dvec)
+// dq = scale * accumulator in bf16, one column pair per thread, read from
+// the accumulator's fragment-ordered tiles.
 template <int kD>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const Params p) {
-  using T = Tiles<kD>;
-  constexpr int kN = T::kTileK;
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto q_s = reinterpret_cast<__nv_bfloat16 (*)[T::kStride]>(smem);
-  auto do_s = q_s + kRows;
-  auto k_s = reinterpret_cast<__nv_bfloat16 (*)[kN][T::kStride]>(do_s + kRows);
-  auto v_s = k_s + 2;
-
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* dob = p.dout + b * p.do_sb + h * p.do_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int c2 = (lane & 3) * 2;
-  const int n_tiles = (p.nk + kN - 1) / kN;
-
-  load_tile<kRows, kD, kThreads>(q_s, qb, p.q_sn, q0, p.nq);
-  load_tile<kRows, kD, kThreads>(do_s, dob, p.do_sn, q0, p.nq);
-  load_tile<kN, kD, kThreads>(k_s[0], kb, p.k_sn, 0, p.nk);
-  load_tile<kN, kD, kThreads>(v_s[0], vb, p.v_sn, 0, p.nk);
-  vitslam::cp_async_commit();
-
-  // the lse and Dvec of this lane's two rows; rows past the end get
-  // lse = +inf (P = 0) and are never stored
-  const int n0 = q0 + warp * 16 + g;
-  const int n1 = n0 + 8;
-  const long long row_base = (static_cast<long long>(b) * gridDim.y + h) * p.nq;
-  const float lse0 = n0 < p.nq ? p.lse[row_base + n0] : INFINITY;
-  const float lse1 = n1 < p.nq ? p.lse[row_base + n1] : INFINITY;
-  const float dd0 = n0 < p.nq ? p.dvec[row_base + n0] : 0.f;
-  const float dd1 = n1 < p.nq ? p.dvec[row_base + n1] : 0.f;
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      load_tile<kN, kD, kThreads>(k_s[cur ^ 1], kb, p.k_sn, (it + 1) * kN, p.nk);
-      load_tile<kN, kD, kThreads>(v_s[cur ^ 1], vb, p.v_sn, (it + 1) * kN, p.nk);
-      vitslam::cp_async_commit();
-      vitslam::cp_async_wait<1>();
-    } else {
-      vitslam::cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float s[kN / 8][4];
-    mma_xyt<kN, kD>(s, q_s + warp * 16, k_s[cur], lane);    // log2-domain logits
-    float dp[kN / 8][4];
-    mma_xyt<kN, kD>(dp, do_s + warp * 16, v_s[cur], lane);  // dO V^T
-    const int k0 = it * kN;
-#pragma unroll
-    for (int j = 0; j < kN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = k0 + j * 8 + c2 + (e & 1) < p.nk;
-        const float pr = valid ? exp2f(s[j][e] - (e < 2 ? lse0 : lse1)) : 0.f;
-        s[j][e] = pr * (dp[j][e] - (e < 2 ? dd0 : dd1));  // dS
-      }
-    }
-    uint32_t dsa[kN / 16][4];
-    pack_a<kN>(s, dsa);
-    mma_py<kN, kD>(acc, dsa, k_s[cur], lane);  // dq += dS K
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  __nv_bfloat16* out = p.dq + b * p.dq_sb + h * p.dq_sh + c2;
-  vitslam::store_scaled(acc, p.scale, p.scale, n0 < p.nq ? out + n0 * p.dq_sn : nullptr,
-                        n1 < p.nq ? out + n1 * p.dq_sn : nullptr);
-}
-
-// Load one tile's lse and Dvec (queries [q0, q0 + kN)) into shared memory;
-// queries past the end get lse = +inf and Dvec = 0, so their P is 0.
-template <int kN>
-__device__ __forceinline__ void load_rows(float* lse_s, float* dd_s, const float* lse,
-                                          const float* dvec, int q0, int nq) {
-  for (int i = threadIdx.x; i < kN; i += kThreads) {
-    const int n = q0 + i;
-    lse_s[i] = n < nq ? lse[n] : INFINITY;
-    dd_s[i] = n < nq ? dvec[n] : 0.f;
-  }
-}
-
-// dv = sum over query tiles of P^T dO; dk = sum of dS^T qs / log2(e), with
-// the transposed tiles S^T = K qs^T and dP^T = V dO^T computed directly
-// (rows keys, columns queries)
-template <int kD>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(const Params p) {
-  using T = Tiles<kD>;
-  constexpr int kN = T::kTileQ;
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto k_s = reinterpret_cast<__nv_bfloat16 (*)[T::kStride]>(smem);
-  auto v_s = k_s + kRows;
-  auto q_s = reinterpret_cast<__nv_bfloat16 (*)[kN][T::kStride]>(v_s + kRows);
-  auto do_s = q_s + 2;
-  auto lse_s = reinterpret_cast<float (*)[kN]>(do_s + 2);
-  auto dd_s = lse_s + 2;
-
-  const int k0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* dob = p.dout + b * p.do_sb + h * p.do_sh;
-  const long long row_base = (static_cast<long long>(b) * gridDim.y + h) * p.nq;
-  const float* lseb = p.lse + row_base;
-  const float* ddb = p.dvec + row_base;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int c2 = (lane & 3) * 2;
-  const int n_tiles = (p.nq + kN - 1) / kN;
-
-  load_tile<kRows, kD, kThreads>(k_s, kb, p.k_sn, k0, p.nk);
-  load_tile<kRows, kD, kThreads>(v_s, vb, p.v_sn, k0, p.nk);
-  load_tile<kN, kD, kThreads>(q_s[0], qb, p.q_sn, 0, p.nq);
-  load_tile<kN, kD, kThreads>(do_s[0], dob, p.do_sn, 0, p.nq);
-  vitslam::cp_async_commit();
-  load_rows<kN>(lse_s[0], dd_s[0], lseb, ddb, 0, p.nq);
-
-  float dk_acc[kD / 8][4], dv_acc[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
-    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
-    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
-  }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      const int next = (it + 1) * kN;
-      load_tile<kN, kD, kThreads>(q_s[cur ^ 1], qb, p.q_sn, next, p.nq);
-      load_tile<kN, kD, kThreads>(do_s[cur ^ 1], dob, p.do_sn, next, p.nq);
-      vitslam::cp_async_commit();
-      load_rows<kN>(lse_s[cur ^ 1], dd_s[cur ^ 1], lseb, ddb, next, p.nq);
-      vitslam::cp_async_wait<1>();
-    } else {
-      vitslam::cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float s[kN / 8][4];
-    mma_xyt<kN, kD>(s, k_s + warp * 16, q_s[cur], lane);    // S^T, log2 domain
-    float dp[kN / 8][4];
-    mma_xyt<kN, kD>(dp, v_s + warp * 16, do_s[cur], lane);  // dP^T = V dO^T
-#pragma unroll
-    for (int j = 0; j < kN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + c2 + (e & 1);  // the query of this element
-        s[j][e] = exp2f(s[j][e] - lse_s[cur][col]);           // P^T
-        dp[j][e] = s[j][e] * (dp[j][e] - dd_s[cur][col]);     // dS^T
-      }
-    }
-    uint32_t pa[kN / 16][4];
-    pack_a<kN>(s, pa);
-    mma_py<kN, kD>(dv_acc, pa, do_s[cur], lane);  // dv += P^T dO
-    uint32_t dsa[kN / 16][4];
-    pack_a<kN>(dp, dsa);
-    mma_py<kN, kD>(dk_acc, dsa, q_s[cur], lane);  // dk += dS^T qs
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  const int r0 = k0 + warp * 16 + g;
-  const int r1 = r0 + 8;
-  __nv_bfloat16* dkb = p.dk + b * p.dk_sb + h * p.dk_sh + c2;
-  __nv_bfloat16* dvb = p.dv + b * p.dv_sb + h * p.dv_sh + c2;
-  // qs carries scale * log2(e): dividing by log2(e) leaves exactly scale
-  vitslam::store_scaled(dk_acc, 1.0f / kLog2e, 1.0f / kLog2e,
-                        r0 < p.nk ? dkb + r0 * p.dk_sn : nullptr,
-                        r1 < p.nk ? dkb + r1 * p.dk_sn : nullptr);
-  vitslam::store_scaled(dv_acc, 1.0f, 1.0f, r0 < p.nk ? dvb + r0 * p.dv_sn : nullptr,
-                        r1 < p.nk ? dvb + r1 * p.dv_sn : nullptr);
+__global__ void __launch_bounds__(kPrepThreads) flash_bwd_dq_kernel(const DqParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * kPrepThreads + threadIdx.x;
+  if (i >= p.pairs) return;
+  const int col = static_cast<int>(i % (kD / 2)) * 2;
+  const long long rn = i / (kD / 2);
+  const int n = static_cast<int>(rn % p.nq);
+  const long long bh = rn / p.nq;
+  const int b = static_cast<int>(bh / p.H);
+  const int h = static_cast<int>(bh % p.H);
+  const int r = n % 64;
+  const int cc = col % 64;
+  const int tid = (r / 16) * 32 + (r % 8) * 4 + (cc % 8) / 2;  // the writer's thread
+  const long long tile = (bh * (p.nq_pad / 64) + n / 64) * (kD / 64) + col / 64;
+  const float2 v = *reinterpret_cast<const float2*>(
+      p.dq_acc + tile * kAccTile + ((cc / 8) * 128 + tid) * 4 + ((r % 16) / 8) * 2);
+  *reinterpret_cast<uint32_t*>(p.dq + b * p.dq_sb + h * p.dq_sh + n * p.dq_sn + col) =
+      pack_bf16(v.x * p.scale, v.y * p.scale);
 }
 
 template <int kD>
-cudaError_t launch(const Params& p, int B, int H, cudaStream_t stream) {
-  using T = Tiles<kD>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<kD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(T::kDqSmem));
+cudaError_t launch(const PrepParams& pp, BwdParams bp, const DqParams& dp, const void* k,
+                   const void* v, int B, int H, int nk, const long long (&ks)[3],
+                   const long long (&vs)[3], const long long (&dos)[3], cudaStream_t stream) {
+  using S = Bwd<kD>;
+  const long long qs_sn = kD, qs_sh = static_cast<long long>(pp.nq) * kD, qs_sb = qs_sh * H;
+  if (!make_map(&bp.q_map, pp.qs, kD, pp.nq, H, B, qs_sb, qs_sh, qs_sn, S::kBq) ||
+      !make_map(&bp.do_map, pp.dout, kD, pp.nq, H, B, dos[0], dos[1], dos[2], S::kBq) ||
+      !make_map(&bp.k_map, k, kD, nk, H, B, ks[0], ks[1], ks[2]) ||
+      !make_map(&bp.v_map, v, kD, nk, H, B, vs[0], vs[1], vs[2])) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<kD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(T::kDkvSmem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((p.nq + kRows - 1) / kRows, H, B);
-  flash_bwd_dq_kernel<kD><<<grid_q, kThreads, T::kDqSmem, stream>>>(p);
+  const long long prep_blocks = (pp.rows * 32 + kPrepThreads - 1) / kPrepThreads;
+  flash_bwd_prep_kernel<kD><<<static_cast<unsigned>(prep_blocks), kPrepThreads, 0, stream>>>(pp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_k((p.nk + kRows - 1) / kRows, H, B);
-  flash_bwd_dkv_kernel<kD><<<grid_k, kThreads, T::kDkvSmem, stream>>>(p);
+  const dim3 grid((nk + kKeys - 1) / kKeys, H, B);
+  flash_bwd_kernel<kD><<<grid, kThreads, S::kBytes, stream>>>(bp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long dq_blocks = (dp.pairs + kPrepThreads - 1) / kPrepThreads;
+  flash_bwd_dq_kernel<kD><<<static_cast<unsigned>(dq_blocks), kPrepThreads, 0, stream>>>(dp);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). q (carrying scale * log2(e)),
-// dout, dq: bf16 (B, H, Nq, dh); k, v, dk, dv: bf16 (B, H, Nk, dh); dh 64 or
-// 128; each addressed through the given element strides of (batch, head,
-// token) with a contiguous head dim, every row 16-byte aligned. lse (log2
-// domain) and dvec (rowsum(dout * out)): fp32 (B, H, Nq) contiguous.
-// Launches the dq kernel, then the dk/dv kernel, on `stream`; allocates
-// nothing; returns the first non-zero cudaGetLastError() (cudaErrorInvalid
-// Value for a shape it does not take).
+// Plain C entry point (bound with ctypes). q, out, dout, dq: bf16 (B, H,
+// Nq, dh); k, v, dk, dv: bf16 (B, H, Nk, dh); dh 64 or 128; each addressed
+// through the given element strides of (batch, head, token) with a
+// contiguous head dim, rows and base 16-byte aligned. lse: fp32 (B, H, Nq)
+// contiguous, log2 domain. Scratch the caller allocates: qs bf16 (B, H, Nq,
+// dh) contiguous; lse_pad and dvec_pad fp32 (B, H, nq_pad), dq_acc fp32
+// (B, H, nq_pad, dh) and dq_lock int32 (B, H, nq_pad / 64, dh / 64), nq_pad
+// = Nq rounded up to a multiple of 128.
+// fold = scale * log2(e) as the forward kernel takes it. Launches the prep,
+// main and dq kernels on `stream`; allocates nothing; returns the first
+// non-zero cudaGetLastError() (cudaErrorInvalidValue for a shape it does
+// not take or a map it cannot encode).
 extern "C" int vitslam_flash_attention_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* dvec, void* dq, void* dk, void* dv, int B, int H, int nq, int nk, int dh,
-    float scale, long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
-    long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long do_sb,
-    long long do_sh, long long do_sn, long long dq_sb, long long dq_sh, long long dq_sn,
-    long long dk_sb, long long dk_sh, long long dk_sn, long long dv_sb, long long dv_sh,
-    long long dv_sn, void* stream) {
+    const void* q, const void* k, const void* v, const void* out, const void* dout,
+    const void* lse, void* qs, void* lse_pad, void* dvec_pad, void* dq_acc, void* dq_lock,
+    void* dq, void* dk, void* dv, int B, int H, int nq, int nk, int dh, float fold, float scale, long long q_sb,
+    long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn,
+    long long v_sb, long long v_sh, long long v_sn, long long o_sb, long long o_sh,
+    long long o_sn, long long do_sb, long long do_sh, long long do_sn, long long dq_sb,
+    long long dq_sh, long long dq_sn, long long dk_sb, long long dk_sh, long long dk_sn,
+    long long dv_sb, long long dv_sh, long long dv_sn, void* stream) {
   if ((dh != 64 && dh != 128) || B < 1 || H < 1 || nq < 1 || nk < 1 || B > 65535 ||
       H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Params p{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                 static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-                 static_cast<const float*>(lse), static_cast<const float*>(dvec),
-                 static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
-                 static_cast<__nv_bfloat16*>(dv), nq, nk, scale,
-                 q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, do_sb, do_sh, do_sn,
-                 dq_sb, dq_sh, dq_sn, dk_sb, dk_sh, dk_sn, dv_sb, dv_sh, dv_sn};
+  const int nq_pad = (nq + kRowPad - 1) / kRowPad * kRowPad;
+  const long long rows = static_cast<long long>(B) * H * nq_pad;
+  const PrepParams pp{static_cast<const bf16*>(q), static_cast<const bf16*>(out),
+                      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                      static_cast<bf16*>(qs), static_cast<float*>(lse_pad),
+                      static_cast<float*>(dvec_pad), static_cast<float*>(dq_acc),
+                      static_cast<int*>(dq_lock), q_sb, q_sh, q_sn, o_sb, o_sh, o_sn, do_sb, do_sh, do_sn,
+                      rows, H, nq, nq_pad, fold};
+  BwdParams bp{};
+  bp.lse = static_cast<const float*>(lse_pad);
+  bp.dvec = static_cast<const float*>(dvec_pad);
+  bp.dq_acc = static_cast<float*>(dq_acc);
+  bp.dq_lock = static_cast<int*>(dq_lock);
+  bp.dk = static_cast<bf16*>(dk);
+  bp.dv = static_cast<bf16*>(dv);
+  bp.dk_sb = dk_sb;
+  bp.dk_sh = dk_sh;
+  bp.dk_sn = dk_sn;
+  bp.dv_sb = dv_sb;
+  bp.dv_sh = dv_sh;
+  bp.dv_sn = dv_sn;
+  bp.nq = nq;
+  bp.nk = nk;
+  bp.nq_pad = nq_pad;
+  bp.H = H;
+  const DqParams dp{static_cast<const float*>(dq_acc), static_cast<bf16*>(dq), dq_sb, dq_sh,
+                    dq_sn, static_cast<long long>(B) * H * nq * (dh / 2), H, nq, nq_pad, scale};
+  const long long ks[3] = {k_sb, k_sh, k_sn};
+  const long long vs[3] = {v_sb, v_sh, v_sn};
+  const long long dos[3] = {do_sb, do_sh, do_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dh == 64 ? launch<64>(p, B, H, s) : launch<128>(p, B, H, s);
+  const cudaError_t err = dh == 64 ? launch<64>(pp, bp, dp, k, v, B, H, nk, ks, vs, dos, s)
+                                   : launch<128>(pp, bp, dp, k, v, B, H, nk, ks, vs, dos, s);
   return static_cast<int>(err);
 }

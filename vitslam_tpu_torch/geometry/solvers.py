@@ -145,10 +145,13 @@ def weighted_median_scale(x: torch.Tensor, y: torch.Tensor, weights: torch.Tenso
     r = (y * sign) / x_pos.clamp_min(1e-6)
     order = torch.argsort(r, dim=-1)
     r_sorted = torch.take_along_dim(r, order, dim=-1)
-    cumsum = torch.cumsum(torch.take_along_dim(w * x_pos, order, dim=-1), dim=-1)
+    # the running sum on the host: CUDA's fp32 cumsum is a parallel scan
+    # whose partial sums meet in an order that changes from run to run, and
+    # its last bits move the median's index (and the scale) between runs
+    cumsum = torch.cumsum(torch.take_along_dim(w * x_pos, order, dim=-1).cpu(), dim=-1)
     target = 0.5 * cumsum[..., -1:]
     # first index where cumsum >= target (searchsorted 'left')
-    idx = (cumsum < target).sum(dim=-1, keepdim=True).clamp(0, x.shape[-1] - 1)
+    idx = (cumsum < target).sum(dim=-1, keepdim=True).clamp(0, x.shape[-1] - 1).to(r.device)
     scales = torch.take_along_dim(r_sorted, idx, dim=-1)[..., 0]
     return torch.where(scales <= 0, -scales, scales)
 

@@ -38,7 +38,7 @@ ENTRY_POINTS = {
         "vitslam_flash_attention_bf16": [_P] * 6 + [_I] * 5 + [_LL] * 12 + [_P],
     },
     "flash_attention_bwd": {
-        "vitslam_flash_attention_bwd_bf16": [_P] * 9 + [_I] * 5 + [_F] + [_LL] * 21 + [_P],
+        "vitslam_flash_attention_bwd_bf16": [_P] * 14 + [_I] * 5 + [_F] * 2 + [_LL] * 24 + [_P],
     },
     "mlp_tail": {"vitslam_mlp_tail_bf16": [_P] * 8 + [_I] * 5 + [_F, _P]},
 }

@@ -112,15 +112,16 @@ TMA_BOX_ROWS = 128  # tokens per box: the kernels' Q and K/V tiles
 TMA_SWIZZLE = 128   # bytes
 
 
-def tma_geometry(t: torch.Tensor) -> dict:
+def tma_geometry(t: torch.Tensor, box_rows: int = TMA_BOX_ROWS) -> dict:
     """The tensor map the attention kernels encode for a (B, H, N, D) bf16
-    view (``csrc/attention_fwd_sm90.cuh::make_map``): dims (D, N, H, B)
-    innermost first, byte strides of the token, head and batch dims (an
-    extent-1 head or batch dim takes the token stride, since it is never
-    stepped), boxes of 64 columns by 128 rows, 128-byte swizzle, zero fill
-    out of bounds. Raises ValueError on what TMA does not take: a head dim
-    other than 64 or 128, a strided head dim, byte strides or a base address
-    not 16-byte aligned, strides of 2^40 bytes or more."""
+    view (``csrc/sm90_common.cuh::make_map``): dims (D, N, H, B) innermost
+    first, byte strides of the token, head and batch dims (an extent-1 head
+    or batch dim takes the token stride, since it is never stepped), boxes
+    of 64 columns by ``box_rows`` rows (128; K4's query tiles
+    ``bwd_query_tile(D)``), 128-byte swizzle, zero fill out of bounds.
+    Raises ValueError on what TMA does not take: a head dim other than 64
+    or 128, a strided head dim, byte strides or a base address not 16-byte
+    aligned, strides of 2^40 bytes or more."""
     if t.dim() != 4 or t.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"TMA view must be (B, H, N, D) with D in {KERNEL_HEAD_DIMS}, "
                          f"got {tuple(t.shape)}")
@@ -136,8 +137,25 @@ def tma_geometry(t: torch.Tensor) -> dict:
                          f"got {strides} (element strides {t.stride()})")
     if t.data_ptr() % 16:
         raise ValueError(f"TMA base address must be 16-byte aligned, got {t.data_ptr():#x}")
-    return dict(dims=(D, N, H, B), strides=strides, box=(TMA_BOX_COLS, TMA_BOX_ROWS, 1, 1),
+    return dict(dims=(D, N, H, B), strides=strides, box=(TMA_BOX_COLS, box_rows, 1, 1),
                 swizzle=TMA_SWIZZLE)
+
+
+# K4 (csrc/flash_attention_bwd.cu): a CTA owns 128 keys and streams tiles of
+# bwd_query_tile(D) queries; lse, Dvec and the fp32 dq accumulator are
+# padded to a multiple of BWD_ROW_PAD query rows
+BWD_ROW_PAD = 128
+
+
+def bwd_query_tile(dh: int) -> int:
+    """Queries per tile of K4's main kernel: 64 at D 128, 128 at D 64 (the
+    two consumer warpgroups' S and dP fragments then take 32 or 64
+    registers each beside the dk and dv accumulators)."""
+    return 64 if dh == 128 else 128
+
+
+def bwd_padded_rows(nq: int) -> int:
+    return -(-nq // BWD_ROW_PAD) * BWD_ROW_PAD
 
 
 def _check_kernel_operands(kernel: str, ref: torch.Tensor, **tensors) -> None:
@@ -224,13 +242,14 @@ flash_attention_lse.launches = 0
 def flash_attention_backward(q, k, v, out, lse, dout):
     """K4: (dq, dk, dv) of flash attention from the forward's inputs, output
     and lse and the output's gradient, in q's, k's and v's dtypes. CPU
-    tensor: ``flash_attention_backward_plain``; CUDA tensor: the dq and dk/dv
+    tensor: ``flash_attention_backward_plain``; CUDA tensor: the three
     kernels of ``csrc/flash_attention_bwd.cu`` (bf16, D 64 or 128), or an
-    error. q is scaled by ``q_fold(D)`` and rounded to bf16 exactly as the
-    forward kernel does in shared memory, so the rebuilt P is the
-    forward's.
-    ``flash_attention_backward.launches`` counts kernel launches (each
-    launches both kernels)."""
+    error. The prep kernel folds ``q_fold(D)`` into q and rounds to bf16
+    exactly as the forward kernel does, so the rebuilt P is the
+    forward's. The key blocks add into dq in their order, so dq, dk and dv
+    are bit-reproducible from run to run.
+    ``flash_attention_backward.launches`` counts calls (three kernel
+    launches each)."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, lse, dout)
     if q.device.type != "cuda":
@@ -240,28 +259,36 @@ def flash_attention_backward(q, k, v, out, lse, dout):
     if dout.dtype == torch.bfloat16 and (dout.stride(-1) != 1 or dout.data_ptr() % 16
                                          or any(s % 8 for s in dout.stride()[:3])):
         dout = dout.contiguous()  # autograd hands over whatever layout it has
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        lse = lse.float().contiguous()
     B, H, nq, dh = q.shape
     nk = k.shape[2]
-    scale = 1.0 / math.sqrt(dh)
-    qs = (q.float() * q_fold(dh)).to(torch.bfloat16)
-    dq = torch.empty((B, nq, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
-    dk = torch.empty((B, nk, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
-    dv = torch.empty((B, nk, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
-    _check_kernel_operands("flash attention backward", q, q=qs, k=k, v=v, dout=dout,
+    dev = q.device
+    dq = torch.empty((B, nq, H, dh), dtype=torch.bfloat16, device=dev).transpose(1, 2)
+    dk = torch.empty((B, nk, H, dh), dtype=torch.bfloat16, device=dev).transpose(1, 2)
+    dv = torch.empty((B, nk, H, dh), dtype=torch.bfloat16, device=dev).transpose(1, 2)
+    _check_kernel_operands("flash attention backward", q, q=q, k=k, v=v, out=out, dout=dout,
                            dq=dq, dk=dk, dv=dv)
     if (k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[-1] != dh
-            or dout.shape != q.shape or lse.shape != (B, H, nq)):
+            or dout.shape != q.shape or out.shape != q.shape or lse.shape != (B, H, nq)
+            or lse.device != dev):
         raise ValueError(f"flash attention backward kernel: shapes q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} dout {tuple(dout.shape)} "
-                         f"lse {tuple(lse.shape)}")
-    lse = lse.float().contiguous()
-    dmat = (dout.float() * out.float()).sum(dim=-1).contiguous()  # D = rowsum(dO * O)
-    with torch.cuda.device(q.device):
+                         f"{tuple(k.shape)} v {tuple(v.shape)} out {tuple(out.shape)} dout "
+                         f"{tuple(dout.shape)} lse {tuple(lse.shape)}")
+    # scratch: the folded q, the padded lse and Dvec, the fp32 dq accumulator
+    # and its 64 x 64 tiles' counters
+    nq_pad = bwd_padded_rows(nq)
+    qs = torch.empty((B, H, nq, dh), dtype=torch.bfloat16, device=dev)
+    rows = torch.empty((2, B, H, nq_pad), dtype=torch.float32, device=dev)
+    acc = torch.empty((B, H, nq_pad, dh), dtype=torch.float32, device=dev)
+    locks = torch.empty((B, H, nq_pad // 64, dh // 64), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
         err = library("flash_attention_bwd").vitslam_flash_attention_bwd_bf16(
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dmat.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, nq, nk, dh,
-            scale, *_strides(qs, k, v, dout, dq, dk, dv),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), qs.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+            acc.data_ptr(), locks.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, nq, nk, dh,
+            q_fold(dh), 1.0 / math.sqrt(dh), *_strides(q, k, v, out, dout, dq, dk, dv),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: CUDA error {err}")
     flash_attention_backward.launches += 1

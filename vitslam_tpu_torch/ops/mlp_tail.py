@@ -22,10 +22,47 @@ import torch.nn.functional as F
 from .flash_attention import _needs_grad
 
 LN_EPS = 1e-6
-KERNEL_K_TILE = 64     # F must be a multiple of it
-KERNEL_N_TILE = 128    # C must be a multiple of it
-KERNEL_LN_ROWS = 32    # rows per CTA with the LayerNorm: 32 fp32 rows of x' in shared memory
+KERNEL_K_TILE = 64      # F must be a multiple of it
+KERNEL_N_TILE = 256     # C must be a multiple of it: one CTA's output columns
+KERNEL_MAX_CLUSTER = 8  # with the LayerNorm a cluster of C / 256 CTAs spans C
 KERNEL_MAX_SMEM = 232448
+
+
+def check_k5_shape(M: int, F: int, C: int, ln: bool) -> None:
+    """Raise ValueError on a shape ``csrc/mlp_tail.cu`` does not take: no
+    rows, F not a multiple of 64, C not a multiple of 256, or with the
+    LayerNorm a cluster along C wider than 8 CTAs."""
+    if M < 1:
+        raise ValueError("mlp_tail kernel takes at least one row")
+    if F < KERNEL_K_TILE or F % KERNEL_K_TILE or C < KERNEL_N_TILE or C % KERNEL_N_TILE:
+        raise ValueError(f"mlp_tail kernel takes F a multiple of {KERNEL_K_TILE} and C a "
+                         f"multiple of {KERNEL_N_TILE}, got F {F}, C {C}")
+    if ln and C // KERNEL_N_TILE > KERNEL_MAX_CLUSTER:
+        raise ValueError(f"mlp_tail kernel's LayerNorm takes C <= "
+                         f"{KERNEL_MAX_CLUSTER * KERNEL_N_TILE}, got {C}")
+
+
+def k5_schedule(M: int, F: int, C: int, gelu: bool, ln: bool, sms: int) -> dict:
+    """The launch ``csrc/mlp_tail.cu`` makes for an (M, F) x (F, C) tail on
+    a card of ``sms`` SMs (the kernel reads the count from the card; the
+    H100 has 132): 64 x 256 output tiles (one consumer warpgroup) while
+    they need at most two waves, else 128 x 256 (two); one producer
+    warpgroup, and with the gelu and one consumer warpgroup a gelu
+    warpgroup; a ring of 5 or 4 stages of 64-wide K slices; with the
+    LayerNorm a cluster of C / 256 CTAs along C. Raises ValueError on a
+    shape the kernel does not take (``check_k5_shape``)."""
+    check_k5_shape(M, F, C, ln)
+    col_tiles = C // KERNEL_N_TILE
+    warpgroups = 1 if -(-M // 64) * col_tiles <= 2 * sms else 2
+    tile_m = 64 * warpgroups
+    stages = 5 if warpgroups == 1 else 4
+    ctas = -(-M // tile_m) * col_tiles
+    stage_bytes = (tile_m + KERNEL_N_TILE) * KERNEL_K_TILE * 2
+    smem = stages * stage_bytes + 2 * tile_m * 4 + 24 * stages + 1024
+    gelu_warpgroup = int(gelu and warpgroups == 1)
+    return dict(tile=(tile_m, KERNEL_N_TILE), grid=(-(-M // tile_m), col_tiles), ctas=ctas,
+                threads=128 * (warpgroups + 1 + gelu_warpgroup), stages=stages,
+                smem_bytes=smem, cluster=col_tiles if ln else 1, waves=-(-ctas // sms))
 
 
 def mlp_tail_plain(h, w2, b2, res, gamma=None, beta=None, *, eps: float = LN_EPS,
@@ -47,11 +84,6 @@ def mlp_tail_plain(h, w2, b2, res, gamma=None, beta=None, *, eps: float = LN_EPS
     return x.to(h.dtype), y.to(h.dtype)
 
 
-def _ln_smem_bytes(C: int) -> int:
-    tiles = 2 * (KERNEL_LN_ROWS + KERNEL_N_TILE) * (KERNEL_K_TILE + 8) * 2
-    return tiles + KERNEL_LN_ROWS * (C + 4) * 4
-
-
 def _launch(h, w2, b2, res, gamma, beta, eps, gelu, ln):
     from .cuda_build import library
 
@@ -67,13 +99,7 @@ def _launch(h, w2, b2, res, gamma, beta, eps, gelu, ln):
             raise TypeError(f"mlp_tail kernel takes bf16 {name}, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"mlp_tail kernel takes a contiguous, 16-byte aligned {name}")
-    if Fd % KERNEL_K_TILE or C % KERNEL_N_TILE:
-        raise ValueError(f"mlp_tail kernel takes F a multiple of {KERNEL_K_TILE} and C a "
-                         f"multiple of {KERNEL_N_TILE}, got F {Fd}, C {C}")
-    if ln and _ln_smem_bytes(C) > KERNEL_MAX_SMEM:
-        raise ValueError(f"mlp_tail kernel's LayerNorm takes C <= 1408, got {C}")
-    if M < 1:
-        raise ValueError("mlp_tail kernel takes at least one row")
+    check_k5_shape(M, Fd, C, ln)
     dev = h.device
     vec = lambda t: t.detach().to(device=dev, dtype=torch.float32).reshape(C).contiguous()  # noqa: E731
     b = vec(b2)
@@ -128,7 +154,7 @@ def mlp_tail(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, res: torch.Ten
     with ``ln``, else x'.
 
     CPU tensor: the plain version. CUDA tensor: the kernel (bf16 h, w2 and
-    res, contiguous; F a multiple of 64, C of 128, C <= 1408 with ``ln``),
+    res, contiguous; F a multiple of 64, C of 256, C <= 2048 with ``ln``),
     or an error; differentiable in every tensor argument, with the backward
     recomputed through the plain version. ``mlp_tail.launches`` counts
     kernel launches."""

@@ -31,10 +31,10 @@ import numpy as np
 import torch
 
 FAMILIES = [  # (family, regex on the kernel name), first match wins
-    ("K5 mlp_tail", r"mlp_tail_"),
+    ("K5 mlp_tail", r"mlp_tail_kernel"),
     ("K1 qk_prep", r"qk_prep_kernel"),
     ("K1 fused_qkv_attention", r"fused_qkv_attention_kernel"),
-    ("K4 flash backward (dq, dk/dv)", r"flash_bwd_"),
+    ("K4 flash backward (prep, main, dq)", r"flash_bwd_(prep_|dq_)?kernel"),
     # K2 and K3 are one CUDA kernel; slice 2's main path launches only K2,
     # slice 3's train step both (K2 in the backbone, K3 with lse in the head)
     ("K2/K3 flash_attention", r"flash_attention_kernel"),
@@ -42,16 +42,57 @@ FAMILIES = [  # (family, regex on the kernel name), first match wins
     ("gemm (cuBLAS)", r"gemm|cutlass|xmma|nvjet|cublas|Kernel2"),
     ("softmax", r"softmax"),
     ("reduction (mean/norm)", r"reduce|norm"),
-    ("copy / cast", r"copy|cast|Memcpy|Memset|fill"),
+    # gpu_kernel_impl_nocast is PyTorch's loop for elementwise ops on
+    # strided or broadcast operands: "nocast" is not a cast
+    ("copy / cast", r"copy|(?<!no)cast|Memcpy|Memset|fill"),
     ("elementwise", r"elementwise|vectorized|unrolled"),
 ]
+_BY_NAME_FIRST = 8  # the families above the generic ones: the port's kernels and libraries
+# where the trace links a kernel to the aten op that launched it, the op
+# decides between copies, reductions and elementwise arithmetic
+COPY_OPS = {"aten::copy_", "aten::to", "aten::_to_copy", "aten::contiguous", "aten::clone",
+            "aten::fill_", "aten::zero_", "aten::zeros", "aten::zeros_like", "aten::ones",
+            "aten::full", "aten::cat", "aten::stack", "aten::index_select", "aten::gather"}
+REDUCTION_OPS = {"aten::mean", "aten::sum", "aten::var", "aten::std", "aten::var_mean",
+                 "aten::amax", "aten::amin", "aten::max", "aten::min", "aten::norm",
+                 "aten::linalg_vector_norm", "aten::logsumexp", "aten::native_layer_norm",
+                 "aten::cumsum", "aten::argmax", "aten::argmin", "aten::topk", "aten::sort"}
 
 
-def _family(name: str) -> str:
-    for fam, pat in FAMILIES:
+def _family(name: str, op: str | None = None) -> str:
+    """The family of a kernel: the port's kernels and the libraries' by
+    name; then, given the aten op that launched it, copies and reductions by
+    that op and any other op's kernels as elementwise; else by name."""
+    for fam, pat in FAMILIES[:_BY_NAME_FIRST]:
+        if re.search(pat, name, re.IGNORECASE):
+            return fam
+    if op is not None and op.startswith("aten::"):
+        if op in COPY_OPS:
+            return "copy / cast"
+        if op in REDUCTION_OPS:
+            return "reduction (mean/norm)"
+        return "elementwise"
+    for fam, pat in FAMILIES[_BY_NAME_FIRST:]:
         if re.search(pat, name, re.IGNORECASE):
             return fam
     return "other"
+
+
+def kernel_families(trace_events: list) -> tuple[dict, dict, list]:
+    """Device seconds by family and by kernel name from a Chrome trace's
+    events, each kernel filed by ``_family`` with the aten op that launched
+    it (the cpu_op sharing its "External id"); also returns the kernel
+    events."""
+    ops = {e["args"]["External id"]: e["name"] for e in trace_events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    events = [e for e in trace_events if e.get("cat") == "kernel" and "dur" in e]
+    by_family: dict = defaultdict(float)
+    by_name: dict = defaultdict(float)
+    for e in events:
+        op = ops.get(e.get("args", {}).get("External id"))
+        by_family[_family(e["name"], op)] += e["dur"] * 1e-6
+        by_name[e["name"][:90]] += e["dur"] * 1e-6
+    return by_family, by_name, events
 
 
 def _busy_seconds(events) -> float:
@@ -119,13 +160,7 @@ def profile_run(fn, out: Path, label: str) -> dict:
     raw = trace.read_bytes()
     trace.unlink()
     (out / f"trace_{label}.json.gz").write_bytes(gzip.compress(raw))
-    events = [e for e in json.loads(raw)["traceEvents"]
-              if e.get("cat") == "kernel" and "dur" in e]
-    by_family: dict = defaultdict(float)
-    by_name: dict = defaultdict(float)
-    for e in events:
-        by_family[_family(e["name"])] += e["dur"] * 1e-6
-        by_name[e["name"][:90]] += e["dur"] * 1e-6
+    by_family, by_name, events = kernel_families(json.loads(raw)["traceEvents"])
     busy = _busy_seconds(events)
     return dict(wall_s=wall, busy_s=busy, idle_share=1.0 - busy / wall,
                 kernels=len(events),
