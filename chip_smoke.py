@@ -13,7 +13,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 (TMA loads) and HMMA (mma.sync): every library must be wgmma
                 + TMA (HGMMA and UTMALDG nonzero, HMMA zero).
 3. kernels    — K1 (fused qkv attention) and its prep kernel, K2 (flat
-                streaming attention) and K3 (flash attention forward)
+                streaming attention, also at the sequence-parallel shape)
+                and K3 (flash attention forward)
                 against their plain PyTorch versions in bf16 at the main
                 paths' shapes (dh 64, 16 heads), and the K3 kernel's
                 in-kernel q fold bit for bit against torch's; max error,
@@ -63,6 +64,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 then the same eval on the card and on the CPU over one set of
                 predictions (registered onto the GT points, ICP cap 20,000)
                 held to each other.
+12. distributed — gloo gangs of processes sharing the card (NCCL refuses
+                two ranks on one GPU), launched by vitslam_tpu_torch.parallel.
+                spawn_gang as ``chip_smoke.py --dist-worker RANK PORT WORLD
+                OUTDIR SCENARIOS``: 3 ranks run the sequence-parallel encode
+                of one 75-frame point-aligned chunk (25 frames a rank, K2
+                with 10,300 local queries over 30,900 gathered keys) and the
+                chunk-parallel flagship 5/1 at encode_batch=3; 2 ranks (three
+                do not fit in 80 GB) one data-parallel train step of the
+                global-mode head at (20, 5), one sample a rank. Each is held
+                against one process's run of the same work; the 5/1 also runs
+                through a 1-rank NCCL group. Each rank prints its wall time
+                and peak memory; these are not rates. This phase runs right
+                after the build, while this process holds no model.
 
 The kernel phase also holds K3's lse output and K4 against their plain
 versions at the global head's shapes (and K4's outputs from two runs to
@@ -539,6 +553,9 @@ def kernels_k2(results: dict, g, dev):
         ("global 75/30 B=1 Nq=Nk=30900", 1, 30900, 30900, True),
         ("merged 75/30 p4s10 B=1 Nq=30900 Nk=5641", 1, 30900, 5641, False),
         ("ragged B=2 Nq=4200 Nk=5000", 2, 4200, 5000, False),
+        # sequence-parallel global attention, 75/30 over 3 ranks: 25 frames'
+        # queries against the 75 frames' gathered keys
+        ("SP 75/30 3 ranks B=1 Nq=10300 Nk=30900", 1, 10300, 30900, False),
     ]
     for case, B, nq, nk, main in cases:
         # q scaled by 2: logits ~N(0, 4), a sharper softmax than unit inputs
@@ -1409,12 +1426,386 @@ def phase_eval(smi: str, model) -> dict:
                          check_max_rel=max(errs.values()))}
 
 
+# the distributed phase: gloo gangs of processes sharing the one card (NCCL
+# refuses two ranks on one GPU; every kernel still runs on it): DIST_RANKS
+# for the sequence-parallel encode and chunk-parallel serving, and
+# DP_RANKS for the data-parallel train step, whose ranks each take ~25 GiB
+# (the frozen backbone's encode and the global-mode head at one sample a
+# rank): three of them do not fit in the card's 80 GB
+DIST_RANKS = 3
+DP_RANKS = 2
+# gang vs one process on the same card doing the same work at the ranks'
+# per-chunk shapes (bf16 results depend on the batch shape: cuBLAS and
+# cuDNN pick other algorithms): relative L2 error per output, and for the
+# train step the objective to 1e-3 relative, the gradient norm to 1e-2 and
+# each trainable tensor's gradient to GRAD_RTOL; where the reference stacks
+# chunks (encode_batch=3), the drivers' DRIVER_RTOL
+DIST_RTOL = 1e-2
+DIST_OBJ_RTOL = 1e-3
+DIST_NORM_RTOL = 1e-2
+SP_FRAMES = 75
+TRAIN_BUCKET = (20, 5)
+
+
+def _dist_sp(rank: int, world: int, out: Path) -> None:
+    """Sequence-parallel encode of one 75-frame chunk of the flagship
+    point-aligned model, 25 frames a rank."""
+    import torch
+
+    from vitslam_tpu_torch import parallel
+    from vitslam_tpu_torch.models import flagship_point_aligned
+
+    group = parallel.make_mesh(n_data=1, n_model=world).group("model")
+    model = flagship_point_aligned(device="cuda", seed=0, seq_group=group)
+    images = torch.as_tensor(_synthetic_sequence(SP_FRAMES, 154, 518, seed=2)["images"],
+                             device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        raw = parallel.sequence_parallel_encode(model, images, group)
+        full = parallel.gather_sequence(raw, group)
+    torch.cuda.synchronize()
+    secs, launches = time.perf_counter() - t, read_launches()
+    print(f"[distributed rank {rank}] SP encode: {SP_FRAMES // world} of {SP_FRAMES} frames, "
+          f"{secs:.3f} s wall, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}", flush=True)
+    saved = {"launches": launches}
+    if rank == 0:
+        saved["full"] = {k: v.cpu() for k, v in full.items()}
+    torch.save(saved, out / f"sp_{rank}.pt")
+
+
+def _serve_run(model, encode_batch: int, mesh=None):
+    """The flagship 5/1 over 17 frames through ChunkedPipeline; returns
+    (predictions, launches)."""
+    import torch
+
+    from vitslam_tpu_torch.slam import ChunkedPipeline
+
+    batch = _synthetic_sequence(17, 154, 518, seed=0)
+    torch.cuda.synchronize()
+    reset_launches()
+    pred, _ = ChunkedPipeline(model, encode_batch=encode_batch, mesh=mesh).run_sequence(
+        batch, chunk_width=5, num_overlap=1)
+    torch.cuda.synchronize()
+    return pred, read_launches()
+
+
+def _dist_serve(rank: int, world: int, out: Path) -> None:
+    """Chunk-parallel serving: the flagship 5/1 over 17 frames (4 chunks),
+    encode_batch = the rank count, the encode groups split over the ranks."""
+    import torch
+
+    from vitslam_tpu_torch import parallel
+    from vitslam_tpu_torch.models import flagship
+
+    mesh = parallel.make_mesh(n_data=world)
+    model = flagship(device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    pred, launches = _serve_run(model, world, mesh)
+    print(f"[distributed rank {rank}] chunk-parallel 5/1: {time.perf_counter() - t:.3f} s wall, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches {launches}", flush=True)
+    torch.save({"pred": pred, "launches": launches}, out / f"serve_{rank}.pt")
+
+
+def _dp_step(trainer, batch: dict) -> dict:
+    """One train step of ``trainer`` on ``batch`` at TRAIN_BUCKET, data-
+    parallel when the trainer has a mesh: the losses, the gradients, their
+    global norm, then the AdamW update and a hash of the trainable tensors
+    after it."""
+    import torch
+
+    from vitslam_tpu_torch.head_grad_check import state_hash
+    from vitslam_tpu_torch.train import global_norm, loss_and_grads
+
+    width, overlap = TRAIN_BUCKET
+    chunks, merged = trainer._prepare_chunks(batch, width, overlap)
+    st = trainer.state
+    losses, grads = loss_and_grads(
+        trainer.model, trainer.loss, st.trainable, chunks, merged, st.step, overlap,
+        trainer.gt_alignment_type, generator=torch.Generator().manual_seed(11),
+        data_group=None if trainer.mesh is None else trainer.mesh.group("data"))
+    norm = float(global_norm(grads.values()))
+    st.optimizer.step(grads)
+    torch.cuda.synchronize()
+    return dict(objective=float(losses["objective"]), grad_norm=norm,
+                grads={n: g.cpu() for n, g in grads.items()}, state=state_hash(trainer),
+                rows=chunks[0]["images"].shape[0])
+
+
+def _train_case(batch_rows: int):
+    """A Trainer of the shipped training config's global-mode model over a
+    batch of ``batch_rows`` 40-frame samples (a data mesh in a gang)."""
+    import tempfile
+
+    from vitslam_tpu_torch.head_grad_check import head_trainer
+    from vitslam_tpu_torch.models import flagship
+    from vitslam_tpu_torch.utils import make_synthetic_batch
+
+    model = flagship(device="cuda", seed=0, enable_point=False, temporal_attention=False)
+    batch = make_synthetic_batch(B=batch_rows, N=40, H=154, W=518, seed=3)
+    trainer = head_trainer(model, batch, TRAIN_BUCKET, 1, tempfile.mkdtemp(prefix="chip_dp_"))
+    trainer.init_state()
+    return trainer, batch
+
+
+def _dist_train(rank: int, world: int, out: Path) -> None:
+    """One data-parallel step of the global-mode head at (20, 5), one sample
+    a rank."""
+    import torch
+
+    trainer, batch = _train_case(world)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    res = _dp_step(trainer, batch)
+    res["launches"] = read_launches()
+    print(f"[distributed rank {rank}] DP train step: {res['rows']} of {world} rows, "
+          f"{time.perf_counter() - t:.3f} s wall, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, objective "
+          f"{res['objective']:.6g}, grad_norm {res['grad_norm']:.6g}, state {res['state']}, "
+          f"launches {res['launches']}", flush=True)
+    if rank != 0:
+        del res["grads"]
+    torch.save(res, out / f"train_{rank}.pt")
+
+
+DIST_SCENARIOS = {"sp": _dist_sp, "serve": _dist_serve, "train": _dist_train}
+
+
+def _dist_worker(rank: int, port: int, world: int, outdir: str, scenarios: str) -> int:
+    """One rank of a gang of the distributed phase (``chip_smoke.py
+    --dist-worker RANK PORT WORLD OUTDIR SCENARIOS``): joins the gloo gang on
+    the card, runs the comma-separated scenarios in order and saves its
+    results."""
+    import torch
+    import torch.distributed as dist
+
+    from vitslam_tpu_torch import parallel
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    torch.cuda.set_device(0)
+    parallel.init_distributed("gloo", f"localhost:{port}", world, rank)
+    try:
+        t = time.perf_counter()
+        for name in scenarios.split(","):
+            DIST_SCENARIOS[name](rank, world, Path(outdir))
+            _release()
+        print(f"[distributed rank {rank}] wall {time.perf_counter() - t:.1f} s, "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _gang(smi: str, world: int, scenarios: str, out: Path) -> None:
+    """Run ``scenarios`` in a gloo gang of ``world`` processes on the card
+    and print the ranks' lines."""
+    from vitslam_tpu_torch import parallel
+
+    t = time.perf_counter()
+    outs, _ = parallel.spawn_gang(
+        lambda r, port: [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker", str(r),
+                         str(port), str(world), str(out), scenarios],
+        world, timeout=600, retries=1, cwd=str(ROOT),
+        env=parallel.clean_env({"LOCAL_WORLD_SIZE": str(world)}))
+    for o in outs:
+        print("\n".join(line for line in o.splitlines() if line.startswith("[distributed")))
+    print(f"[distributed] gloo gang of {world} processes on one card ({scenarios}): "
+          f"{time.perf_counter() - t:.1f} s wall (start-up and model builds included; not a "
+          f"rate of the distributed paths), on {smi}")
+
+
+def phase_distributed(smi: str) -> dict:
+    """The distributed paths on the card: a gloo gang of DIST_RANKS
+    processes sharing it runs the sequence-parallel encode and chunk-
+    parallel serving, a gang of DP_RANKS one data-parallel train step; this
+    process then runs each on its own and holds the gangs to it, and runs
+    the 5/1 serving through a 1-rank NCCL group."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from vitslam_tpu_torch import parallel
+    from vitslam_tpu_torch.head_grad_check import _rel_l2
+    from vitslam_tpu_torch.models import flagship, flagship_point_aligned
+
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    _release()
+    print(f"[distributed] this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of "
+          f"the card before the gangs")
+    try:
+        _gang(smi, DIST_RANKS, "sp,serve", out)
+        _gang(smi, DP_RANKS, "train", out)
+        sp = [torch.load(out / f"sp_{r}.pt") for r in range(DIST_RANKS)]
+        serve = [torch.load(out / f"serve_{r}.pt") for r in range(DIST_RANKS)]
+        train = [torch.load(out / f"train_{r}.pt") for r in range(DP_RANKS)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    stats = {}
+
+    # 1. SP encode against one process's encode of the same chunk. A rank's
+    # DPT decodes its 25 frames in 5-frame groups (the largest divisor of 25
+    # within dpt_frames_chunk=16), one process its 75 in 15-frame groups:
+    # cuDNN's bf16 convolutions at another batch move points_raw by ~1.4e-2
+    # rel-L2 (H100 80GB HBM3, 700 W) with the attention gather exact. The
+    # gated reference decodes in 5-frame groups too, so the check reads the
+    # sequence parallelism, not the conv batch size; the one with the
+    # preset's own grouping is printed beside it.
+    local = SP_FRAMES // DIST_RANKS
+    group = max(d for d in range(1, 17) if local % d == 0)  # VGGTCore's rule
+    model = flagship_point_aligned(device="cuda", seed=0)
+    images = torch.as_tensor(_synthetic_sequence(SP_FRAMES, 154, 518, seed=2)["images"],
+                             device="cuda")
+    own_groups = model.core.dpt_frames_chunk
+    with torch.inference_mode():
+        own = {k: v.float().cpu() for k, v in model.encode_chunks(images).items()}
+        model.core.dpt_frames_chunk = group
+        ref = model.encode_chunks(images)
+    errs = {k: rel_l2(sp[0]["full"][k].float(), ref[k].float().cpu()) for k in ref}
+    errs_own = {k: rel_l2(sp[0]["full"][k].float(), own[k]) for k in own}
+    print(f"[distributed] SP encode, {DIST_RANKS} ranks vs one process decoding its DPT in "
+          f"{group}-frame groups as a rank does: rel-L2 {json.dumps(errs)} (tol {DIST_RTOL}); "
+          f"vs one process with dpt_frames_chunk={own_groups} (not gated): "
+          f"{json.dumps(errs_own)}")
+    want = {"flat_flash_attention": 24, "fused_qkv_attention": 48, "qk_prep": 24}
+    for r, res in enumerate(sp):
+        _expect(f"distributed SP encode rank {r}", res["launches"], want)
+        stats[f"distributed SP encode rank {r}"] = dict(launches=res["launches"])
+    bad = {k: v for k, v in errs.items() if not v <= DIST_RTOL}
+    if bad or set(errs) != set(sp[0]["full"]):
+        raise AssertionError(f"distributed SP encode disagrees: {bad}")
+    del model, images, ref, own
+    _release()
+
+    # 2. chunk-parallel serving: identical on every rank; against one
+    # process's sequential driver, which encodes each chunk at B=1 as a rank
+    # does (DIST_RTOL), and its encode_batch=3 driver, which stacks B=3 and
+    # embeds the unique frames once (other GEMM and conv shapes: the drivers'
+    # DRIVER_RTOL); then through a 1-rank NCCL group at encode_batch=1, each
+    # chunk's encode gathered through NCCL, bit-equal to the sequential run
+    model = flagship(device="cuda", seed=0)
+    seq, _ = _serve_run(model, 1)
+    stacked, _ = _serve_run(model, DIST_RANKS)
+    for r, res in enumerate(serve):
+        same = all(torch.equal(res["pred"][k], serve[0]["pred"][k]) for k in serve[0]["pred"])
+        if not same:
+            raise AssertionError(f"distributed serving: rank {r}'s predictions differ from rank 0's")
+        # per rank 2 encodes (its chunk of group 0-2, and the padded tail group)
+        _expect(f"distributed serving rank {r}", res["launches"],
+                {"fused_qkv_attention": 144, "qk_prep": 96})
+        stats[f"distributed serving rank {r}"] = dict(launches=res["launches"])
+    pred = serve[0]["pred"]
+    errs = output_errors(pred, seq)
+    errs_stacked = output_errors(pred, stacked)
+    print(f"[distributed] chunk-parallel 5/1 at encode_batch={DIST_RANKS}: identical on all "
+          f"{DIST_RANKS} ranks; vs one process, sequential driver: bit-equal "
+          f"{all(torch.equal(pred[k], seq[k]) for k in seq)}, rel-L2 {json.dumps(errs)} "
+          f"(tol {DIST_RTOL}); encode_batch={DIST_RANKS} driver: rel-L2 "
+          f"{json.dumps(errs_stacked)} (tol {DRIVER_RTOL})")
+    bad = {k: v for k, v in errs.items() if not v <= DIST_RTOL}
+    bad.update({f"{k} (encode_batch={DIST_RANKS})": v for k, v in errs_stacked.items()
+                if not v <= DRIVER_RTOL})
+    if bad:
+        raise AssertionError(f"distributed serving disagrees with one process: {bad}")
+    parallel.init_distributed("nccl", f"localhost:{parallel.free_port()}", 1, 0)
+    try:
+        pred, launches = _serve_run(model, 1, parallel.make_mesh())
+    finally:
+        dist.destroy_process_group()
+    _expect("distributed NCCL world size 1", launches, {"fused_qkv_attention": 288})
+    stats["distributed NCCL world size 1"] = dict(launches=launches)
+    equal = {k: torch.equal(pred[k], seq[k]) for k in seq}
+    print(f"[distributed] 5/1 through a 1-rank NCCL group (mesh, encode_batch=1) vs one "
+          f"process's sequential driver: bit-equal {equal}; launches {launches}")
+    if not all(equal.values()):
+        raise AssertionError(f"distributed NCCL run differs from one process: {equal}")
+    del model, seq, stacked, pred
+    _release()
+
+    # 3. one DP train step against one process's step on the global batch.
+    # A rank encodes its row through the frozen backbone at B=1, one process
+    # its rows at B=2; bf16 at another batch shape (cuBLAS / cuDNN choices:
+    # the serving check above shows ~1e-2 on the outputs) moves the
+    # gradients by ~1e-2 and the cancelling scalar `alpha` (ROADMAP S3) by
+    # 3.03e-2 (H100 80GB HBM3, 700 W). So the gated reference runs its frozen
+    # encode one row at a time, as the ranks do; the head and the loss run
+    # on the whole batch. The reference with the stacked encode is printed
+    # beside it.
+    trainer, batch = _train_case(DP_RANKS)
+    model = trainer.model
+    encode = model.encode_chunks
+
+    def per_row(images, patch_tokens=None):
+        outs = [encode(images[i:i + 1]) for i in range(images.shape[0])]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    model.encode_chunks = per_row
+    try:
+        reset_launches()
+        ref = _dp_step(trainer, batch)
+        ref_launches = read_launches()
+    finally:
+        del model.encode_chunks
+    trainer, batch = _train_case(DP_RANKS)
+    stacked = _dp_step(trainer, batch)
+    del trainer, model, encode
+    _release()
+    obj = [res["objective"] for res in train]
+    norm = [res["grad_norm"] for res in train]
+    states = {res["state"] for res in train}
+    g = train[0]["grads"]
+
+    def compare(want):
+        errs = {n: _rel_l2(g[n], want["grads"][n]) for n in g if want["grads"][n].abs().max() > 0}
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+        obj_err = max(abs(o - want["objective"]) for o in obj) / abs(want["objective"])
+        norm_err = max(abs(n - want["grad_norm"]) for n in norm) / want["grad_norm"]
+        return (f"objective {obj} vs {want['objective']:.6g} (rel {obj_err:.2e}); grad_norm "
+                f"{norm} vs {want['grad_norm']:.6g} (rel {norm_err:.2e}); gradients of "
+                f"{len(errs)} tensors, max rel-L2 {worst[0][1]:.3e}, worst {worst}; state after "
+                f"the step {want['state']}"), obj_err, norm_err, worst
+    text, obj_err, norm_err, worst = compare(ref)
+    print(f"[distributed] DP train step at {TRAIN_BUCKET}, {DP_RANKS} ranks x 1 sample vs one "
+          f"process x {DP_RANKS} (frozen encode one row at a time): {text} (tol objective "
+          f"{DIST_OBJ_RTOL}, grad_norm {DIST_NORM_RTOL}, gradients {GRAD_RTOL}); ranks' "
+          f"trainable tensors after the step: hashes {sorted(states)}; one process's launches "
+          f"{ref_launches}")
+    print(f"[distributed] the same against one process with the stacked encode (not gated): "
+          f"{compare(stacked)[0]}")
+    for r, res in enumerate(train):
+        stats[f"distributed DP train rank {r}"] = dict(launches=res["launches"])
+    if len(states) != 1:
+        raise AssertionError(f"distributed DP train: trainable tensors differ across ranks: {states}")
+    if not (obj_err <= DIST_OBJ_RTOL and norm_err <= DIST_NORM_RTOL and worst[0][1] <= GRAD_RTOL):
+        raise AssertionError("distributed DP train step disagrees with one process")
+    if train[0]["launches"]["flash_attention_backward"] == 0:
+        raise AssertionError("distributed DP train: K4 was not launched")
+    stats["distributed DP train rank 0"].update(objective=obj, grad_norm=norm,
+                                                grad_rel_l2_max=worst[0][1])
+    return stats
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--dist-worker"]:
+        return _dist_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                            sys.argv[6])
     smi = phase_device()
     import torch
 
     sass = phase_build()
+    # first, while this process holds no model: the gangs' ranks need ~25
+    # GiB each on the shared card
+    dist_runs = phase_distributed(smi)
     results = phase_kernels()
     phase_reference()
     runs, tails_off = phase_slice(smi)
@@ -1428,6 +1819,7 @@ def main() -> int:
     del model
     _release()
     runs.update(phase_tail_large(smi, runs["slice 75/30 point sequential"]))
+    runs.update(dist_runs)
     # each kernel's headline numbers: its case at the shapes of the path
     # named here, and the launches of that path's run
     main_path = {"fused_qkv_attention": "slice 75/30 point sequential",

@@ -280,7 +280,12 @@ def test_cli_fused_tails_from_the_env(tmp_path, monkeypatch):
 
 def test_cli_refuses_what_is_not_ported(vkitti, tmp_path):
     cfg_dir = _write_cfg(tmp_path / "cfg", _tiny_cfg(vkitti, str(tmp_path / "logs")))
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(NotImplementedError, match="part 2 of the distributed"):
+        cli.main(["--config", "tiny", "--config-dir", cfg_dir, "--device", "cpu",
+                  "--set", "num_model_shards=2"])
+    # several nodes are ported; they need the rendezvous address and the
+    # node's index
+    with pytest.raises(ValueError, match="--coordinator"):
         cli.main(["--config", "tiny", "--config-dir", cfg_dir, "--device", "cpu",
                   "--num_nodes", "2"])
     assert cli.mlp_tail_from_env({}) == "off"

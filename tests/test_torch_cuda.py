@@ -109,6 +109,7 @@ def _bf16(rng, shape, device, scale=1.0):
     (1, 4250, 4250),   # ragged K tail
     (1, 640, 4352),    # cross length (KV-merged shape)
     (2, 4200, 5000),   # batched, both tails ragged
+    (1, 10300, 30900),  # sequence-parallel global attention: 25 of 75 frames' queries
 ])
 def test_k2_kernel_matches_plain(cuda, B, nq, nk):
     """K2 against its plain version on the same scaled q, in bf16, within
@@ -640,3 +641,27 @@ def test_k5_gelu_is_the_exact_gelu_over_every_bf16_input(cuda):
     want = torch.nn.functional.gelu(h.float()).to(torch.bfloat16)
     torch.cuda.synchronize()
     assert torch.equal(x, want)
+
+
+def test_nccl_gather_at_world_size_1(cuda):
+    """The collectives of vitslam_tpu_torch.parallel through an NCCL group of
+    one rank on the card: the gather returns the tensor on its device, the
+    host gather the array, the gradient of a replicated gather passes
+    through."""
+    import torch.distributed as dist
+
+    from vitslam_tpu_torch import parallel
+
+    torch.cuda.set_device(cuda)
+    parallel.init_distributed("nccl", f"localhost:{parallel.free_port()}", 1, 0)
+    try:
+        x = torch.arange(6.0, device=cuda).reshape(2, 3).requires_grad_()
+        got = parallel.all_gather(x, dim=1, replicated=True)
+        assert got.device == x.device and torch.equal(got.detach(), x.detach())
+        got.sum().backward()
+        assert torch.equal(x.grad, torch.ones_like(x))
+        np.testing.assert_array_equal(parallel.allgather_rows(np.arange(3)), np.arange(3))
+        mesh = parallel.make_mesh()
+        assert mesh.coords == {"data": 0, "model": 0}
+    finally:
+        dist.destroy_process_group()

@@ -34,7 +34,9 @@ MODULES = [
     "vitslam_tpu_torch.config", "vitslam_tpu_torch.config.loader", "vitslam_tpu_torch.data",
     "vitslam_tpu_torch.data.preprocess", "vitslam_tpu_torch.data.base",
     "vitslam_tpu_torch.data.dynamic", "vitslam_tpu_torch.data.vkitti", "vitslam_tpu_torch.cli",
-    "vitslam_tpu_torch.compare_rates", "chip_smoke",
+    "vitslam_tpu_torch.compare_rates", "vitslam_tpu_torch.parallel",
+    "vitslam_tpu_torch.parallel.mesh", "vitslam_tpu_torch.parallel.spawn",
+    "vitslam_tpu_torch.parallel.seq", "chip_smoke",
 ]
 # installed here, absent on the machine with the card: the package must
 # import without them (they are imported where a file is read or a plot made)

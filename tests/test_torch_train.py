@@ -410,6 +410,12 @@ def test_checkpoint_resume_and_fit(tmp_path, monkeypatch):
         tckpt.load_model_params(step3, target)
     with pytest.raises(ValueError):  # the test mode needs val_data and metrics
         again.test()
-    with pytest.raises(NotImplementedError):
+    # several devices need a gang of ranks (tests/test_torch_parallel.py);
+    # tensor parallelism and the orbax backend are part 2 of the slice
+    with pytest.raises(RuntimeError, match="gang"):
         ttrain.Trainer(dict(_cfg(tmp_path, 1), num_devices=2), fresh,
                        ttrain.MultitaskLoss(**LOSS_CFG))
+    for extra in ({"num_model_shards": 2}, {"checkpoint": {"backend": "orbax"}}):
+        with pytest.raises(NotImplementedError, match="part 2 of the distributed"):
+            ttrain.Trainer(dict(_cfg(tmp_path, 1), **extra), fresh,
+                           ttrain.MultitaskLoss(**LOSS_CFG))

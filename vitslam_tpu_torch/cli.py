@@ -2,7 +2,8 @@
 ``training/run_model.py``):
 
     python -m vitslam_tpu_torch.cli --config test_featureAlignedVGGT_vkitti \\
-        [--config-dir configs] [--device cuda|cpu] [--set key=value ...]
+        [--config-dir configs] [--device cuda|cpu] [--set key=value ...] \\
+        [--num_devices N] [--num_nodes M --coordinator host:port --process_id k]
 
 ``--config`` selects the experiment, whose ``mode`` (train / validate /
 test) comes from the config; ``--set a.b=c`` overrides a dotted path before
@@ -12,11 +13,23 @@ loaded from ``checkpoint.model_checkpoint_path`` (and
 ``checkpoint.from_pretrained`` as the fallback) when the config names one.
 The fused block tails of the backbone (kernel K5) follow the reference's
 switch ``VITSLAM_MLP_TAIL`` (1 = both sites, mlp, proj; default off), read
-here once. Runs over several nodes belong to the distributed slice.
+here once.
+
+Several ranks: one reference command covers all of a host's devices, so
+``--num_devices N`` makes this command a launcher that starts N ranks on
+this node (``parallel.spawn_gang``), each the same command on
+``cuda:<local rank>`` (or on the CPU with ``--device cpu``), and prints
+each rank's output when all have finished. ``--num_nodes``,
+``--coordinator`` (rank 0's host:port, needed with more than one node) and
+``--process_id`` (this node's index) place the node in the gang: rank =
+process_id * N + local rank. The backend is NCCL with ``--device cuda`` and
+gloo with ``--device cpu``. The trainer then trains data-parallel over every
+rank (``train.trainer``).
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 
@@ -72,6 +85,52 @@ def build_from_config(cfg, device: str = "cuda", mlp_tail: str = "off"):
     return model, loss, metrics, train_data, val_data
 
 
+def rank_argv(argv, local_rank: int, coordinator: str) -> list[str]:
+    """The command line of one rank started by the launcher."""
+    return [sys.executable, "-m", "vitslam_tpu_torch.cli", *argv, "--local_rank",
+            str(local_rank), "--coordinator", coordinator]
+
+
+def launch(args, argv) -> list[str]:
+    """Start this node's ranks and wait for them; returns their outputs."""
+    from .parallel import clean_env, spawn_gang
+
+    fixed = args.coordinator
+    if args.num_nodes > 1 and (fixed is None or args.process_id is None):
+        raise ValueError("--num_nodes > 1 needs --coordinator host:port and --process_id")
+    per_node = max(args.num_devices, 1)
+    # with a coordinator given, every node rendezvouses at it, so a failed
+    # rendezvous cannot move to a fresh port
+    outs, _ = spawn_gang(
+        lambda i, port: rank_argv(argv, i, fixed or f"localhost:{port}"), per_node,
+        timeout=math.inf, retries=0 if fixed else 2,
+        env=clean_env({"LOCAL_WORLD_SIZE": str(per_node)}))
+    for i, out in enumerate(outs):
+        print(f"--- rank {(args.process_id or 0) * per_node + i} ---\n{out}")
+    return outs
+
+
+def _join_gang(args) -> str:
+    """Join the gang as one rank; returns the rank's device."""
+    import torch
+
+    from .parallel import init_distributed
+
+    per_node = max(args.num_devices, 1)
+    rank = (args.process_id or 0) * per_node + args.local_rank
+    os.environ["LOCAL_RANK"] = str(args.local_rank)
+    os.environ.setdefault("LOCAL_WORLD_SIZE", str(per_node))
+    if args.device.startswith("cuda"):
+        torch.cuda.set_device(args.local_rank)
+        device, backend = f"cuda:{args.local_rank}", "nccl"
+    elif args.device == "cpu":
+        device, backend = "cpu", "gloo"
+    else:
+        raise ValueError(f"--device must be cuda or cpu, got {args.device!r}")
+    init_distributed(backend, args.coordinator, per_node * args.num_nodes, rank)
+    return device
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="vitslam_tpu_torch runner")
     parser.add_argument("--config", required=True)
@@ -79,23 +138,43 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="where the model runs: cuda (default) or cpu")
     parser.add_argument("--num_nodes", type=int, default=1)
+    parser.add_argument("--num_devices", type=int, default=0,
+                        help="ranks to start on this node, one per GPU (cuda:0..N-1), or CPU "
+                             "ranks with --device cpu (0 or 1: this process alone)")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of rank 0's rendezvous (multi-node)")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="this node's index (multi-node)")
+    parser.add_argument("--local_rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                         dest="overrides")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
-    if args.num_nodes > 1:
-        raise NotImplementedError("runs over more than one node are not ported yet: they "
-                                  "belong to the distributed slice of the port (ROADMAP "
-                                  "queue 1)")
+    distributed = max(args.num_devices, 1) * args.num_nodes > 1
+    if distributed and args.local_rank is None:
+        return launch(args, argv)
 
     from .config.loader import compose
     from .train.trainer import Trainer
 
+    device = _join_gang(args) if distributed else args.device
     cfg = compose(args.config, args.config_dir, overrides=args.overrides)
+    if args.num_devices:
+        cfg["num_devices"] = args.num_devices
     model, loss, metrics, train_data, val_data = build_from_config(
-        cfg, device=args.device, mlp_tail=mlp_tail_from_env())
-    trainer = Trainer(cfg, model, loss, train_data=train_data, val_data=val_data,
-                      metrics=metrics, shape_buckets=cfg.get("shape_buckets"))
-    mode = cfg.get("mode", "train")
+        cfg, device=device, mlp_tail=mlp_tail_from_env())
+    try:
+        trainer = Trainer(cfg, model, loss, train_data=train_data, val_data=val_data,
+                          metrics=metrics, shape_buckets=cfg.get("shape_buckets"))
+        return _run_mode(trainer, cfg.get("mode", "train"))
+    finally:
+        if distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run_mode(trainer, mode: str):
     if mode == "train":
         return trainer.fit()
     if mode == "validate":

@@ -8,10 +8,12 @@ vitslam_tpu/eval/orchestrator.py).
   width and overlap with GT alignment, prepared (``max_points_for_icp_full_seq``
   cap) and scored on the pipeline's device, with per-sequence key prefixes
   and plots when a ``log_dir`` is set;
-* the alignment diagnostics (``log_additional_data``).
+* the alignment diagnostics (``log_additional_data``);
+* in a gang of ranks, each metric's states are concatenated over all ranks
+  in rank order before ``compute`` (the reference's ``dist_reduce_fx="cat"``;
+  ``parallel.allgather_rows`` through each metric's ``gather_fn`` hook).
 
-Not ported yet, and raised rather than skipped: the gather of metric
-states across processes (the distributed slice) and the viser viewer.
+Not ported yet, and raised rather than skipped: the viser viewer.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from ..config.loader import instantiate
 from ..geometry import pose_encoding_to_extri, pose_encoding_to_extri_intri
+from ..parallel import allgather_rows, is_distributed
 from ..slam.chunking import normalize_extrinsics_and_points
 from .prepare import prepare_data_for_metrics
 from .trajectory import _np
@@ -82,14 +85,6 @@ def get_sequence_data(dataset, seq_index: int, seq_name: str, seq_num_frames: in
     return batch
 
 
-def _single_process() -> None:
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "Metrics across more than one process (the gather of metric states) is not "
-            "ported yet: it belongs to the distributed slice of the port (ROADMAP queue 1)")
-
-
 class Metrics:
     def __init__(self, mode: str = "test", overlap=(1, 1), chunk_width=(5, 5),
                  gt_alignment_type: str = "scale_from_poses",
@@ -99,7 +94,6 @@ class Metrics:
                  trajectory_metrics: Optional[list] = None,
                  reconstruction_metrics: Optional[list] = None, visualize: bool = False,
                  save_for_visualization: bool = False, log_dir: Optional[str] = None, **_):
-        _single_process()
         self.mode = mode
         first = lambda v: v[0] if isinstance(v, (list, tuple)) else v  # noqa: E731
         as_range = lambda v: tuple(v) if isinstance(v, (list, tuple)) else (v, v)  # noqa: E731
@@ -116,8 +110,18 @@ class Metrics:
         self.visualize = visualize
         self.save_for_visualization = save_for_visualization
         self.log_dir = log_dir
-        build = lambda entries: [instantiate(e) if isinstance(e, dict) else e  # noqa: E731
-                                 for e in entries or []]
+        # in a gang: concatenate metric states over every rank before compute
+        gather_fn = allgather_rows if is_distributed() else None
+
+        def build(entries):
+            out = []
+            for e in entries or []:
+                m = instantiate(e) if isinstance(e, dict) else e
+                if gather_fn is not None and getattr(m, "_gather", None) is None:
+                    m._gather = gather_fn
+                out.append(m)
+            return out
+
         self.trajectory_metrics = build(trajectory_metrics)
         self.reconstruction_metrics = build(reconstruction_metrics)
 

@@ -3,7 +3,8 @@ vitslam_tpu/eval/trajectory.py).
 
 The errors are computed in fp32 torch on the device the poses lie on; the
 metric states accumulate numpy arrays on the host and, in a run of several
-processes, would be gathered before ``compute`` (the ``gather_fn`` hook).
+processes, are gathered before ``compute`` (the ``gather_fn`` hook, which
+``eval.Metrics`` sets in a gang).
 """
 from __future__ import annotations
 

@@ -11,7 +11,9 @@ trainable tensors by name, the optimizer state and the step).
   stripped, a fallback checkpoint filling the names it lacks, then a strict
   check that every parameter was filled.
 
-JAX weights still come across through ``io/from_jax.py``.
+In a gang of ranks only rank 0 writes (the step checkpoints, the link and
+its removal); every rank may read. JAX weights still come across through
+``io/from_jax.py``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import os.path as osp
 from typing import Any, Optional
 
 import torch
+
+from ..parallel.mesh import rank
 
 
 def _to_host(tree):
@@ -66,6 +70,8 @@ class CheckpointManager:
         return self.save(step, tree)
 
     def save(self, step: int, tree: Any) -> str:
+        if rank() != 0:
+            return ""
         path = osp.join(self.save_dir, f"{self.exp_name}_step{step}.ckpt")
         save_checkpoint(path, tree)
         os.makedirs(self.latest_dir, exist_ok=True)
@@ -91,7 +97,7 @@ class CheckpointManager:
 
     def finish(self):
         """Delete the resume link on a clean finish."""
-        if osp.islink(self.latest_link) or osp.exists(self.latest_link):
+        if rank() == 0 and (osp.islink(self.latest_link) or osp.exists(self.latest_link)):
             os.remove(self.latest_link)
 
 

@@ -16,7 +16,12 @@ vitslam_tpu/models/aggregator.py).
 * optional KV merge of the global attention (``merge_pool`` p > 1 and
   ``merge_stride`` s): anchor frames (every s-th, frame 0 included) give all
   their tokens as keys/values, every other frame its special tokens plus its
-  patch tokens average-pooled p x p; queries stay at full resolution.
+  patch tokens average-pooled p x p; queries stay at full resolution;
+* ``seq_group`` (sequence parallelism, ``parallel/seq.py``): the S frames
+  are split over the group, so this rank holds frames
+  [rank * S, (rank + 1) * S) of the chunk; the global blocks gather their
+  keys and values over it, the first-frame token variant goes to global
+  frame 0 only, and the KV merge is off.
 
 The reference's ``lax.scan`` stacks are ``nn.ModuleList``s here.
 """
@@ -25,6 +30,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -36,11 +42,14 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def expand_frame_tokens(param: torch.Tensor, B: int, S: int) -> torch.Tensor:
+def expand_frame_tokens(param: torch.Tensor, B: int, S: int,
+                        frame_offset: int = 0) -> torch.Tensor:
     """(2, K, C) learned tokens -> (B*S, K, C): frame 0 takes variant 0,
-    every later frame variant 1."""
+    every later frame variant 1. ``frame_offset`` is the global index of
+    local frame 0 (nonzero only on a sequence-parallel rank past the first)."""
     idx = torch.ones(S, dtype=torch.long, device=param.device)
-    idx[0] = 0
+    if frame_offset == 0:
+        idx[0] = 0
     tokens = param[idx]  # (S, K, C)
     return tokens[None].expand((B,) + tokens.shape).reshape(B * S, *param.shape[1:])
 
@@ -111,13 +120,13 @@ class AggregatorLayer(nn.Module):
     """One frame-attention + global-attention pair."""
 
     def __init__(self, dim, num_heads, mlp_ratio, qk_norm, init_values,
-                 rope_base, dtype, device=None, mlp_tail: str = "off"):
+                 rope_base, dtype, device=None, mlp_tail: str = "off", seq_group=None):
         super().__init__()
         kw = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm, init_values=init_values,
                   rope="2d", rope_base=rope_base, dtype=dtype, device=device,
                   mlp_tail=mlp_tail)
         self.frame_block = Block(dim, num_heads, **kw)
-        self.global_block = Block(dim, num_heads, **kw)
+        self.global_block = Block(dim, num_heads, **kw, seq_group=seq_group)
 
     def forward(self, x, pos_frame, pos_global, B: int, S: int, merge=None):
         """x (B*S, T, C) -> (x', concat(frame_out, global_out) (B, S, T, 2C)).
@@ -154,9 +163,10 @@ class Aggregator(nn.Module):
                  init_values: float = 0.01, dtype=torch.bfloat16,
                  intermediate_layers: Sequence[int] = (4, 11, 17, 23),
                  merge_pool: int = 0, merge_stride: int = 1, device=None,
-                 mlp_tail: str = "off"):
+                 mlp_tail: str = "off", seq_group=None):
         super().__init__()
         self.merge_pool, self.merge_stride = merge_pool, merge_stride
+        self.seq_group = seq_group
         self.patch_size, self.embed_dim, self.num_heads = patch_size, embed_dim, num_heads
         self.num_register_tokens, self.rope_base = num_register_tokens, rope_base
         self.dtype, self.depth = dtype, depth
@@ -169,7 +179,7 @@ class Aggregator(nn.Module):
         self.register_token = _param(2, num_register_tokens, embed_dim, device=device)
         self.layers = nn.ModuleList(
             AggregatorLayer(embed_dim, num_heads, mlp_ratio, qk_norm, init_values,
-                            rope_base, dtype, device, mlp_tail)
+                            rope_base, dtype, device, mlp_tail, seq_group)
             for _ in range(depth))
 
     def init_params(self, g):
@@ -236,8 +246,10 @@ class Aggregator(nn.Module):
             patch_tokens = self.embed(images)
         x = patch_tokens.reshape(B * S, patch_tokens.shape[2], self.embed_dim).to(self.dtype)
         gh, gw = H // self.patch_size, W // self.patch_size
-        cam = expand_frame_tokens(self.camera_token, B, S).to(self.dtype)
-        reg = expand_frame_tokens(self.register_token, B, S).to(self.dtype)
+        sp = self.seq_group is not None
+        offset = dist.get_rank(self.seq_group) * S if sp else 0
+        cam = expand_frame_tokens(self.camera_token, B, S, offset).to(self.dtype)
+        reg = expand_frame_tokens(self.register_token, B, S, offset).to(self.dtype)
         x = torch.cat([cam, reg, x], dim=1)  # (B*S, T, C)
         T = x.shape[1]
 
@@ -252,7 +264,7 @@ class Aggregator(nn.Module):
         rope_f = (cos_f.to(self.dtype), sin_f.to(self.dtype), nsplit)
         rope_g = (cos_g.to(self.dtype), sin_g.to(self.dtype), nsplit)
         merge = None
-        if self.merge_pool > 1 and S > self.merge_stride:
+        if self.merge_pool > 1 and not sp and S > self.merge_stride:
             cos_kv, sin_kv, _ = self._merged_kv_rope(S, gh, gw, x.device)
             merge = (lambda y: self._merged_kv(y, B, S, gh, gw),
                      (cos_kv.to(self.dtype), sin_kv.to(self.dtype), nsplit))

@@ -96,11 +96,17 @@ class AlignmentHead(nn.Module):
     def forward(self, tokens: torch.Tensor, image_size: Tuple[int, int],
                 next_num_overlap: int, overlap_tokens: Optional[torch.Tensor] = None,
                 memory_tokens: Optional[torch.Tensor] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                batch_rows: Optional[Tuple[int, int]] = None):
         """tokens (B, S, P0, in_dim); overlap_tokens (B, T, 1+P0, embed_dim)
         or None (first chunk; detached on receipt); memory_tokens (B, M,
         dec_dim) or None; train: the non-overlap frame dropout, drawn from
-        ``generator`` (torch's default generator when None). Returns (chunk_sim3_enc (B, 1, 8), frame_se3_encs (B, S-1, 7),
+        ``generator`` (torch's default generator when None). batch_rows
+        (offset, total): these B rows are rows [offset, offset + B) of a
+        global batch of ``total`` split over data-parallel ranks; the
+        dropout draws the global batch's uniforms and keeps these rows, so
+        every rank draws what one process running the global batch would.
+        Returns (chunk_sim3_enc (B, 1, 8), frame_se3_encs (B, S-1, 7),
         memory_tokens (B, M, dec_dim) or None,
         new_overlap_tokens (B, 1+next_num_overlap, 1+P0, embed_dim))."""
         H, W = image_size
@@ -152,12 +158,12 @@ class AlignmentHead(nn.Module):
 
         chunk_sim3_enc, frame_se3_encs, memory_tokens = self._decode(
             x[:, :, 0, :].float(), memory_tokens, next_num_overlap,
-            train and not first_chunk, generator)
+            train and not first_chunk, generator, batch_rows)
         new_overlap = torch.cat([x[:, :1], x[:, S - next_num_overlap:]], dim=1)
         return chunk_sim3_enc, frame_se3_encs, memory_tokens, new_overlap
 
     def _decode(self, frame_tokens_in, memory_tokens, num_overlap: int, dropout: bool,
-                generator: Optional[torch.Generator]):
+                generator: Optional[torch.Generator], batch_rows=None):
         """fp32 decode of the alignment encodings; ``dropout``: drop the
         non-overlap frame tokens (a training continuation chunk)."""
         B, S, _ = frame_tokens_in.shape
@@ -203,8 +209,10 @@ class AlignmentHead(nn.Module):
         p = self.drop_prob_nonoverlap
         n_drop = S - 1 - num_overlap
         if dropout and p > 0.0 and n_drop > 1:
-            u = torch.rand((B, n_drop), generator=generator,
+            offset, total = batch_rows if batch_rows is not None else (0, B)
+            u = torch.rand((total, n_drop), generator=generator,
                            device=generator.device if generator is not None else dev)
+            u = u[offset:offset + B]
             keep = (u.to(dev) > p).float()[..., None]
             mask = torch.cat([keep, torch.ones((B, num_overlap, 1), device=dev)], dim=1)
             frame_toks = frame_toks * mask / (1.0 - p)

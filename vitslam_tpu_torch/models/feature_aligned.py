@@ -98,9 +98,10 @@ class FeatureAlignedVGGT(nn.Module):
     def align_chunk(self, raw: dict, images_shape, num_overlap: int,
                     context: Optional[FeatureAlignContext] = None,
                     gt_poses: Optional[torch.Tensor] = None, train: bool = False,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, batch_rows=None):
         """The sequential stage: AlignmentHead + fp32 pose/scale composition
-        over the raw outputs of :meth:`encode_chunks`."""
+        over the raw outputs of :meth:`encode_chunks`. ``batch_rows``: the
+        rows of a data-parallel global batch these are (``AlignmentHead``)."""
         B, S, _, H, W = images_shape
         # a remainder chunk can be narrower than the configured overlap
         overlap = num_overlap if S > num_overlap else S - 1
@@ -108,7 +109,8 @@ class FeatureAlignedVGGT(nn.Module):
         ctx_memory = (context.memory_tokens
                       if (context is not None and self.enable_memory) else None)
         chunk_sim3_enc, frame_se3_enc, memory_tokens, overlap_tokens = self.alignment_head(
-            raw["last_tap"], (H, W), overlap, ctx_tokens, ctx_memory, train, generator)
+            raw["last_tap"], (H, W), overlap, ctx_tokens, ctx_memory, train, generator,
+            batch_rows)
 
         chunk_se3 = pose_encoding_to_extri(chunk_sim3_enc)    # (B,1,4,4)
         chunk_scale = chunk_sim3_enc[..., -1]                 # (B,1)

@@ -7,6 +7,9 @@ previous chunk's last ``overlap`` aligned point maps by IRLS-Umeyama
 (confidence sqrt(c1 * c2), median threshold, Huber delta 0.1, 20 fixed
 iterations, batched over B); the Sim(3) then moves the chunk's point maps
 and w2c poses, and scales its depth.
+
+``seq_group``: the sequence-parallel encode (``parallel/seq.py``), passed to
+VGGTCore; the alignment stage runs on the gathered outputs.
 """
 from __future__ import annotations
 
@@ -35,8 +38,9 @@ class PointAlignedVGGT(nn.Module):
                  enable_point: bool = True, enable_track: bool = False,
                  dpt_frames_chunk: int = 0, global_merge_pool: int = 0,
                  global_merge_stride: int = 1, dtype=torch.bfloat16, device=None,
-                 mlp_tail: str = "off"):
+                 mlp_tail: str = "off", seq_group=None):
         super().__init__()
+        self.seq_group = seq_group
         if not enable_point:
             raise ValueError("the point-aligned variant needs the point head")
         self.enable_camera, self.enable_depth = enable_camera, enable_depth
@@ -48,7 +52,7 @@ class PointAlignedVGGT(nn.Module):
             enable_point=True, enable_track=enable_track,
             dpt_frames_chunk=dpt_frames_chunk, global_merge_pool=global_merge_pool,
             global_merge_stride=global_merge_stride, dtype=dtype, device=device,
-            mlp_tail=mlp_tail)
+            mlp_tail=mlp_tail, seq_group=seq_group)
 
     def embed_frames(self, images: torch.Tensor) -> torch.Tensor:
         """Per-frame patch embedding (the pipeline's unique-frame dedup)."""

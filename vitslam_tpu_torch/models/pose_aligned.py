@@ -7,6 +7,9 @@ chunk's translations take a least-squares scale against the GT's
 first-frame-centred positions; the inter-chunk SE(3) is the mean over the
 overlap of inv(current) @ previous (Markley quaternion averaging for more
 than one overlap frame); point maps follow the first frame's pose.
+
+``seq_group``: the sequence-parallel encode (``parallel/seq.py``), passed to
+VGGTCore; the alignment stage runs on the gathered outputs.
 """
 from __future__ import annotations
 
@@ -44,8 +47,9 @@ class PoseAlignedVGGT(nn.Module):
                  enable_point: bool = False, enable_track: bool = False,
                  dpt_frames_chunk: int = 0, global_merge_pool: int = 0,
                  global_merge_stride: int = 1, dtype=torch.bfloat16, device=None,
-                 mlp_tail: str = "off"):
+                 mlp_tail: str = "off", seq_group=None):
         super().__init__()
+        self.seq_group = seq_group
         if not enable_camera:
             raise ValueError("the pose-aligned variant needs the camera head")
         self.enable_depth, self.enable_point = enable_depth, enable_point
@@ -57,7 +61,7 @@ class PoseAlignedVGGT(nn.Module):
             enable_point=enable_point, enable_track=enable_track,
             dpt_frames_chunk=dpt_frames_chunk, global_merge_pool=global_merge_pool,
             global_merge_stride=global_merge_stride, dtype=dtype, device=device,
-            mlp_tail=mlp_tail)
+            mlp_tail=mlp_tail, seq_group=seq_group)
 
     def embed_frames(self, images: torch.Tensor) -> torch.Tensor:
         """Per-frame patch embedding (the pipeline's unique-frame dedup)."""

@@ -3,14 +3,22 @@ variants (port of vitslam_tpu/models/vggt_core.py): an Aggregator plus
 optional CameraHead / DPTHead(depth) / DPTHead(point). The TrackHead is not
 ported (every reference config disables it). ``mlp_tail`` picks the
 backbone blocks' fused tail sites (``nn.layers.Block``); the heads never
-take it."""
+take it.
+
+``seq_group`` (sequence parallelism, ``parallel/seq.py``): the encode runs
+on this rank's slice of the chunk's frames. The backbone gathers keys and
+values in its global blocks; the camera head, which attends across frames,
+gathers the S camera tokens, runs replicated and returns the local frames,
+so every output of the encode is the local frame slice."""
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..parallel.mesh import all_gather
 from .aggregator import Aggregator
 from .camera_head import CameraHead
 from .dpt_head import DPTHead
@@ -27,18 +35,20 @@ class VGGTCore(nn.Module):
                  dpt_out_channels: Sequence[int] = (256, 512, 1024, 1024),
                  dpt_frames_chunk: int = 0, camera_trunk_depth: int = 4,
                  global_merge_pool: int = 0, global_merge_stride: int = 1,
-                 dtype=torch.bfloat16, device=None, mlp_tail: str = "off"):
+                 dtype=torch.bfloat16, device=None, mlp_tail: str = "off",
+                 seq_group=None):
         super().__init__()
         if enable_track:
             raise NotImplementedError("the TrackHead is not ported yet")
         self.dpt_frames_chunk = dpt_frames_chunk
+        self.seq_group = seq_group
         self.aggregator = Aggregator(
             img_size=img_size, patch_size=patch_size, embed_dim=embed_dim,
             depth=depth, num_heads=num_heads, patch_embed_depth=patch_embed_depth,
             patch_embed_heads=patch_embed_heads,
             intermediate_layers=intermediate_layers, merge_pool=global_merge_pool,
             merge_stride=global_merge_stride, dtype=dtype, device=device,
-            mlp_tail=mlp_tail)
+            mlp_tail=mlp_tail, seq_group=seq_group)
         dim_in = 2 * embed_dim
         dpt = dict(dim_in=dim_in, features=dpt_features,
                    out_channels=tuple(dpt_out_channels), patch_size=patch_size,
@@ -63,7 +73,13 @@ class VGGTCore(nn.Module):
 
     def decode_camera(self, taps) -> list[torch.Tensor]:
         """-> list over refinement iterations of (B, S, 9) fp32 encodings."""
-        return self.camera_head(taps[-1][:, :, 0, :])
+        camera_tokens = taps[-1][:, :, 0, :]
+        if self.seq_group is None:
+            return self.camera_head(camera_tokens)
+        s = camera_tokens.shape[1]
+        i = dist.get_rank(self.seq_group)
+        encs = self.camera_head(all_gather(camera_tokens, self.seq_group, dim=1))
+        return [e[:, i * s:(i + 1) * s] for e in encs]
 
     def decode_depth(self, taps, images, patch_start_idx):
         return self._decode_dpt(self.depth_head, taps, images, patch_start_idx)

@@ -15,12 +15,14 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import ROUTE_COUNTS, attention_route, scaled_dot_product_attention
 from ..ops.fused_attention import flat_flash_attention, fused_qkv_attention
 from ..ops.mlp_tail import mlp_tail
+from ..parallel.mesh import all_gather
 from .rope import apply_rope_1d, apply_rope_2d, apply_rope_cached, apply_rope_flat
 
 # default softmax shift of the bounded-logit path; raised to the provable
@@ -268,15 +270,22 @@ class Attention(nn.Module):
     ``flat_flash_attention`` (K2); the flash route goes to K3. With
     ``tail=(res, ls_gamma, ln_scale, ln_bias)`` the output projection,
     LayerScale, residual add and the following LayerNorm run in K5 on every
-    route, and the call returns (x', LN(x'))."""
+    route, and the call returns (x', LN(x')).
+
+    ``seq_group`` (sequence parallelism, ``parallel/seq.py``): the tokens
+    are split over this process group in rank order; the LayerNormed and
+    rotated keys and values are gathered over it, the queries stay local,
+    and the route follows the gathered key count (never K1, which reads
+    q, k and v from one packed projection)."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = True,
                  proj_bias: bool = True, qk_norm: bool = True,
                  rope: Optional[str] = None, rope_base: float = 100.0,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, seq_group=None):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.qk_norm, self.rope, self.rope_base = qk_norm, rope, rope_base
+        self.seq_group = seq_group
         dh = dim // num_heads
         self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype, device)
         if qk_norm:
@@ -306,9 +315,10 @@ class Attention(nn.Module):
         qkv_k = self.qkv(kv) if kv is not None else qkv
         if pos_kv is None:
             pos_kv = pos
-        nk = qkv_k.shape[1]
+        sp = self.seq_group is not None
+        nk = qkv_k.shape[1] * (dist.get_world_size(self.seq_group) if sp else 1)
         fast = self.qk_norm and _is_rope_cache(pos) and _is_rope_cache(pos_kv)
-        fusable = kv is None and (
+        fusable = kv is None and not sp and (
             fast or (not self.qk_norm and self.rope is None and pos is None))
         route = attention_route(N, nk, fusable=fusable, fast=fast)
         ROUTE_COUNTS[route] += 1
@@ -328,6 +338,8 @@ class Attention(nn.Module):
             k = apply_rope_flat(self.k_norm(qkv_k[..., C:2 * C], flat=True), cos_k, sin_k,
                                 h, nsplit_k)
             v = qkv_k[..., 2 * C:]
+            if sp:  # prepped once, so the gather carries LN + RoPE with it
+                k, v = (all_gather(t, self.seq_group, dim=1) for t in (k, v))
             static_max = qk_shift_from(*self._norm_params(), dh)
             if route == "flat":
                 # prepped once in the flat layout, streamed with no relayout
@@ -342,6 +354,8 @@ class Attention(nn.Module):
                 q, k = self.q_norm(q), self.k_norm(k)
                 static_max = qk_shift_from(*self._norm_params(), dh)
             q, k = _apply_rope(q, k, pos, pos_kv, self.rope, self.rope_base)
+            if sp:
+                k, v = (all_gather(t, self.seq_group, dim=2) for t in (k, v))
         out = scaled_dot_product_attention(q, k, v, route=route, static_max=static_max)
         return self._proj(out.transpose(1, 2).reshape(B, N, C), tail)
 
@@ -396,20 +410,22 @@ class Block(nn.Module):
     + LayerScale + residual + norm2 (the LayerNorm's variance then is the
     centered one, not ``ln_apply``'s E[x^2] - E[x]^2), "mlp" fuses gelu +
     fc2 + LayerScale + residual. The frozen backbone's blocks take it; the
-    parameters are the same either way."""
+    parameters are the same either way. ``seq_group``: the attention's
+    (``Attention``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, proj_bias: bool = True,
                  qk_norm: bool = True, init_values: Optional[float] = None,
                  rope: Optional[str] = None, rope_base: float = 100.0,
-                 dtype=torch.float32, device=None, mlp_tail: str = "off"):
+                 dtype=torch.float32, device=None, mlp_tail: str = "off",
+                 seq_group=None):
         super().__init__()
         if mlp_tail not in TAIL_SITES:
             raise ValueError(f"mlp_tail must be one of {sorted(TAIL_SITES)}, got {mlp_tail!r}")
         self.dtype, self.tail_sites = dtype, TAIL_SITES[mlp_tail]
         self.norm1 = LayerNorm(dim, dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, proj_bias, qk_norm,
-                              rope, rope_base, dtype, device)
+                              rope, rope_base, dtype, device, seq_group)
         self.norm2 = LayerNorm(dim, dtype, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, device=device)
         if init_values is not None:

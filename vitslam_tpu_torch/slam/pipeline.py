@@ -17,6 +17,15 @@ alignment ran; only the fixed-size context state stays on the device. The
 GT alignment (``slam/gt_alignment.py``) runs on the host outputs:
 ``per_chunk_scale_from_poses`` per chunk before the merge, every other type
 on the merged predictions.
+
+Chunk-parallel serving (``mesh``, a ``parallel.Mesh``): the two-stage
+driver, which a mesh always takes, splits each stacked encode group over
+the mesh's data ranks (chunks are independent, so the encode needs no
+communication), pads a tail group by repeating its last chunk, gathers the
+raw outputs over the data group and drops the padding; every rank then
+runs the sequential alignment over all chunks, so every rank returns the
+same predictions. The unique-frame embed dedup is off under a mesh, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 
 from ..geometry import pad_to_4x4
+from ..parallel.mesh import all_gather
 from .chunking import chunk_batch, generate_chunks, merge_chunk_outputs
 from .gt_alignment import align_outputs, per_chunk_scale_from_poses
 
@@ -31,9 +41,13 @@ from .gt_alignment import align_outputs, per_chunk_scale_from_poses
 class ChunkedPipeline:
     """Drives a chunk-aligned model over an arbitrary-length sequence."""
 
-    def __init__(self, model, encode_batch: int = 1):
+    def __init__(self, model, encode_batch: int = 1, mesh=None):
         self.model = model
         self.encode_batch = encode_batch
+        self.mesh = mesh
+        if mesh is not None and encode_batch % mesh.size("data"):
+            raise ValueError(f"encode_batch {encode_batch} must be a multiple of the 'data' "
+                             f"mesh axis size {mesh.size('data')}")
 
     @property
     def device(self) -> torch.device:
@@ -64,7 +78,7 @@ class ChunkedPipeline:
         use_gt = sample_mode in ("chunk_gt", "two_chunks")
 
         raw_per_chunk = None
-        if self.encode_batch > 1:
+        if self.encode_batch > 1 or self.mesh is not None:
             raw_per_chunk = self._encode_all(chunks, indices, images)
 
         state = None
@@ -94,7 +108,7 @@ class ChunkedPipeline:
         """Stage 1 of the two-stage driver: batch same-shape chunks along B,
         run the chunk-independent encode, split the raw outputs per chunk."""
         raws: list = [None] * len(chunks)
-        dedup = chunks[0]["images"].shape[0] == 1
+        dedup = self.mesh is None and chunks[0]["images"].shape[0] == 1
         i = 0
         while i < len(chunks):
             shape = tuple(chunks[i]["images"].shape)
@@ -102,7 +116,12 @@ class ChunkedPipeline:
             while (len(group) < self.encode_batch and i + len(group) < len(chunks)
                    and tuple(chunks[i + len(group)]["images"].shape) == shape):
                 group.append(i + len(group))
-            stacked = torch.cat([self._to_device(chunks[g]["images"]) for g in group])
+            imgs = [self._to_device(chunks[g]["images"]) for g in group]
+            if self.mesh is not None:
+                # a tail group is padded to a multiple of the data axis by
+                # repeating its last chunk (dropped after the gather)
+                imgs += [imgs[-1]] * ((-len(imgs)) % self.mesh.size("data"))
+            stacked = torch.cat(imgs)
 
             tokens = None
             if dedup:
@@ -114,9 +133,21 @@ class ChunkedPipeline:
                     tok = emb[0][torch.as_tensor(inv, device=emb.device)]
                     tokens = tok.reshape(len(group), shape[1], *tok.shape[1:])
 
-            raw = self.model.encode_chunks(stacked, tokens)
+            if self.mesh is None:
+                raw = self.model.encode_chunks(stacked, tokens)
+            else:
+                raw = self._encode_sharded(stacked)
             B = shape[0]
             for k, g in enumerate(group):
                 raws[g] = {key: v[k * B:(k + 1) * B] for key, v in raw.items()}
             i += len(group)
         return raws
+
+    def _encode_sharded(self, stacked: torch.Tensor) -> dict:
+        """The encode of a stacked group split over the data ranks: this
+        rank's contiguous share of the rows, then the raw outputs of every
+        rank gathered back in stacking order."""
+        n, i = self.mesh.size("data"), self.mesh.index("data")
+        rows = stacked.shape[0] // n
+        raw = self.model.encode_chunks(stacked[i * rows:(i + 1) * rows])
+        return {k: all_gather(v, self.mesh.group("data"), dim=0) for k, v in raw.items()}

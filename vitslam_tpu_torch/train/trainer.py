@@ -3,15 +3,25 @@
 validity rules (or from ``shape_buckets``), first-frame GT normalisation,
 chunking, the train step, CSV logging, and checkpoints with resume through
 the ``_latest`` link. Seeding as in the reference: numpy draws from
-``(seed + rank) * max_steps`` (rank 0 here), the dropout and loss draws
-from a ``torch.Generator`` seeded with ``seed + rank``.
+``(seed + node) * max_steps``, the dropout and loss draws from a
+``torch.Generator`` seeded with ``seed + node``, where ``node`` is
+``parallel.node_index()`` (the counterpart of ``jax.process_index()``).
 
 ``train_data`` is any object whose ``get_loader(epoch)`` yields batches of
 numpy arrays. ``validate`` (every ``val_epoch_freq`` steps) and ``test`` run
 ``ChunkedPipeline.run_sequence`` with GT alignment and score it with the
-``eval.Metrics`` orchestrator, logging through the CSV logger. More than
-one device or model shard and the orbax checkpoint backend belong to the
-distributed slice and raise NotImplementedError.
+``eval.Metrics`` orchestrator, logging through the CSV logger.
+
+Data parallelism: in a gang of more than one rank (``parallel``; the CLI's
+``--num_devices``), the trainer lays the ranks out as a data mesh. The
+ranks of a node share their node's seed, so they draw the same global
+batch and chunk shapes; each takes its rows when B divides over the data
+axis, else the whole batch (``train_step``), and the step's loss is the
+global batch's. Every rank of the data group must draw the same chunk
+shapes (a step checks it). Logging and checkpoint writes happen on rank 0.
+Tensor parallelism (``num_model_shards`` > 1) and the orbax (sharded)
+checkpoint backend belong to part 2 of the distributed slice and raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,6 +31,15 @@ import numpy as np
 import torch
 
 from ..io.checkpoint import CheckpointManager, load_checkpoint
+from ..parallel import (
+    allgather_rows,
+    is_distributed,
+    make_mesh,
+    node_index,
+    rank,
+    replicate,
+    shard_batch,
+)
 from ..slam import ChunkedPipeline, chunk_batch, generate_chunks, merge_chunk_outputs
 from ..slam.chunking import normalize_extrinsics_and_points
 from .logging_utils import CSVLogger, StepProgress
@@ -48,9 +67,9 @@ def sample_chunk_shapes(rng: np.random.Generator, S: int, chunk_width_range, ove
     return w, o
 
 
-def _later_slice(what: str, slice_name: str):
-    raise NotImplementedError(f"{what} is not ported yet: it belongs to the {slice_name} "
-                              "slice of the port (ROADMAP queue 1)")
+def _part_2(what: str):
+    raise NotImplementedError(f"{what} is not ported yet: it belongs to part 2 of the "
+                              "distributed slice of the port (ROADMAP queue 1)")
 
 
 class Trainer:
@@ -64,11 +83,17 @@ class Trainer:
         self.metrics = metrics
         self.shape_buckets = shape_buckets
 
-        if int(cfg.get("num_devices", 0)) > 1 or int(cfg.get("num_model_shards", 1)) > 1:
-            _later_slice("training on more than one device", "distributed")
+        if int(cfg.get("num_model_shards", 1)) > 1:
+            _part_2("tensor parallelism (num_model_shards > 1)")
         ckpt_cfg = cfg.get("checkpoint", {})
         if str(ckpt_cfg.get("backend", "msgpack")) == "orbax":
-            _later_slice("the orbax (sharded) checkpoint backend", "distributed")
+            _part_2("the orbax (sharded) checkpoint backend")
+        # one data mesh over every rank of the gang (the reference's mesh
+        # over all devices); a single process has none
+        self.mesh = make_mesh(n_model=1) if is_distributed() else None
+        if int(cfg.get("num_devices", 0)) > 1 and self.mesh is None:
+            raise RuntimeError("num_devices > 1 needs a gang of ranks: launch with "
+                               "python -m vitslam_tpu_torch.cli --num_devices N")
 
         self.max_steps = int(cfg.get("max_steps", 1000))
         self.sample_mode = cfg.get("sample_mode", "chunk_overlap")
@@ -103,9 +128,11 @@ class Trainer:
         self.resume = bool(ckpt_cfg.get("resume_from_checkpoint", False))
 
         self.seed = int(cfg.get("seed_value", 42))
-        rank = 0
-        self.rng_np = np.random.default_rng((self.seed + rank) * self.max_steps)
-        self.generator = torch.Generator().manual_seed(self.seed + rank)
+        # node-offset seeding: the ranks of a node stand for the devices of
+        # one reference process and draw one global batch
+        node = node_index()
+        self.rng_np = np.random.default_rng((self.seed + node) * self.max_steps)
+        self.generator = torch.Generator().manual_seed(self.seed + node)
         self.state: Optional[TrainState] = None
         self.schedule = None
         self._step_cache: dict = {}
@@ -123,6 +150,8 @@ class Trainer:
         trainable = freeze_params(self.model, self.freeze_patterns)
         optimizer, self.schedule = build_optimizer(trainable, **self.optim_kwargs)
         self.state = TrainState(trainable=trainable, optimizer=optimizer, step=0)
+        if self.mesh is not None:
+            replicate(trainable, self.mesh)
         if self.resume:
             path = self.ckpt.resume_path()
             if path:
@@ -148,7 +177,8 @@ class Trainer:
         if num_overlap not in self._step_cache:
             self._step_cache[num_overlap] = make_train_step(
                 self.model, self.loss, num_overlap, gt_alignment_type=self.gt_alignment_type,
-                use_gt_poses=self.sample_mode in ("chunk_gt", "two_chunks"))
+                use_gt_poses=self.sample_mode in ("chunk_gt", "two_chunks"),
+                data_group=None if self.mesh is None else self.mesh.group("data"))
         return self._step_cache[num_overlap]
 
     @staticmethod
@@ -174,6 +204,11 @@ class Trainer:
         chunks_np = chunk_batch({k: v for k, v in batch.items() if isinstance(v, np.ndarray)},
                                 indices)
         merged_np = merge_chunk_outputs(chunks_np, 0)
+        # the chunks: this rank's rows when the batch divides over the data
+        # axis, else all of them; the merged GT is the global batch's
+        B = batch["images"].shape[0]
+        if self.mesh is not None and B % self.mesh.size("data") == 0:
+            chunks_np = [shard_batch(c, self.mesh) for c in chunks_np]
         dev = self.device
         put = lambda d: {k: torch.as_tensor(v, device=dev) for k, v in d.items()}  # noqa: E731
         return tuple(put(c) for c in chunks_np), put(merged_np)
@@ -192,10 +227,12 @@ class Trainer:
             S = batch["images"].shape[1]
             width, overlap = sample_chunk_shapes(self.rng_np, S, self.chunk_width_range,
                                                  self.overlap_range, self.shape_buckets)
+            if self.mesh is not None:
+                self._check_same_shapes(step, batch["images"].shape, width, overlap)
             chunks, merged = self._prepare_chunks(batch, width, overlap)
             self.state, metrics = self._get_step_fn(overlap)(self.state, chunks, merged,
                                                              self.generator)
-            if step % self.log_freq == 0:
+            if step % self.log_freq == 0 and rank() == 0:
                 host = {k: float(v) for k, v in metrics.items()}
                 host["train/chunk_width"] = width
                 host["train/chunk_overlap"] = overlap
@@ -207,6 +244,15 @@ class Trainer:
             self.ckpt.maybe_save(step + 1, self.state_dict())
         self.ckpt.finish()
         return self.state
+
+    def _check_same_shapes(self, step: int, images_shape, width: int, overlap: int) -> None:
+        """Every rank of the data group must run the step on one batch shape
+        and one (width, overlap): the predictions are gathered over it."""
+        mine = np.asarray([[*images_shape, width, overlap]])
+        every = allgather_rows(mine, self.mesh.group("data"))
+        if (every != mine).any():
+            raise ValueError(f"step {step}: the data-parallel ranks drew different batch "
+                             f"shapes / (width, overlap): {every.tolist()}")
 
     def current_params(self) -> dict:
         """name -> parameter of the model (trained and frozen)."""
@@ -242,7 +288,8 @@ class Trainer:
         batch_metrics, seq_metrics = self.metrics(preds, merged, pipeline,
                                                   self.val_data.datasets)
         out = {**val_losses, **batch_metrics, **seq_metrics}
-        self.logger.log_metrics({f"val/{k}": v for k, v in out.items()}, step)
+        if rank() == 0:
+            self.logger.log_metrics({f"val/{k}": v for k, v in out.items()}, step)
         return out
 
     def test(self) -> dict:
@@ -255,5 +302,6 @@ class Trainer:
         seq_metrics = self.metrics.compute_full_sequence_metrics(
             self.val_data.datasets, ChunkedPipeline(self.model),
             rng=np.random.default_rng(self.seed))
-        self.logger.log_metrics(seq_metrics, 0)
+        if rank() == 0:
+            self.logger.log_metrics(seq_metrics, 0)
         return seq_metrics
