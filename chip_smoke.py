@@ -24,7 +24,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 (bf16, K1) and on the CPU (fp32, plain math), same weights.
 5. slice 5/1  — the flagship FeatureAlignedVGGT (seeded random weights) over
                 a synthetic 17-frame 518x154 sequence, chunk 5 / overlap 1,
-                sequential and two-stage (encode_batch=4) drivers.
+                sequential and two-stage (encode_batch=4) drivers; each
+                driver (which fetches a chunk's outputs one chunk behind
+                on a side stream) bit-equal to the same work with a
+                blocking .cpu() after every chunk, its device idle share
+                from one torch.profiler window, and the host syncs left in
+                the sequential driver's chunks (torch's sync debug mode).
+   checkpoints — the reference's checkpoint format (flax msgpack, written
+                here by write_flax_checkpoint: the machine has no flax):
+                the flagship's AlignmentHead as model_checkpoint_path over
+                the whole flagship (5.3 GB) under "model" as the fallback,
+                loaded by load_model_params into a flagship seeded otherwise:
+                every parameter and the 5/1 sequential run bit-equal to
+                phase 5's.
 6. merge 5/1  — the same with the KV merge at pool 2 / stride 2: the global
                 attention goes to K3 (1,474 keys), never K1.
 7. slice 75/30— the flagship point-aligned and pose-aligned models over a
@@ -44,7 +56,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 weights, a synthetic 40-frame 518x154 GT batch), 3 steps
                 each: the shipped temporal head at bucket (10, 2), and the
                 global head at bucket (20, 5), whose global attention over
-                8,260 / 10,738 / 6,608 tokens runs K3 with lse forward and K4
+                8,260 / 10,738 / 6,608 tokens runs K3 with lse forward (twice:
+                the head's blocks are recomputed in the backward) and K4
                 backward; then one step's head gradients through the kernels
                 held against the same step on plain attention.
 10. tail 5/1   — flagship(mlp_tail="both") over the 17-frame 5/1 sequence,
@@ -89,9 +102,13 @@ is a JSON summary of the kernels; the last line is {"ok": true, "device":
 """
 from __future__ import annotations
 
+import collections
 import gc
+import io
 import json
+import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -940,10 +957,287 @@ def phase_slice(smi: str) -> tuple[dict, dict]:
     bad = {k: v for k, v in errs.items() if not v <= DRIVER_RTOL}
     if bad:
         raise AssertionError(f"slice 5/1: drivers disagree: {bad}")
+    _check_async_fetch(model, batch, outs, stats, smi)
     sequential = outs["sequential"]
     del model, outs
     _release()
     return {f"slice 5/1 {label}": st for label, st in stats.items()}, sequential
+
+
+def _blocking_fetch_run(model, batch: dict, width: int, overlap: int, encode_batch: int):
+    """The driver's work with the fetch it had before: chunk by chunk,
+    ChunkedPipeline.step (two-stage: the driver's stacked encode, then
+    align_chunk), each chunk's outputs copied with .cpu() before the next
+    chunk is queued; merged as run_sequence merges them."""
+    import torch
+
+    from vitslam_tpu_torch.slam import ChunkedPipeline
+    from vitslam_tpu_torch.slam.chunking import chunk_batch, generate_chunks, merge_chunk_outputs
+
+    pipe = ChunkedPipeline(model, encode_batch=encode_batch)
+    indices = generate_chunks(batch["images"].shape[1], "chunk_overlap", width, overlap)
+    chunks = chunk_batch(batch, indices)
+    outs, state = [], None
+    with torch.inference_mode():
+        raws = pipe._encode_all(chunks, indices, batch["images"]) if encode_batch > 1 else None
+        for i, chunk in enumerate(chunks):
+            if raws is None:
+                out, state = pipe.step(chunk["images"], overlap, state)
+            else:
+                out, state = model.align_chunk(raws[i], tuple(chunk["images"].shape), overlap,
+                                               state)
+            outs.append({k: v.cpu() for k, v in out.items()})
+    return merge_chunk_outputs(outs, overlap)
+
+
+def _host_syncs(fn) -> collections.Counter:
+    """The host-device synchronisations ``fn()`` makes, by the port's
+    call sites (innermost first), as torch's sync debug mode reports them."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if "vitslam_tpu_torch" in f.filename]
+        frames = ours[-4:] if ours else stack[-3:]
+        sites[" <- ".join(f"{Path(f.filename).name}:{f.lineno}" for f in reversed(frames))] += 1
+
+    # the hook goes in after the mode is set: setting it may warn that the
+    # mode is experimental, which is no sync
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():  # restores showwarning on exit
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def _check_async_fetch(model, batch: dict, outs: dict, stats: dict, smi: str):
+    """Both drivers, which fetch each chunk's outputs one chunk behind on a
+    side stream, bit-equal to the same work with a blocking .cpu() after
+    every chunk; one torch.profiler window of each for the device's idle
+    share; and the host syncs left inside the sequential driver's chunks."""
+    import shutil
+    import tempfile
+
+    from vitslam_tpu_torch.profile_slice import profile_run
+    from vitslam_tpu_torch.slam import ChunkedPipeline
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_profile_"))
+    try:
+        for label, eb in (("sequential", 1), ("encode_batch=4", 4)):
+            ref = _blocking_fetch_run(model, batch, 5, 1, eb)
+            equal = {k: _same_tensor(outs[label][k], ref[k]) for k in ref}
+            if not all(equal.values()) or set(ref) != set(outs[label]):
+                raise AssertionError(f"slice 5/1 {label}: the one-behind fetch differs from the "
+                                     f"blocking fetch: {equal}")
+            pipe = ChunkedPipeline(model, encode_batch=eb)
+            prof = profile_run(lambda: pipe.run_sequence(batch, chunk_width=5, num_overlap=1),
+                               tmp, label.replace("=", ""))
+            unprofiled = stats[label]["seconds"]
+            idle = 1.0 - prof["busy_s"] / unprofiled
+            stats[label].update(idle_share=idle, profiled=prof)
+            print(f"[slice 5/1 {label}] one-behind fetch bit-equal to step + .cpu() per chunk "
+                  f"({len(ref)} outputs); {stats[label]['fps']:.2f} new-frames/s; profiler "
+                  f"window: {prof['kernels']} kernels, device busy {prof['busy_s'] * 1e3:.1f} ms "
+                  f"of {prof['wall_s'] * 1e3:.1f} ms profiled wall (idle "
+                  f"{prof['idle_share']:.1%}), of the unprofiled run's {unprofiled * 1e3:.1f} ms: "
+                  f"idle share {idle:.1%}; on {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pipe = ChunkedPipeline(model)
+    sites = _host_syncs(lambda: pipe.run_sequence(batch, chunk_width=5, num_overlap=1))
+    n_chunks = outs["sequential"]["chunk_sim3_enc"].shape[1]
+    stats["sequential"]["host_syncs"] = dict(sites)
+    print(f"[slice 5/1 sequential] host syncs in a {n_chunks}-chunk run (torch sync debug "
+          f"mode): {sum(sites.values())}" + "".join(f"\n    {n:4d}  {site}"
+                                                   for site, n in sites.most_common()))
+
+
+def _same_tensor(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+# The reference's checkpoint format, written here because the machine with
+# the card has neither flax nor msgpack: the inverse of the port's reader
+# (io/flax_msgpack.py) and of its layout half (io/from_jax.py). A port
+# parameter name goes back to the flax variable path: a leading "params",
+# "kernel" (Dense (in, out), Conv (kh, kw, in, out)) or LayerNorm "scale"
+# for "weight", the patch embed's scanned "blocks.<i>." as
+# "blocks/block", and per-layer entries of a "layers" / "blocks" scan
+# stacked on a leading depth axis.
+_SCAN = re.compile(r"^(.*\.(?:layers|blocks))\.(\d+)\.(.*)$")
+MAX_LEAF_BYTES = 2 ** 30  # flax's MAX_CHUNK_SIZE: larger leaves it splits
+
+
+def flax_tree(model) -> dict:
+    """The reference's variable tree ({"params": ...}, numpy leaves on the
+    host) holding ``model``'s parameters."""
+    stacks, flat = {}, {}
+    for name, p in model.named_parameters():
+        x = p.detach().cpu().numpy()
+        head, _, leaf = name.rpartition(".")
+        if leaf == "weight":
+            leaf = "kernel" if x.ndim in (2, 4) else "scale"
+            x = x.T if x.ndim == 2 else (np.transpose(x, (2, 3, 1, 0)) if x.ndim == 4 else x)
+        path = f"params.{head}.{leaf}" if head else f"params.{leaf}"
+        m = _SCAN.match(path)
+        if m:
+            prefix, i, rest = m.groups()
+            if prefix.endswith(".blocks"):
+                rest = f"block.{rest}"
+            stacks.setdefault(f"{prefix}.{rest}", {})[int(i)] = x
+        else:
+            flat[path] = x
+    for key, layers in stacks.items():
+        flat[key] = np.stack([layers[i] for i in range(len(layers))])
+    tree: dict = {}
+    for key, x in flat.items():
+        *parents, leaf = key.split(".")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        # (np.ascontiguousarray would make a 0-d leaf 1-d)
+        node[leaf] = x if x.flags.c_contiguous else x.copy(order="C")
+    return tree
+
+
+def _pack_len(f, n: int, small: int, codes) -> None:
+    """A msgpack header: the fix form below ``small`` or the 8/16/32-bit one."""
+    if small and n < small:
+        f.write(bytes([codes[0] | n]))
+        return
+    for code, fmt, limit in zip(codes[1:], (">B", ">H", ">I"), (2 ** 8, 2 ** 16, 2 ** 32)):
+        if code is not None and n < limit:
+            f.write(bytes([code]) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_str(f, text: str) -> None:
+    data = text.encode()
+    _pack_len(f, len(data), 32, (0xa0, 0xd9, 0xda, 0xdb))
+    f.write(data)
+
+
+def _pack_uint(n: int) -> bytes:
+    if n < 128:
+        return bytes([n])
+    for code, fmt, limit in ((0xcc, ">B", 2 ** 8), (0xcd, ">H", 2 ** 16),
+                             (0xce, ">I", 2 ** 32), (0xcf, ">Q", 2 ** 64)):
+        if n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(n)
+
+
+def _pack_tree(f, node) -> None:
+    if isinstance(node, dict):
+        _pack_len(f, len(node), 16, (0x80, None, 0xde, 0xdf))
+        for key, value in node.items():
+            _pack_str(f, key)
+            _pack_tree(f, value)
+        return
+    x = node
+    if x.nbytes > MAX_LEAF_BYTES:
+        raise ValueError(f"a leaf of {x.nbytes} bytes: flax would write it in chunks")
+    # ext 1: msgpack (shape, dtype name, C-order bytes)
+    shape = bytes([0x90 | x.ndim]) if x.ndim < 16 else bytes([0xdc]) + struct.pack(">H", x.ndim)
+    shape += b"".join(_pack_uint(d) for d in x.shape)
+    name = x.dtype.name.encode()
+    inner = bytearray(b"\x93" + shape + bytes([0xa0 | len(name)]) + name)
+    with io.BytesIO() as b:
+        _pack_len(b, x.nbytes, 0, (None, 0xc4, 0xc5, 0xc6))
+        inner += b.getvalue()
+    n = len(inner) + x.nbytes
+    fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if n in fixext:
+        f.write(bytes([fixext[n], 1]))
+    else:
+        _pack_len(f, n, 0, (None, 0xc7, 0xc8, 0xc9))
+        f.write(b"\x01")
+    f.write(inner)
+    f.write(x.reshape(-1).view(np.uint8).data)
+
+
+def write_flax_checkpoint(path: str, tree: dict) -> int:
+    """Write ``tree`` (nested dicts of numpy arrays) as the reference's
+    ``save_checkpoint`` does (``flax.serialization.to_bytes``); returns
+    the file's size."""
+    with open(path, "wb") as f:
+        _pack_tree(f, tree)
+        return f.tell()
+
+
+def phase_checkpoints(smi: str, seeded_run: dict) -> dict:
+    """The reference's checkpoint format on the card: the flagship's
+    AlignmentHead (model_checkpoint_path) and the whole flagship under
+    "model" (from_pretrained), written in flax's format from phase 5's
+    seeded weights, loaded through load_model_params into a flagship seeded
+    otherwise: every parameter bit-equal, and its 5/1 sequential run
+    bit-equal to phase 5's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vitslam_tpu_torch.io.checkpoint import load_model_params
+    from vitslam_tpu_torch.models import flagship
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    head_path, base_path = str(tmp / "head.ckpt"), str(tmp / "base.ckpt")
+    try:
+        model = flagship(device="cuda", seed=0)
+        t = time.perf_counter()
+        tree = flax_tree(model)
+        sizes = (write_flax_checkpoint(head_path, {"params": {
+            "alignment_head": tree["params"]["alignment_head"]}}),
+                 write_flax_checkpoint(base_path, {"model": tree}))
+        write_s = time.perf_counter() - t
+        del tree
+        target = flagship(device="cuda", seed=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        missing = load_model_params(head_path, target, fallback_path=base_path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = dict(model.named_parameters())
+    differ = [n for n, p in target.named_parameters() if not _same_tensor(p, want[n])]
+    n_params = sum(p.numel() for p in want.values())
+    print(f"[checkpoints] reference-format files: head {sizes[0] / 2**20:.1f} MiB, whole "
+          f"flagship {sizes[1] / 2**30:.3f} GiB ({n_params / 1e9:.3f}B fp32 params), "
+          f"written in {write_s:.1f} s (host tree + msgpack); load_model_params "
+          f"(head over the whole-model fallback) onto the card in {load_s:.1f} s; "
+          f"{len(want) - len(differ)} of {len(want)} parameters bit-equal to the seeded ones, "
+          f"unfilled {missing}")
+    if missing or differ:
+        raise AssertionError(f"checkpoints: unfilled {missing[:5]}, differing {differ[:5]}")
+    del model, want
+    _release()
+    n_frames, H, W = 17, 154, 518
+    pred, stats = _drive(target, _synthetic_sequence(n_frames, H, W, seed=0),
+                         "checkpoints 5/1 sequential", smi, 5, 1)
+    equal = {k: _same_tensor(pred[k], seeded_run[k]) for k in seeded_run}
+    print(f"[checkpoints] 5/1 sequential run of the loaded flagship vs phase 5's seeded one: "
+          f"bit-equal {equal}")
+    if not all(equal.values()) or set(pred) != set(seeded_run):
+        raise AssertionError(f"checkpoints: the loaded model's run differs: {equal}")
+    del target, pred
+    _release()
+    stats.update(write_s=write_s, load_s=load_s, file_bytes=list(sizes))
+    return {"checkpoints 5/1 sequential": stats}
 
 
 def phase_merge(smi: str) -> dict:
@@ -1184,9 +1478,10 @@ def phase_train(smi: str) -> dict:
     label = "train global (20, 5)"
     model, trainer, runs[label] = _train(smi, label, False, (20, 5), batch)
     # per step 3 chunks (20, 20, 10 frames) x 4 global blocks: K3 with lse
-    # over 8,260 / 10,738 / 6,608 tokens, and as many K4 calls
+    # over 8,260 / 10,738 / 6,608 tokens, twice (the head's blocks are
+    # recomputed in the backward: 24 a step), and 12 K4 calls
     _expect(label, runs[label]["launches"],
-            {"flash_attention_lse": 3 * 12, "flash_attention_backward": 3 * 12})
+            {"flash_attention_lse": 3 * 24, "flash_attention_backward": 3 * 12})
 
     # one step's head gradients, kernels vs plain attention, same dropout
     # and large offset (vitslam_tpu_torch.head_grad_check, per seed)
@@ -1809,6 +2104,7 @@ def main() -> int:
     results = phase_kernels()
     phase_reference()
     runs, tails_off = phase_slice(smi)
+    runs.update(phase_checkpoints(smi, tails_off))
     runs.update(phase_merge(smi))
     runs.update(phase_large_chunk(smi))
     runs.update(phase_global_head(smi))

@@ -76,7 +76,7 @@ def test_loader_dtypes_targets_and_overrides():
     node = {"_target_": "vitslam_tpu.nn.layers.LayerNorm", "dim": 4, "dtype": "bfloat16"}
     assert loader.instantiate(node).dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="not ported"):
-        loader.instantiate({"_target_": "vitslam_tpu.data.waymo.WaymoDataset"})
+        loader.instantiate({"_target_": "vitslam_tpu.models.track_head.TrackHead"})
     with pytest.raises(ValueError, match="malformed override"):
         loader.compose("test_featureAlignedVGGT_vkitti", os.path.join(ROOT, "configs"),
                        overrides=["no_equals_sign"])
@@ -202,7 +202,7 @@ def reference(vkitti, tmp_path_factory):
     params = jax_variables(lambda rng: model.init(rng, images, 1), port_model)
     trainer = JTrainer(cfg, model, loss, val_data=val_data, metrics=metrics, params=params)
     trainer.init_state(None)
-    return cfg_dir, trainer.validate(0)
+    return cfg_dir, trainer.validate(0), params
 
 
 def _same_metrics(got: dict, want: dict):
@@ -219,7 +219,7 @@ def test_cli_test_mode_matches_jax(reference, tmp_path, capsys):
     """``python -m vitslam_tpu_torch.cli --config tiny --device cpu`` in
     test mode: ATE, RPE, Chamfer after ICP and the alignment diagnostics of
     the sampled sequence, against the reference on the same weights."""
-    cfg_dir, want = reference
+    cfg_dir, want, _ = reference
     got = cli.main(["--config", "tiny", "--config-dir", cfg_dir, "--device", "cpu",
                     "--set", f"logging.log_dir={tmp_path}"])
     assert "seq_metrics/ate_rmse" in got and "seq_metrics/chamfer_distance_rmse" in got
@@ -233,7 +233,7 @@ def test_trainer_validate_and_test_match_jax(reference, tmp_path):
     from the metrics' range, its losses, the batch metrics and the
     full-sequence metrics) and Trainer.test against the reference's
     trainer, same weights."""
-    cfg_dir, want = reference
+    cfg_dir, want, _ = reference
     cfg = loader.compose("tiny", cfg_dir, overrides=[f"logging.log_dir={tmp_path}"])
     model, loss, metrics, _, val_data = cli.build_from_config(cfg, device="cpu")
     trainer = Trainer(cfg, model, loss, val_data=val_data, metrics=metrics)
@@ -245,6 +245,97 @@ def test_trainer_validate_and_test_match_jax(reference, tmp_path):
         header = f.readline()
     assert "val/ate_rmse" in header and "seq_metrics/ate_rmse" in header
     assert Trainer(cfg, model, loss).validate(0) == {}
+
+
+def test_cli_test_mode_from_a_reference_checkpoint(reference, tmp_path, monkeypatch):
+    """The test mode with ``model_checkpoint_path`` a head checkpoint the
+    reference wrote (vitslam_tpu's save_checkpoint, flax msgpack) over a
+    ``from_pretrained`` whole-model checkpoint of the reference under its
+    ``model`` key, whose own head is wrong: the port model, seeded from
+    another seed before the load, gives the reference's metrics on the
+    reference's weights (RTOL)."""
+    import jax
+
+    from vitslam_tpu.io.checkpoint import save_checkpoint as jax_save
+
+    cfg_dir, want, params = reference
+    head = params["params"]["alignment_head"]
+    jax_save(str(tmp_path / "head.ckpt"), {"params": {"alignment_head": head}})
+    wrong = jax.tree.map(lambda x: 2.0 * np.asarray(x) + 0.5, head)
+    jax_save(str(tmp_path / "base.ckpt"),
+             {"model": {"params": dict(params["params"], alignment_head=wrong)}})
+    real = tl.init_weights
+    monkeypatch.setattr(tl, "init_weights",
+                        lambda model, g: real(model, torch.Generator().manual_seed(1234)))
+    got = cli.main(["--config", "tiny", "--config-dir", cfg_dir, "--device", "cpu",
+                    "--set", f"logging.log_dir={tmp_path}",
+                    "--set", f"checkpoint.model_checkpoint_path={tmp_path / 'head.ckpt'}",
+                    "--set", f"checkpoint.from_pretrained={tmp_path / 'base.ckpt'}"])
+    _same_metrics(got, _seq(want))
+
+
+# the kittiOd / Waymo fixtures: 9 frames, 2 chunks of 5 at overlap 1
+READER_FRAMES = 9
+
+
+@pytest.mark.parametrize("name", ["test_featureAlignedVGGT_kittiOd",
+                                  "test_featureAlignedVGGT_waymo"])
+def test_cli_test_mode_of_the_kittiod_and_waymo_configs_matches_jax(name, tmp_path,
+                                                                     monkeypatch):
+    """The shipped kittiOd and Waymo test configs, at the tiny width of
+    test_cli_test_mode_matches_jax and pointed at the JAX package's
+    fixtures of those datasets: compose + instantiate (the port's readers)
+    and ``python -m vitslam_tpu_torch.cli --device cpu`` in test mode give
+    the metrics of the reference's Trainer.test on the same weights
+    (RTOL), the reference reading on its numpy paths as the port does."""
+    import vitslam_tpu.native as jnative
+    from vitslam_tpu.utils.fixtures import write_kitti_odometry_fixture, write_waymo_fixture
+
+    monkeypatch.setattr(jnative, "lidar_splat_depth_native", lambda *a, **k: None)
+    monkeypatch.setattr(jnative, "depth_to_points_native", lambda *a, **k: None)
+    root = str(tmp_path / "data")
+    if name.endswith("kittiOd"):
+        write_kitti_odometry_fixture(root, seq="00", n_frames=READER_FRAMES, hw=(56, 84))
+        data = [f"kittiod_dir={root}"]
+    else:
+        write_waymo_fixture(root, split="validation", n_frames=READER_FRAMES, hw=(56, 84),
+                            n_lidar=2000)
+        # the config's Chamfer after ICP at _tiny_cfg's settings: registered
+        # by sim3_from_points (with the point head), since under the
+        # config's scale_from_poses the random-weight cloud shrinks to ~1%
+        # of the GT's, every point matches the same GT point and ICP's
+        # first Kabsch step solves a zero covariance whose rotation is
+        # rounding noise in either package (Chamfer 5.7% apart); and ICP
+        # capped at 2,000 points, without which accuracy_rmse is 4.5e-4
+        # apart (fp32 differences of ~1e-6 flip a nearest neighbour or
+        # the confidence quantile's cut over the sparse LiDAR points)
+        data = [f"waymo_dir={root}", "gt_alignment_type=sim3_from_points",
+                "model.enable_point=true", "metrics.max_points_for_icp_full_seq=2000"]
+    overrides = data + [
+        "img_size=56", "model.embed_dim=32", "model.depth=2", "model.num_heads=4",
+        "model.patch_embed_depth=1", "model.intermediate_layers=[0,1,1,1]",
+        "model.align_embed_dim=32", "model.align_dec_dim=16", "model.num_memory_tokens=4",
+        "data.test.dataset_configs_or_datasets.0.common_conf.fix_aspect_ratio=0.5",
+        f"logging.log_dir={tmp_path / 'logs'}"]
+    configs = os.path.join(ROOT, "configs")
+    cfg = loader.compose(name, configs, overrides=overrides + ["model.dtype=float32"])
+    port_model, _, _, _, val_data = cli.build_from_config(cfg, device="cpu")
+    reader = val_data.datasets[0]
+    assert type(reader).__module__.startswith("vitslam_tpu_torch.data.")
+    assert reader.seq_frame_num == [READER_FRAMES]
+
+    jcfg = jloader.compose(name, configs, overrides=overrides)
+    jcfg["model"]["dtype"] = jnp.float32
+    model, loss, metrics, _, jval, _ = jcli.build_from_config(jcfg)
+    images = jnp.zeros((1, 5, 3, 28, 56), jnp.float32)
+    params = jax_variables(lambda rng: model.init(rng, images, 1), port_model)
+    want = JTrainer(jcfg, model, loss, val_data=jval, metrics=metrics, params=params).test()
+
+    got = cli.main(["--config", name, "--config-dir", configs, "--device", "cpu"]
+                   + [a for o in overrides + ["model.dtype=float32"] for a in ("--set", o)])
+    assert len(got) > 3 and all(k.split("/")[0].endswith("_00") or "seq0000" in k
+                                for k in got)
+    _same_metrics(got, want)
 
 
 def test_cli_fused_tails_from_the_env(tmp_path, monkeypatch):

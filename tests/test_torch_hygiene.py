@@ -1,6 +1,6 @@
 """Hygiene of the port package: it never imports JAX or flax, every module
-imports on its own (and without OpenCV, PyYAML or matplotlib, which the
-machine with the card lacks), and the weight loader is strict."""
+imports on its own (and without OpenCV, PyYAML, matplotlib or msgpack,
+which the machine with the card lacks), and the weight loader is strict."""
 import os
 import subprocess
 import sys
@@ -36,11 +36,15 @@ MODULES = [
     "vitslam_tpu_torch.data.dynamic", "vitslam_tpu_torch.data.vkitti", "vitslam_tpu_torch.cli",
     "vitslam_tpu_torch.compare_rates", "vitslam_tpu_torch.parallel",
     "vitslam_tpu_torch.parallel.mesh", "vitslam_tpu_torch.parallel.spawn",
-    "vitslam_tpu_torch.parallel.seq", "chip_smoke",
+    "vitslam_tpu_torch.parallel.seq", "vitslam_tpu_torch.io.flax_msgpack",
+    "vitslam_tpu_torch.io.from_jax", "vitslam_tpu_torch.data.kitti_odometry",
+    "vitslam_tpu_torch.data.waymo", "vitslam_tpu_torch.ops.transfer",
+    "vitslam_tpu_torch.ops.attention", "chip_smoke",
 ]
 # installed here, absent on the machine with the card: the package must
-# import without them (they are imported where a file is read or a plot made)
-HOST_ONLY = ("cv2", "yaml", "matplotlib")
+# import without them (they are imported where a file is read or a plot
+# made; the reference's checkpoints are read without msgpack)
+HOST_ONLY = ("cv2", "yaml", "matplotlib", "msgpack")
 
 
 @pytest.mark.parametrize("module", MODULES)

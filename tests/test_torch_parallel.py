@@ -237,7 +237,7 @@ def _worker_train(rank, out, outdir):
         chunks = tuple({k: torch.tensor(v) for k, v in c.items()} for c in chunks_np)
         out[B] = _train(chunks, merged, mesh.group("data"))
     out["fit"], log = _fit(os.path.join(outdir, "fit"))
-    out["logged"] = os.path.exists(log)
+    out["logged"] = log is not None and os.path.exists(log)
 
 
 def _worker_gather(rank, out, outdir):

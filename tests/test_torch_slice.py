@@ -47,12 +47,12 @@ def setup():
     want, _ = jpipe.run_sequence(batch, chunk_width=WIDTH, num_overlap=OVERLAP)
     model = FeatureAlignedVGGT(**KW, dtype=torch.float32)
     load_jax_params(model, export_torch_style(params))
-    return batch, model, want
+    return batch, model, want, jpipe
 
 
 @pytest.mark.parametrize("encode_batch", [1, 4])
 def test_pipeline_matches_jax(setup, encode_batch):
-    batch, model, want = setup
+    batch, model, want, _ = setup
     before = ROUTE_COUNTS["fused"]
     got, merged = ChunkedPipeline(model, encode_batch=encode_batch).run_sequence(
         batch, chunk_width=WIDTH, num_overlap=OVERLAP)
@@ -79,7 +79,7 @@ def test_unported_gt_alignment_raises(setup):
     translations, depths and points by one scale per batch element
     (test_torch_gt_alignment.py holds every type to JAX); an unknown type
     raises."""
-    batch, model, want = setup
+    batch, model, want, _ = setup
     got, _ = ChunkedPipeline(model).run_sequence(
         batch, chunk_width=WIDTH, num_overlap=OVERLAP, gt_alignment_type="scale_from_poses")
     s = got["alignment_scales"].numpy()
@@ -118,3 +118,48 @@ def test_chunking_matches_jax(mode, width, overlap):
     for k in ("pose_enc", "chunk_sim3_enc", "last"):
         np.testing.assert_array_equal(got[k].numpy(), want[k])
     np.testing.assert_array_equal(got["pose_enc_list"][0].numpy(), want["pose_enc_list"][0])
+
+
+def _close(got: dict, want: dict, keys):
+    for k in keys:
+        a = np.asarray(got[k], np.float32)
+        b = np.asarray(want[k], np.float32)
+        assert a.shape == b.shape, k
+        err = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+        assert err <= RTOL, (k, err)
+
+
+@pytest.mark.parametrize("encode_batch", [1, 4])
+@pytest.mark.parametrize("case", ["keep_images", "merge_overlap_0", "py_rng_two_chunks"])
+def test_run_sequence_keywords_match_jax(setup, case, encode_batch):
+    """run_sequence's keep_images (each chunk's images merged into the
+    predictions), merge_overlap=0 (the overlap frames kept twice) and a
+    seeded py_rng drawing the two_chunks split, through both drivers,
+    against the reference's run_sequence with the same keywords."""
+    batch, model, _, jpipe = setup
+    kw = {"keep_images": dict(chunk_width=WIDTH, num_overlap=OVERLAP, keep_images=True),
+          "merge_overlap_0": dict(chunk_width=WIDTH, num_overlap=OVERLAP, merge_overlap=0),
+          "py_rng_two_chunks": dict(sample_mode="two_chunks", chunk_width=WIDTH,
+                                    num_overlap=OVERLAP)}[case]
+    rng = {}
+    if case == "py_rng_two_chunks":  # 8 frames: two chunks of WIDTH, shapes compiled above
+        batch = {k: v[:, :2 * WIDTH] for k, v in batch.items()}
+        rng = {"py_rng": random.Random(5)}
+    want, want_merged = jpipe.run_sequence(batch, **kw, **rng)
+    if case == "py_rng_two_chunks":
+        rng = {"py_rng": random.Random(5)}
+    got, merged = ChunkedPipeline(model, encode_batch=encode_batch).run_sequence(
+        batch, **kw, **rng)
+    assert got.keys() == want.keys()
+    _close(got, want, KEYS)
+    for k in want_merged:
+        np.testing.assert_array_equal(np.asarray(merged[k]), np.asarray(want_merged[k]),
+                                      err_msg=k)
+    n = got["pose_enc"].shape[1]
+    if case == "keep_images":
+        np.testing.assert_array_equal(got["images"].numpy(), batch["images"])
+    elif case == "merge_overlap_0":
+        assert n == N_FRAMES + 2 * OVERLAP  # 3 chunks, the overlap frames twice
+    else:
+        assert n == merged["images"].shape[1] and not np.array_equal(
+            merged["images"], batch["images"][:, :n])  # a random split, not the first frames

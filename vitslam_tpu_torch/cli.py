@@ -10,7 +10,8 @@ test) comes from the config; ``--set a.b=c`` overrides a dotted path before
 interpolation. The model is built on ``--device`` (the GPU unless the
 caller asks for the CPU) with its weights drawn from ``seed_value``, then
 loaded from ``checkpoint.model_checkpoint_path`` (and
-``checkpoint.from_pretrained`` as the fallback) when the config names one.
+``checkpoint.from_pretrained`` as the fallback) when the config names one,
+each a checkpoint of the port or of the reference (``io/checkpoint.py``).
 The fused block tails of the backbone (kernel K5) follow the reference's
 switch ``VITSLAM_MLP_TAIL`` (1 = both sites, mlp, proj; default off), read
 here once.

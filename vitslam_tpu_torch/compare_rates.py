@@ -1,6 +1,7 @@
 """New-frames/s of the flagship 5/1 and the point-aligned 75/30 pipelines
 (sequential driver, seeded weights, 17 and 165 random 518x154 frames),
-each with the fused block tails off and on (mlp_tail="both", K5), and the
+each with the fused block tails off and on (mlp_tail="both", K5), the 5/1
+also through the two-stage driver at encode_batch=4, and the
 steps/s of the global-mode AlignmentHead's train step at bucket (20, 5)
 (K3 with lse and K4), for the package found under ROOT, so that two
 checkouts can be compared in one run on one card:
@@ -32,14 +33,15 @@ def main(root: Path) -> None:
     if not Path(vitslam_tpu_torch.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"imported {vitslam_tpu_torch.__file__}, not the package under {root}")
     rng = np.random.default_rng(0)
-    for label, ctor, n, w, o, tail in (("5/1", flagship, 17, 5, 1, "off"),
-                                       ("tail 5/1", flagship, 17, 5, 1, "both"),
-                                       ("75/30 point", flagship_point_aligned, 165, 75, 30, "off"),
-                                       ("tail 75/30 point", flagship_point_aligned, 165, 75, 30,
-                                        "both")):
+    for label, ctor, n, w, o, tail, eb in (
+            ("5/1", flagship, 17, 5, 1, "off", 1),
+            ("5/1 encode_batch=4", flagship, 17, 5, 1, "off", 4),
+            ("tail 5/1", flagship, 17, 5, 1, "both", 1),
+            ("75/30 point", flagship_point_aligned, 165, 75, 30, "off", 1),
+            ("tail 75/30 point", flagship_point_aligned, 165, 75, 30, "both", 1)):
         model = ctor(device="cuda", seed=0, mlp_tail=tail)
         batch = {"images": rng.uniform(0, 1, size=(1, n, 3, 154, 518)).astype(np.float32)}
-        pipe = ChunkedPipeline(model)
+        pipe = ChunkedPipeline(model, encode_batch=eb)
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()

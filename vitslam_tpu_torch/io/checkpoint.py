@@ -11,9 +11,18 @@ trainable tensors by name, the optimizer state and the step).
   stripped, a fallback checkpoint filling the names it lacks, then a strict
   check that every parameter was filled.
 
+Both readers also take the JAX package's files (flax msgpack, written by
+vitslam_tpu/io/checkpoint.py::save_checkpoint), told apart by their first
+bytes: a ``torch.save`` file is a zip archive, a flax file starts with a
+msgpack map. For ``load_model_params`` a flax file's variable tree, with a
+leading ``model`` key stripped as the reference strips ``model/``, goes
+through ``from_jax.export_torch_style`` and ``port_name``; either tier may
+be in either format (e.g. a head the reference trained over a backbone
+saved by the port). The reference's train state (optax moments) is not
+read.
+
 In a gang of ranks only rank 0 writes (the step checkpoints, the link and
-its removal); every rank may read. JAX weights still come across through
-``io/from_jax.py``.
+its removal); every rank may read.
 """
 from __future__ import annotations
 
@@ -24,6 +33,8 @@ from typing import Any, Optional
 import torch
 
 from ..parallel.mesh import rank
+from .flax_msgpack import read_flax_msgpack
+from .from_jax import as_tensor, export_flat, flatten_tree, port_name
 
 
 def _to_host(tree):
@@ -43,8 +54,24 @@ def save_checkpoint(path: str, tree: Any) -> str:
     return path
 
 
+def checkpoint_format(path: str) -> str:
+    """"torch" (a ``torch.save`` zip archive) or "flax" (msgpack, whose
+    top-level value is a map), from the file's first bytes."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        return "torch"
+    if head and (0x80 <= head[0] <= 0x8f or head[0] in (0xde, 0xdf)):
+        return "flax"
+    raise ValueError(f"{path}: neither a torch.save archive nor a flax msgpack file "
+                     f"(first bytes {head!r})")
+
+
 def load_checkpoint(path: str) -> Any:
-    """The saved tree, tensors on the CPU."""
+    """The saved tree on the CPU: a ``torch.save`` file's as saved, a flax
+    file's as nested dicts of numpy arrays (bf16 leaves as tensors)."""
+    if checkpoint_format(path) == "flax":
+        return read_flax_msgpack(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -101,36 +128,43 @@ class CheckpointManager:
             os.remove(self.latest_link)
 
 
-def _flat_params(raw: Any, prefix: str = "model.") -> dict:
-    """name -> tensor from a train-state checkpoint (its 'trainable' dict)
-    or a plain state dict, with a leading ``prefix`` stripped."""
+def _flat_params(path: str) -> dict:
+    """The port's parameter name -> tensor of a checkpoint: a port train
+    state's 'trainable' dict or a port state dict with a leading ``model.``
+    stripped, or a flax variable tree with a leading ``model`` stripped."""
+    raw = load_checkpoint(path)
+    if checkpoint_format(path) == "flax":
+        flat = {(p[1:] if p[0] == "model" and len(p) > 1 else p): v
+                for p, v in flatten_tree(raw).items()}
+        return {port_name(k): as_tensor(v) for k, v in export_flat(flat).items()}
     flat = raw["trainable"] if isinstance(raw, dict) and "trainable" in raw else raw
-    return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in flat.items()}
+    return {(k[len("model."):] if k.startswith("model.") else k): v for k, v in flat.items()}
 
 
 def load_model_params(path: str, model: torch.nn.Module, fallback_path: Optional[str] = None,
                       strict: Optional[bool] = None) -> list[str]:
     """Three-tier load into ``model``'s parameters: the names found in
-    ``path`` (``model.`` prefix stripped), then those still missing from
-    ``fallback_path``; strict (the default when there is no fallback)
-    raises KeyError if any parameter is left unfilled, otherwise those keep
-    their current values. Returns the unfilled names."""
+    ``path`` (``model.`` / ``model/`` prefix stripped), then those still
+    missing from ``fallback_path``; either file a port or a flax
+    checkpoint. Strict (the default when there is no fallback) raises
+    KeyError if any parameter is left unfilled, otherwise those keep their
+    current values. Returns the unfilled names."""
     if strict is None:
         strict = fallback_path is None
     params = dict(model.named_parameters())
-    sources = [_flat_params(load_checkpoint(path))]
-    if fallback_path is not None:
-        sources.append(_flat_params(load_checkpoint(fallback_path)))
-    missing = []
-    with torch.no_grad():
-        for name, p in params.items():
-            src = next((s for s in sources if name in s), None)
-            if src is None:
-                missing.append(name)
-                continue
-            if tuple(src[name].shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(src[name].shape)} != {tuple(p.shape)}")
-            p.copy_(src[name].to(dtype=p.dtype))
+    missing = list(params)
+    for source in (path, fallback_path):
+        if source is None or not missing:
+            continue
+        flat = _flat_params(source)
+        with torch.no_grad():
+            for name in [n for n in missing if n in flat]:
+                p, t = params[name], flat[name]
+                if tuple(t.shape) != tuple(p.shape):
+                    raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(p.shape)}")
+                p.copy_(t)
+        missing = [n for n in missing if n not in flat]
+        del flat
     if missing and strict:
         raise KeyError(f"missing {len(missing)} params, e.g. {missing[:5]}")
     return missing

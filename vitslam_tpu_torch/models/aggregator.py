@@ -36,7 +36,9 @@ from torch import nn
 
 from ..nn.layers import Block, Conv2d, LayerNorm, _param
 from ..nn.rope import patch_grid_positions, rope_cache_2d
+from ..ops.attention import remat
 from ..ops.resize import bicubic_matrix, resize_matmul
+from ..ops.transfer import to_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -47,9 +49,7 @@ def expand_frame_tokens(param: torch.Tensor, B: int, S: int,
     """(2, K, C) learned tokens -> (B*S, K, C): frame 0 takes variant 0,
     every later frame variant 1. ``frame_offset`` is the global index of
     local frame 0 (nonzero only on a sequence-parallel rank past the first)."""
-    idx = torch.ones(S, dtype=torch.long, device=param.device)
-    if frame_offset == 0:
-        idx[0] = 0
+    idx = (torch.arange(S, device=param.device) + frame_offset).clamp(max=1)
     tokens = param[idx]  # (S, K, C)
     return tokens[None].expand((B,) + tokens.shape).reshape(B * S, *param.shape[1:])
 
@@ -64,10 +64,10 @@ class PatchEmbedViT(nn.Module):
                  embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
                  mlp_ratio: float = 4.0, init_values: float = 1.0,
                  num_register_tokens: int = 4, dtype=torch.bfloat16, device=None,
-                 mlp_tail: str = "off"):
+                 mlp_tail: str = "off", remat: bool = False):
         super().__init__()
         self.img_size, self.patch_size, self.embed_dim = img_size, patch_size, embed_dim
-        self.num_register_tokens, self.dtype = num_register_tokens, dtype
+        self.num_register_tokens, self.dtype, self.remat = num_register_tokens, dtype, remat
         ng = img_size // patch_size
         self.proj = Conv2d(3, embed_dim, patch_size, stride=patch_size,
                            dtype=dtype, device=device)
@@ -111,7 +111,7 @@ class PatchEmbedViT(nn.Module):
             parts.append(self.register_tokens.to(self.dtype).expand(n, -1, -1))
         x = torch.cat(parts + [x], dim=1)
         for blk in self.blocks:
-            x = blk(x)
+            x = remat(self.remat, blk, x)
         x = self.norm(x)
         return x[:, 1 + self.num_register_tokens:]
 
@@ -120,8 +120,10 @@ class AggregatorLayer(nn.Module):
     """One frame-attention + global-attention pair."""
 
     def __init__(self, dim, num_heads, mlp_ratio, qk_norm, init_values,
-                 rope_base, dtype, device=None, mlp_tail: str = "off", seq_group=None):
+                 rope_base, dtype, device=None, mlp_tail: str = "off", seq_group=None,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         kw = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm, init_values=init_values,
                   rope="2d", rope_base=rope_base, dtype=dtype, device=device,
                   mlp_tail=mlp_tail)
@@ -134,14 +136,15 @@ class AggregatorLayer(nn.Module):
         attention, merged_kv mapping the frame attention's output to the
         key/value token set whose RoPE cache is pos_kv."""
         T, C = x.shape[1:]
-        x = self.frame_block(x, pos_frame)
+        x = remat(self.remat, self.frame_block, x, pos_frame)
         frame_out = x
         xg = x.reshape(B, S * T, C)
         if merge is None:
-            xg = self.global_block(xg, pos_global)
+            xg = remat(self.remat, self.global_block, xg, pos_global)
         else:
             merged_kv, pos_kv = merge
-            xg = self.global_block(xg, pos_global, kv=merged_kv(x), pos_kv=pos_kv)
+            xg = remat(self.remat, self.global_block, xg, pos_global, kv=merged_kv(x),
+                       pos_kv=pos_kv)
         x = xg.reshape(B * S, T, C)
         return x, torch.cat([frame_out, x], dim=-1).reshape(B, S, T, 2 * C)
 
@@ -163,7 +166,10 @@ class Aggregator(nn.Module):
                  init_values: float = 0.01, dtype=torch.bfloat16,
                  intermediate_layers: Sequence[int] = (4, 11, 17, 23),
                  merge_pool: int = 0, merge_stride: int = 1, device=None,
-                 mlp_tail: str = "off", seq_group=None):
+                 mlp_tail: str = "off", seq_group=None, remat: bool = False):
+        """remat: the patch embedding's and the layers' blocks are
+        recomputed in the backward (``ops.attention.remat``) when gradients
+        are on."""
         super().__init__()
         self.merge_pool, self.merge_stride = merge_pool, merge_stride
         self.seq_group = seq_group
@@ -174,12 +180,12 @@ class Aggregator(nn.Module):
         self.patch_embed = PatchEmbedViT(
             img_size=img_size, patch_size=patch_size, embed_dim=embed_dim,
             depth=patch_embed_depth, num_heads=patch_embed_heads, dtype=dtype,
-            device=device, mlp_tail=mlp_tail)
+            device=device, mlp_tail=mlp_tail, remat=remat)
         self.camera_token = _param(2, 1, embed_dim, device=device)
         self.register_token = _param(2, num_register_tokens, embed_dim, device=device)
         self.layers = nn.ModuleList(
             AggregatorLayer(embed_dim, num_heads, mlp_ratio, qk_norm, init_values,
-                            rope_base, dtype, device, mlp_tail, seq_group)
+                            rope_base, dtype, device, mlp_tail, seq_group, remat)
             for _ in range(depth))
 
     def init_params(self, g):
@@ -230,8 +236,8 @@ class Aggregator(nn.Module):
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         """images (B, S, 3, H, W) in [0, 1] -> patch tokens (B, S, P, C)."""
         B, S, C, H, W = images.shape
-        mean = torch.tensor(IMAGENET_MEAN, device=images.device).reshape(1, 1, 3, 1, 1)
-        std = torch.tensor(IMAGENET_STD, device=images.device).reshape(1, 1, 3, 1, 1)
+        mean = to_device(IMAGENET_MEAN, images.device).reshape(1, 1, 3, 1, 1)
+        std = to_device(IMAGENET_STD, images.device).reshape(1, 1, 3, 1, 1)
         images_n = (images.float() - mean) / std
         tok = self.patch_embed(images_n.reshape(B * S, C, H, W))
         return tok.reshape(B, S, tok.shape[1], self.embed_dim)

@@ -16,7 +16,10 @@ frame tokens cross-attend the chunk token, small MLPs decode the encodings.
 In training (``train=True``) the non-overlap frame tokens of a continuation
 chunk are dropped with probability ``drop_prob_nonoverlap`` before the frame
 decoder and the rest rescaled by 1/(1-p), the keep mask drawn from the
-``torch.Generator`` the caller passes.
+``torch.Generator`` the caller passes; and every frame, temporal and global
+block is recomputed in the backward instead of keeping its activations
+(``ops.attention.remat``, the reference's ``nn.remat(Block) if train``).
+The dropout draws sit in the decoder, outside the recomputed blocks.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from torch import nn
 from ..nn.gated_update import GatedUpdate
 from ..nn.layers import Block, CrossAttentionBlock, Dense, LayerNorm, Mlp, _param
 from ..nn.rope import patch_grid_positions
+from ..ops.attention import remat
 from .aggregator import expand_frame_tokens
 
 
@@ -140,20 +144,20 @@ class AlignmentHead(nn.Module):
                 B * n_frames, gh, gw, self.patch_start_idx, dev).reshape(B, n_frames * P, 2)
 
         for i in range(self.depth_aa):
-            xf = getattr(self, f"frame_block_{i}")(x.reshape(B * S, P, E), pos2d)
+            xf = remat(train, getattr(self, f"frame_block_{i}"), x.reshape(B * S, P, E), pos2d)
             x = xf.reshape(B, S, P, E)
             if self.temporal_attention:
                 xt = x.transpose(1, 2).reshape(B * P, S, E)
                 cross = (xt if first_chunk else
                          overlap_tokens.transpose(1, 2).reshape(B * P, T, E))
-                xt = getattr(self, f"temporal_block_{i}")(xt, cross, pos_t)
+                xt = remat(train, getattr(self, f"temporal_block_{i}"), xt, cross, pos_t)
                 x = xt.reshape(B, P, S, E).transpose(1, 2)
             else:
                 if first_chunk:
                     xg = x.reshape(B, S * P, E)
                 else:
                     xg = torch.cat([overlap_tokens, x], dim=1).reshape(B, (S + T) * P, E)
-                xg = getattr(self, f"global_block_{i}")(xg, pos_global)
+                xg = remat(train, getattr(self, f"global_block_{i}"), xg, pos_global)
                 x = xg.reshape(B, -1, P, E)[:, -S:]
 
         chunk_sim3_enc, frame_se3_encs, memory_tokens = self._decode(

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..nn.layers import Conv2d, _param, lecun_normal_
 from ..ops.resize import resize_bilinear_nchw
+from ..ops.transfer import to_device
 
 
 def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -148,7 +149,7 @@ class DPTHead(nn.Module):
             t = getattr(self, f"project_{i}")(t)
             if self.use_pos_embed:
                 pe = _dpt_pos_embed(gh, gw, self.out_channels[i], W, H)
-                t = t + torch.as_tensor(pe, device=t.device).to(self.dtype)
+                t = t + to_device(pe, t.device).to(self.dtype)
             if i == 0:
                 t = self.resize_layer_0(t)
             elif i == 1:

@@ -47,7 +47,7 @@ class PoseAlignedVGGT(nn.Module):
                  enable_point: bool = False, enable_track: bool = False,
                  dpt_frames_chunk: int = 0, global_merge_pool: int = 0,
                  global_merge_stride: int = 1, dtype=torch.bfloat16, device=None,
-                 mlp_tail: str = "off", seq_group=None):
+                 mlp_tail: str = "off", seq_group=None, remat: bool = False):
         super().__init__()
         self.seq_group = seq_group
         if not enable_camera:
@@ -61,7 +61,7 @@ class PoseAlignedVGGT(nn.Module):
             enable_point=enable_point, enable_track=enable_track,
             dpt_frames_chunk=dpt_frames_chunk, global_merge_pool=global_merge_pool,
             global_merge_stride=global_merge_stride, dtype=dtype, device=device,
-            mlp_tail=mlp_tail, seq_group=seq_group)
+            mlp_tail=mlp_tail, seq_group=seq_group, remat=remat)
 
     def embed_frames(self, images: torch.Tensor) -> torch.Tensor:
         """Per-frame patch embedding (the pipeline's unique-frame dedup)."""
@@ -79,10 +79,12 @@ class PoseAlignedVGGT(nn.Module):
 
     def forward(self, images: torch.Tensor, num_overlap: int,
                 context: Optional[PoseAlignContext] = None,
-                gt_poses: Optional[torch.Tensor] = None):
+                gt_poses: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """One chunk step: images (B, S, 3, H, W) in [0, 1]; gt_poses
         (B, S, 3|4, 4) chunk GT w2c for GT-scale alignment and chunk_gt
-        mode, or None. Returns (outputs, PoseAlignContext)."""
+        mode, or None; ``train`` and ``generator`` are accepted and unused,
+        as in the reference. Returns (outputs, PoseAlignContext)."""
         raw = self.encode_chunks(images)
         return self.align_chunk(raw, images.shape, num_overlap, context, gt_poses)
 

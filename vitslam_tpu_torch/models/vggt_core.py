@@ -36,7 +36,7 @@ class VGGTCore(nn.Module):
                  dpt_frames_chunk: int = 0, camera_trunk_depth: int = 4,
                  global_merge_pool: int = 0, global_merge_stride: int = 1,
                  dtype=torch.bfloat16, device=None, mlp_tail: str = "off",
-                 seq_group=None):
+                 seq_group=None, remat: bool = False):
         super().__init__()
         if enable_track:
             raise NotImplementedError("the TrackHead is not ported yet")
@@ -48,7 +48,7 @@ class VGGTCore(nn.Module):
             patch_embed_heads=patch_embed_heads,
             intermediate_layers=intermediate_layers, merge_pool=global_merge_pool,
             merge_stride=global_merge_stride, dtype=dtype, device=device,
-            mlp_tail=mlp_tail, seq_group=seq_group)
+            mlp_tail=mlp_tail, seq_group=seq_group, remat=remat)
         dim_in = 2 * embed_dim
         dpt = dict(dim_in=dim_in, features=dpt_features,
                    out_channels=tuple(dpt_out_channels), patch_size=patch_size,

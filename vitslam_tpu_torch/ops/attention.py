@@ -30,6 +30,7 @@ import contextlib
 from collections import Counter
 
 import torch
+import torch.utils.checkpoint
 
 from .flash_attention import flash_attention, flash_attention_reference
 from .flash_attention import flash_attention_plain as plain_attention
@@ -44,7 +45,7 @@ ROUTE_COUNTS: Counter = Counter()
 _KERNELS_OFF = [False]
 
 __all__ = ["ROUTE_COUNTS", "attention_route", "plain_attention", "plain_attention_routes",
-           "scaled_dot_product_attention"]
+           "remat", "scaled_dot_product_attention"]
 
 
 @contextlib.contextmanager
@@ -57,6 +58,31 @@ def plain_attention_routes(enabled: bool = True):
         yield
     finally:
         _KERNELS_OFF[0] = before
+
+
+@contextlib.contextmanager
+def _routes_as(kernels_off: bool):
+    before = _KERNELS_OFF[0]
+    _KERNELS_OFF[0] = kernels_off
+    try:
+        yield
+    finally:
+        _KERNELS_OFF[0] = before
+
+
+def remat(enabled: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; when ``enabled`` and gradients are on, under
+    non-reentrant ``torch.utils.checkpoint`` (the reference's ``nn.remat``):
+    the activations inside are freed after the forward and recomputed in
+    the backward. The recomputation takes the attention routes the forward
+    took, since the backward may run outside the ``plain_attention_routes``
+    block the forward ran in."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args, **kwargs)
+    off = _KERNELS_OFF[0]
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _routes_as(off)), **kwargs)
 
 
 def attention_route(n_q: int, n_kv: int, *, fusable: bool, fast: bool) -> str:

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from .transfer import to_device
+
 
 @functools.lru_cache(maxsize=64)
 def _bilinear_matrix(out_size: int, in_size: int,
@@ -68,8 +70,8 @@ def bicubic_matrix(out_size: int, in_size: int,
 def resize_matmul(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray) -> torch.Tensor:
     """Apply (H', H) and (W', W) weight matrices to the last two dims of x,
     in x's dtype."""
-    wh_t = torch.as_tensor(wh, dtype=x.dtype, device=x.device)
-    ww_t = torch.as_tensor(ww, dtype=x.dtype, device=x.device)
+    wh_t = to_device(wh, x.device, x.dtype)
+    ww_t = to_device(ww, x.device, x.dtype)
     return torch.matmul(torch.matmul(wh_t, x), ww_t.transpose(0, 1))
 
 

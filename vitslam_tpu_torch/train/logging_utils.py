@@ -13,7 +13,15 @@ from typing import Optional
 
 
 class CSVLogger:
-    def __init__(self, save_dir: str, name: str):
+    def __init__(self, save_dir: str, name: str, write: bool = True):
+        """write: False for a rank of a gang other than 0, which shares the
+        file system and logs nothing; it makes no ``version_k`` directory
+        (the ranks would race for one) and has no ``log_dir`` or ``path``."""
+        self._columns: list[str] = ["step"]
+        self._rows: list[dict] = []
+        self.log_dir = self.path = None
+        if not write:
+            return
         base = osp.join(save_dir, name)
         os.makedirs(base, exist_ok=True)
         version = 0
@@ -22,8 +30,6 @@ class CSVLogger:
         self.log_dir = osp.join(base, f"version_{version}")
         os.makedirs(self.log_dir, exist_ok=True)
         self.path = osp.join(self.log_dir, "metrics.csv")
-        self._columns: list[str] = ["step"]
-        self._rows: list[dict] = []
 
     def log_metrics(self, metrics: dict, step: int):
         row = {"step": step}

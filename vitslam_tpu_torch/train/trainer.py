@@ -121,7 +121,8 @@ class Trainer:
                                     else optim_cfg.get("frozen_module_names", []))
 
         log_cfg = cfg.get("logging", {})
-        self.logger = CSVLogger(log_cfg.get("log_dir", "logs"), self.exp_name)
+        self.logger = CSVLogger(log_cfg.get("log_dir", "logs"), self.exp_name,
+                                write=rank() == 0)
         self.log_freq = int(log_cfg.get("log_freq", 10))
         self.ckpt = CheckpointManager(ckpt_cfg.get("save_dir", "ckpt"), self.exp_name,
                                       save_freq=int(ckpt_cfg.get("save_freq", 500)))
