@@ -90,6 +90,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 through a 1-rank NCCL group. Each rank prints its wall time
                 and peak memory; these are not rates. This phase runs right
                 after the build, while this process holds no model.
+13. int8       — the int8 serving mode: one int8 projection at the 75/30 qkv
+                shape (30,900 x 1,024 x 3,072) on the card against the CPU
+                (integers and int32 product equal, output within 1 bf16
+                ulp); the four projections of a 75/30 block timed as the
+                whole int8_matmul, torch._int_mm alone and bf16 F.linear;
+                the flagship 5/1 and the point-aligned 75/30 with int8=True
+                and both fused tails asked for (K1 on both, K2 on 75/30, no
+                K5), beside the bf16 runs of slices 5/1 and 75/30; the last
+                tap of an int8 chunk held to the same model's bf16 one
+                (``set_int8``; cosine > 0.995).
+14. hooks      — on one 5/1 chunk: utils.profiling.trace holds the chunk's
+                annotate ranges and its kernels; nan_check off adds no
+                device launch, on it reports a planted NaN (and raises when
+                asked); ChunkTimer.
+15. track      — the flagship with enable_track=True: one 5-frame chunk's
+                taps, decode_track of 1,024 query points at the full VGGT-1B
+                track width; the head in fp32 on the card (TF32 off) held to
+                the same head on the CPU; the model's bf16 head against
+                fp32, its time, device launches and peak memory.
 
 The kernel phase also holds K3's lse output and K4 against their plain
 versions at the global head's shapes (and K4's outputs from two runs to
@@ -146,8 +165,10 @@ GRAD_RTOL = 3e-2
 # predictions: fp32 on both, distances summed in another order, so per
 # metric relative error
 EVAL_RTOL = 1e-3
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 rate
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, dense int8 peak
+# and HBM3 rate
 PEAK_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 # Kernel vs its plain version, bf16 on the card, elementwise
@@ -1261,9 +1282,11 @@ def phase_merge(smi: str) -> dict:
     return {"merge 5/1 p2s2 sequential": stats}
 
 
-def phase_large_chunk(smi: str) -> dict:
+def phase_large_chunk(smi: str) -> tuple[dict, dict]:
     """Point- and pose-aligned flagship presets at chunk 75 / overlap 30 over
-    165 synthetic frames (3 chunks), then one merged chunk at p4s10."""
+    165 synthetic frames (3 chunks), then one merged chunk at p4s10.
+    Returns the runs' stats and the point-aligned sequential predictions
+    (the int8 phase's reference)."""
     import torch
 
     import vitslam_tpu_torch.nn.layers as layers
@@ -1303,7 +1326,7 @@ def phase_large_chunk(smi: str) -> dict:
     bad = {k: v for k, v in errs.items() if not v <= DRIVER_RTOL}
     if bad:
         raise AssertionError(f"slice 75/30 point: drivers disagree: {bad}")
-    del model, seq, bat
+    del model, bat
     _release()
 
     model = flagship_pose_aligned(device="cuda", seed=0)
@@ -1342,7 +1365,7 @@ def phase_large_chunk(smi: str) -> dict:
     print("[merge 75/30] K2 ran 24 times with Nq=30900 over Nk=5641")
     del model, pred
     _release()
-    return {f"slice 75/30 {label}": st for label, st in stats.items()}
+    return {f"slice 75/30 {label}": st for label, st in stats.items()}, seq
 
 
 def phase_global_head(smi: str) -> dict:
@@ -2089,6 +2112,401 @@ def phase_distributed(smi: str) -> dict:
     return stats
 
 
+# the int8 phase: one int8 projection at the 75/30 qkv shape on the card
+# against the same computation on the CPU: the integers and the int32
+# product equal, the bf16 output within INT8_ULPS units in the last place
+# (the fp32 rescale is the same IEEE arithmetic on both)
+INT8_ULPS = 1
+# the last tap of an int8 chunk against the bf16 run of the same weights:
+# cosine above this (the bound of tests/test_nn.py's int8 test)
+INT8_COSINE = 0.995
+# the four projections of a 75/30 backbone block: (M, K, N)
+INT8_SHAPES = {"qkv": (30900, 1024, 3072), "proj": (30900, 1024, 1024),
+               "fc1": (30900, 1024, 4096), "fc2": (30900, 4096, 1024)}
+# the track head in fp32, card (TF32 off) against the CPU on the same taps:
+# relative L2 error per output (tracks, visibility, confidence)
+TRACK_RTOL = 1e-3
+TRACK_QUERIES = 1024
+
+
+def _ulps_bf16(a, b) -> int:
+    """Largest distance in bf16 units in the last place between two bf16
+    tensors of the same signs (their bit patterns as integers)."""
+    import torch
+
+    ai, bi = a.view(torch.int16).int(), b.view(torch.int16).int()
+    same = torch.sign(a.float()) == torch.sign(b.float())
+    if not bool(same.all()):
+        return 1 << 15
+    return int((ai - bi).abs().max())
+
+
+def _int8_projection(smi: str) -> dict:
+    """One int8 projection at the 75/30 qkv shape, card against CPU; then
+    device ms (CUDA-graph replays, ``_time_ms``) of the four projections of
+    a 75/30 block three ways: the whole ``int8_matmul`` (quantise x and W,
+    int8 GEMM, rescale, bias), ``torch._int_mm`` alone on quantised
+    operands, and bf16 ``F.linear``."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitslam_tpu_torch.ops.quant import int8_matmul, int_mm, quantize_cols, quantize_rows
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    M, K, N = INT8_SHAPES["qkv"]
+    x = torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16)
+    w = torch.randn(N, K, device="cuda", generator=g) / K ** 0.5
+    b = torch.randn(N, device="cuda", generator=g) * 0.1
+    with torch.no_grad():
+        xq, xs = quantize_rows(x)
+        wq, ws = quantize_cols(w.t())
+        yq = int_mm(xq, wq)
+        out = int8_matmul(x, w.t(), b)
+        torch.cuda.synchronize()
+        xq_c, xs_c = quantize_rows(x.cpu())
+        wq_c, ws_c = quantize_cols(w.cpu().t())
+        yq_c = int_mm(xq_c, wq_c)
+        out_c = int8_matmul(x.cpu(), w.cpu().t(), b.cpu())
+    int_diffs = int((xq.cpu() != xq_c).sum()) + int((wq.cpu() != wq_c).sum())
+    scales_equal = torch.equal(xs.cpu(), xs_c) and torch.equal(ws.cpu(), ws_c)
+    product_equal = torch.equal(yq.cpu(), yq_c)
+    ulps = _ulps_bf16(out.cpu(), out_c)
+    print(f"[int8] projection M {M} K {K} N {N}, card vs CPU: quantised integers differing "
+          f"{int_diffs}, scales equal {scales_equal}, int32 product equal {product_equal}, "
+          f"bf16 output max {ulps} ulp (tol {INT8_ULPS})")
+    if int_diffs or not scales_equal or not product_equal or ulps > INT8_ULPS:
+        raise AssertionError("int8 projection on the card differs from the CPU")
+    del xq_c, wq_c, yq_c, out_c, yq, out
+
+    times = {}
+    for name, (M, K, N) in INT8_SHAPES.items():
+        x = torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(N, K, device="cuda", generator=g) / K ** 0.5
+        b = torch.randn(N, device="cuda", generator=g) * 0.1
+        w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        with torch.no_grad():
+            xq, _ = quantize_rows(x)
+            wq, _ = quantize_cols(w.t())
+            t = dict(int8_matmul_ms=_time_ms(lambda: int8_matmul(x, w.t(), b)),
+                     int_mm_ms=_time_ms(lambda: torch._int_mm(xq, wq)),
+                     bf16_linear_ms=_time_ms(lambda: F.linear(x, w16, b16)))
+        flop = 2.0 * M * K * N
+        t["bf16_bound_ms"], _ = _bound(flop, _nbytes(x, w16, b16) + M * N * 2)
+        # the int8 GEMM alone: its operations, or its int8 inputs and int32 output
+        t["int8_bound_ms"] = max(flop / PEAK_INT8_OPS,
+                                 (M * K + K * N + 4 * M * N) / PEAK_BYTES) * 1e3
+        times[name] = t
+        print(f"[int8] {name} M {M} K {K} N {N}: int8_matmul {t['int8_matmul_ms']:.4f} ms, "
+              f"_int_mm alone {t['int_mm_ms']:.4f} ms ({flop / t['int_mm_ms'] / 1e9:.0f} TOP/s; "
+              f"int8 bound {t['int8_bound_ms']:.4f} ms), bf16 F.linear "
+              f"{t['bf16_linear_ms']:.4f} ms ({flop / t['bf16_linear_ms'] / 1e9:.0f} TFLOP/s; "
+              f"bf16 bound {t['bf16_bound_ms']:.4f} ms); on {smi}")
+        del x, w, b, w16, b16, xq, wq
+    _release()
+    return times
+
+
+def _last_tap(model, images):
+    import torch
+
+    with torch.inference_mode():
+        taps, _ = model.core.encode(images)
+    return taps[-1].float()
+
+
+def _cosine(a, b) -> float:
+    import torch
+
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(torch.dot(a, b) / (torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)))
+
+
+def _int8_path(smi: str, label: str, model, batch: dict, width: int, overlap: int,
+               want: dict, reference: dict, ref_fps: float) -> dict:
+    """One int8 path through the sequential driver, the model built with
+    both fused tails asked for (int8 takes neither: the tail phases show
+    the same shapes launching K5 in bf16); launches gated, outputs and the
+    rate printed beside the bf16 run of the same seed (``reference``,
+    tails off)."""
+    pred, stats = _drive(model, batch, f"int8 {label} sequential", smi, width, overlap)
+    _expect(f"int8 {label}", stats["launches"], dict(want, mlp_tail=0))
+    keys = [k for k in ("pose_enc", "depth", "world_points") if k in pred]
+    _check_outputs(f"int8 {label}", {"int8": pred}, {k: tuple(reference[k].shape) for k in keys})
+    errs = output_errors(pred, reference, keys)
+    print(f"[int8 {label}] rel-L2 int8 vs the bf16 run of the same seed: "
+          f"{json.dumps({k: round(v, 5) for k, v in errs.items()})}; new-frames/s int8 "
+          f"{stats['fps']:.2f}, bf16 {ref_fps:.2f}; on {smi}")
+    stats.update(rel_l2_vs_bf16=errs, bf16_fps=ref_fps)
+    return stats
+
+
+def phase_int8(smi: str, ref_5_1: dict, fps_5_1: float, ref_75_30: dict, fps_75_30: float):
+    """The int8 serving mode: the projection card vs CPU and its times, the
+    flagship 5/1 and the point-aligned 75/30 with int8=True (K1 on both,
+    K2 on 75/30, no K5), the last tap's cosine to bf16. Returns the runs'
+    stats (the projection times under the 75/30 run's "projections") and
+    the 5/1 model (switched to bf16) for the hooks phase."""
+    import torch
+
+    from vitslam_tpu_torch.models import flagship, flagship_point_aligned
+    from vitslam_tpu_torch.nn.layers import set_int8
+
+    times = _int8_projection(smi)
+    runs = {}
+    n_frames, H, W = 17, 154, 518
+    batch = _synthetic_sequence(n_frames, H, W, seed=0)
+    model = flagship(device="cuda", seed=0, int8=True, mlp_tail="both")
+    runs["int8 5/1 sequential"] = _int8_path(
+        smi, "5/1", model, batch, 5, 1,
+        dict(fused_qkv_attention=72 * 4, qk_prep=48 * 4, flat_flash_attention=0,
+             flash_attention=0), ref_5_1, fps_5_1)
+    images = torch.as_tensor(batch["images"][:, :5], device="cuda")
+    int8_tap = _last_tap(model, images)
+    set_int8(model, False)
+    cos = _cosine(int8_tap, _last_tap(model, images))
+    print(f"[int8 5/1] last aggregator tap of one chunk, int8 vs bf16 (same model): cosine "
+          f"{cos:.6f} (tol > {INT8_COSINE})")
+    if not cos > INT8_COSINE:
+        raise AssertionError(f"int8 5/1: last tap cosine {cos} <= {INT8_COSINE}")
+    runs["int8 5/1 sequential"]["last_tap_cosine"] = cos
+
+    n_frames, width, overlap = 165, 75, 30
+    batch = _synthetic_sequence(n_frames, H, W, seed=2)
+    large = flagship_point_aligned(device="cuda", seed=0, int8=True, mlp_tail="both")
+    runs["int8 75/30 point sequential"] = _int8_path(
+        smi, "75/30 point", large, batch, width, overlap,
+        dict(fused_qkv_attention=48 * 3, qk_prep=24 * 3, flat_flash_attention=24 * 3,
+             flash_attention=0), ref_75_30, fps_75_30)
+    runs["int8 75/30 point sequential"]["projections"] = times
+    del large
+    _release()
+    return runs, model
+
+
+def phase_track(smi: str) -> dict:
+    """The VGGT TrackHead at full width (features 128, hidden 384, updater
+    depth 6, 4 iterations, 7 correlation levels, radius 4) on one 5-frame
+    518x154 chunk of the flagship, 1,024 query points: the head in fp32 on
+    the card (TF32 off) against the same head on the CPU on the same taps,
+    gated: the feature maps, then the tracker on them with the reference's
+    initialisation (its flow head is zero, so the tracks stay at the
+    queries) and with the flow head drawn from a seed for one iteration;
+    two iterations of the latter are printed, not gated (the flow
+    embedding's frequencies reach 2^31: a 1e-7 difference in a track moves
+    its high-frequency features by O(1)). Then the model's
+    own head (bf16 feature extractor) against fp32, its device ms, its
+    kernel launches and its peak memory."""
+    import torch
+
+    from vitslam_tpu_torch.models import TrackHead, flagship
+
+    model = flagship(device="cuda", seed=0, enable_track=True)
+    n_frames, H, W = 5, 154, 518
+    images = torch.as_tensor(_synthetic_sequence(n_frames, H, W, seed=0)["images"],
+                             device="cuda")
+    rng = np.random.default_rng(7)
+    query = torch.tensor(np.stack([rng.uniform(0, W - 1, TRACK_QUERIES),
+                                   rng.uniform(0, H - 1, TRACK_QUERIES)], -1)[None],
+                         dtype=torch.float32, device="cuda")
+    with torch.inference_mode():
+        taps, psi = model.core.encode(images)
+    head = model.core.track_head
+    kw = dict(dim_in=head.feature_extractor.dim_in, patch_size=head.feature_extractor.patch_size,
+              dtype=torch.float32)
+    fp32 = TrackHead(**kw, device=images.device)
+    fp32.load_state_dict(head.state_dict())
+    cpu = TrackHead(**kw, device="cpu")
+    cpu.load_state_dict(head.state_dict())
+    taps_cpu, images_cpu, query_cpu = [t.cpu() for t in taps], images.cpu(), query.cpu()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    names = ("tracks", "visibility", "confidence")
+
+    def compare(case: str, gated: bool, iters: int):
+        """The trackers on the feature maps each side computed, as
+        TrackHead.forward runs them (sigmoid on visibility, confidence)."""
+        for m in (fp32, cpu):
+            m.tracker.iters = iters
+        with torch.inference_mode():
+            got = [t.cpu() for t in fp32.tracker(fmaps, query)]
+            want = cpu.tracker(fmaps_cpu, query_cpu)
+        got[1:], want = [torch.sigmoid(t) for t in got[1:]], [want[0]] + [
+            torch.sigmoid(t) for t in want[1:]]
+        errs = {n: rel_l2(g.numpy(), w.numpy()) for n, g, w in zip(names, got, want)}
+        moved = float((got[0] - query_cpu[:, None]).abs().max())
+        print(f"[track] fp32 head, card (TF32 off) vs CPU, {case}: rel-L2 "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+              f"({'tol ' + str(TRACK_RTOL) if gated else 'not gated'}); tracks moved up to "
+              f"{moved:.3f} px from the queries")
+        if gated and not all(np.isfinite(g.numpy()).all() for g in got):
+            raise AssertionError(f"track {case}: non-finite outputs")
+        if gated and not all(e <= TRACK_RTOL for e in errs.values()):
+            raise AssertionError(f"track {case}: the card differs from the CPU: {errs}")
+        return errs
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            fmaps = fp32.feature_extractor(taps, images, psi).float()
+            fmaps_cpu = cpu.feature_extractor(taps_cpu, images_cpu, psi).float()
+        fm_err = rel_l2(fmaps.cpu().numpy(), fmaps_cpu.numpy())
+        print(f"[track] fp32 feature extractor, card (TF32 off) vs CPU: feature maps "
+              f"{tuple(fmaps.shape)}, rel-L2 {fm_err:.3e} (tol {TRACK_RTOL})")
+        if not fm_err <= TRACK_RTOL:
+            raise AssertionError(f"track: feature maps differ between card and CPU: {fm_err}")
+        stats = {"feature maps": fm_err,
+                 "reference init, 4 iterations": compare("reference init, 4 iterations", True, 4)}
+        g = torch.Generator().manual_seed(11)
+        flow = torch.randn(fp32.tracker.updateformer.flow_head.weight.shape, generator=g) * 0.02
+        for m in (fp32, cpu):
+            with torch.no_grad():
+                m.tracker.updateformer.flow_head.weight.copy_(flow)
+        stats["seeded flow head, 1 iteration"] = compare("seeded flow head, 1 iteration",
+                                                         True, 1)
+        stats["seeded flow head, 2 iterations"] = compare("seeded flow head, 2 iterations",
+                                                          False, 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        for m in (fp32, cpu):
+            m.tracker.iters = head.tracker.iters
+    del cpu, taps_cpu, fmaps, fmaps_cpu
+
+    fp32.load_state_dict(head.state_dict())  # the reference's zero flow head again
+    with torch.inference_mode():
+        ref = fp32(taps, images, psi, query)
+        run = lambda: model.core.decode_track(taps, images, psi, query)  # noqa: E731
+        got = run()
+        torch.cuda.synchronize()
+        errs = {n: rel_l2(a.float().cpu().numpy(), b.cpu().numpy())
+                for n, a, b in zip(names, got, ref)}
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ms, device_ms = _call_ms(run, iters=5), _time_ms(run)
+        kernels = _device_launches(run)
+    print(f"[track] the model's head (bf16 feature extractor, fp32 tracker) vs fp32: rel-L2 "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; decode_track of "
+          f"{TRACK_QUERIES} queries over {n_frames} frames {ms:.2f} ms per call (host enqueue "
+          f"included), {device_ms:.2f} ms device time (back to back), {kernels} "
+          f"device launches (the port's kernels: {launches}), peak memory above the taps "
+          f"{peak:.2f} GiB; on {smi}")
+    if any(launches.values()):
+        raise AssertionError(f"track: the head launched a port kernel: {launches}")
+    stats.update(bf16_vs_fp32=errs, ms=ms, device_ms=device_ms, device_launches=kernels,
+                 peak_gib=peak, launches=launches)
+    del model, fp32, taps
+    _release()
+    return {"track 5 frames": stats}
+
+
+def _device_launches(fn) -> int:
+    """Kernels and device copies or fills one call of ``fn`` puts on the
+    card (a torch.profiler window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_hooks(smi: str, model) -> dict:
+    """The profiling and NaN-check hooks on one 5/1 chunk of the flagship:
+    a trace (utils.profiling.trace) holds the chunk's annotate ranges and
+    its kernels; nan_check switched off adds no device launch to a chunk
+    and reads nothing back, switched on it reports a planted NaN (and
+    raises when asked); ChunkTimer times the chunks."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vitslam_tpu_torch.utils import debug, profiling
+
+    images = torch.as_tensor(_synthetic_sequence(5, 154, 518, seed=0)["images"], device="cuda")
+
+    def chunk(check: bool):
+        with torch.inference_mode():
+            with profiling.annotate("encode_chunks"):
+                raw = model.encode_chunks(images)
+            if check:
+                debug.nan_check(raw, "raw")
+            with profiling.annotate("align_chunk"):
+                out, _ = model.align_chunk(raw, images.shape, 1)
+            if check:
+                debug.nan_check(out, "outputs")
+        return raw, out
+
+    timer = profiling.ChunkTimer()
+    with timer.chunk(5):
+        chunk(False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with profiling.trace(tmp) as log_dir:
+            with timer.chunk(5):
+                chunk(False)
+        trace_file = Path(log_dir) / "trace.json"
+        events = json.loads(trace_file.read_text())["traceEvents"]
+        size = trace_file.stat().st_size
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranges = {e["name"] for e in events if e.get("name") in ("encode_chunks", "align_chunk")}
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"[hooks] trace of one 5/1 chunk: {size / 2**20:.1f} MiB, annotate ranges "
+          f"{sorted(ranges)}, {kernels} kernel events")
+    if ranges != {"encode_chunks", "align_chunk"} or not kernels:
+        raise AssertionError("hooks: the trace lacks the annotate ranges or the card's kernels")
+
+    debug.enable_nan_checks(False)
+    plain = _device_launches(lambda: chunk(False))
+    with timer.chunk(5):
+        off = _device_launches(lambda: chunk(True))
+    syncs = [sum(_host_syncs(lambda: chunk(check)).values()) for check in (False, True)]
+    debug.enable_nan_checks(True)
+    on = _device_launches(lambda: chunk(True))
+    syncs.append(sum(_host_syncs(lambda: chunk(True)).values()))
+    debug.enable_nan_checks(False)
+    print(f"[hooks] a chunk's device launches / host syncs: {plain} / {syncs[0]} plain, {off} / "
+          f"{syncs[1]} with nan_check off, {on} / {syncs[2]} with it on")
+    if off != plain or syncs[1] != syncs[0] or on <= plain:
+        raise AssertionError(f"hooks: nan_check off added launches ({plain} -> {off}) or syncs "
+                             f"({syncs[0]} -> {syncs[1]}), or on added no launch ({on})")
+
+    raw, _ = chunk(False)
+    planted = raw["depth_raw"].clone()
+    planted.view(-1)[12345] = float("nan")
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    debug.logger.addHandler(handler)
+    try:
+        debug.enable_nan_checks(True)
+        debug.nan_check({"depth_raw": planted}, "planted")
+        debug.enable_nan_checks(True, raise_on_nan=True)
+        try:
+            debug.nan_check(planted, "planted")
+            raised = False
+        except FloatingPointError:
+            raised = True
+    finally:
+        debug.enable_nan_checks(False)
+        debug.logger.removeHandler(handler)
+    messages = [r.getMessage() for r in records]
+    print(f"[hooks] planted NaN: reported {messages}, raised {raised}; ChunkTimer "
+          f"{timer.summary()}")
+    if messages != ["NaN/Inf detected in planted[0]: 1 bad elements"] or not raised:
+        raise AssertionError("hooks: the planted NaN was not reported")
+    return {"hooks 5/1 chunk": dict(launches_plain=plain, launches_check_off=off,
+                                    launches_check_on=on, host_syncs=syncs,
+                                    trace_mib=size / 2**20, timer=timer.summary())}
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:2] == ["--dist-worker"]:
@@ -2106,7 +2524,8 @@ def main() -> int:
     runs, tails_off = phase_slice(smi)
     runs.update(phase_checkpoints(smi, tails_off))
     runs.update(phase_merge(smi))
-    runs.update(phase_large_chunk(smi))
+    large_runs, point_seq = phase_large_chunk(smi)
+    runs.update(large_runs)
     runs.update(phase_global_head(smi))
     runs.update(phase_train(smi))
     model, tail_run = phase_tail(smi, tails_off, runs["slice 5/1 sequential"])
@@ -2115,6 +2534,15 @@ def main() -> int:
     del model
     _release()
     runs.update(phase_tail_large(smi, runs["slice 75/30 point sequential"]))
+    int8_runs, model = phase_int8(
+        smi, tails_off, runs["slice 5/1 sequential"]["fps"], point_seq,
+        runs["slice 75/30 point sequential"]["fps"])
+    runs.update(int8_runs)
+    del point_seq
+    phase_hooks(smi, model)
+    del model
+    _release()
+    runs.update(phase_track(smi))
     runs.update(dist_runs)
     # each kernel's headline numbers: its case at the shapes of the path
     # named here, and the launches of that path's run

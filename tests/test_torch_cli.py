@@ -75,8 +75,11 @@ def test_compose_and_instantiate_match_jax(name):
 def test_loader_dtypes_targets_and_overrides():
     node = {"_target_": "vitslam_tpu.nn.layers.LayerNorm", "dim": 4, "dtype": "bfloat16"}
     assert loader.instantiate(node).dtype == torch.bfloat16
+    head = loader.instantiate({"_target_": "vitslam_tpu.models.track_head.TrackHead",
+                               "device": torch.device("meta")})
+    assert _port_class(head) == "vitslam_tpu_torch.models.track_head.TrackHead"
     with pytest.raises(NotImplementedError, match="not ported"):
-        loader.instantiate({"_target_": "vitslam_tpu.models.track_head.TrackHead"})
+        loader.instantiate({"_target_": "vitslam_tpu.io.orbax_ckpt.OrbaxCheckpointer"})
     with pytest.raises(ValueError, match="malformed override"):
         loader.compose("test_featureAlignedVGGT_vkitti", os.path.join(ROOT, "configs"),
                        overrides=["no_equals_sign"])

@@ -2,8 +2,9 @@
 kernels (K1 with its prep kernel, K2, K3 with its lse output, K4, K5)
 against their plain PyTorch versions, the edges of the wgmma + TMA attention
 core (short and ragged tiles, batch boundaries, strided views, the in-kernel
-q fold), gradients through every kernel wrapper, and the presets' default
-device. They import no JAX, so they
+q fold), gradients through every kernel wrapper, the presets' default
+device, the int8 projection (``torch._int_mm``) and a small TrackHead in
+fp32 against the same computations on the CPU. They import no JAX, so they
 also run on a machine with the card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
@@ -652,7 +653,7 @@ def test_nccl_gather_at_world_size_1(cuda):
 
     from vitslam_tpu_torch import parallel
 
-    torch.cuda.set_device(cuda)
+    torch.cuda.set_device(0)  # torch 2.11 takes no index-less device here
     parallel.init_distributed("nccl", f"localhost:{parallel.free_port()}", 1, 0)
     try:
         x = torch.arange(6.0, device=cuda).reshape(2, 3).requires_grad_()
@@ -665,3 +666,76 @@ def test_nccl_gather_at_world_size_1(cuda):
         assert mesh.coords == {"data": 0, "model": 0}
     finally:
         dist.destroy_process_group()
+
+
+def _bf16_ulps(a, b) -> int:
+    """Largest distance in bf16 units in the last place between two bf16
+    tensors whose elements share their signs."""
+    assert bool((torch.sign(a.float()) == torch.sign(b.float())).all())
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int()).abs().max())
+
+
+@pytest.mark.parametrize("M,K,N", [(2060, 1024, 3072), (30900, 1024, 1024), (130, 64, 72)])
+def test_int8_projection_on_the_card_matches_the_cpu(cuda, M, K, N):
+    """ops.quant on the card (torch._int_mm) against the same arithmetic on
+    the CPU: the same integers and scales, the same int32 product, the bf16
+    output within one unit in the last place."""
+    from vitslam_tpu_torch.ops.quant import int8_matmul, int_mm, quantize_cols, quantize_rows
+
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
+    w = torch.randn(N, K, device=cuda, generator=g) / K ** 0.5
+    b = torch.randn(N, device=cuda, generator=g)
+    with torch.no_grad():
+        got = [quantize_rows(x), quantize_cols(w.t())]
+        got_y = int_mm(got[0][0], got[1][0])
+        got_out = int8_matmul(x, w.t(), b)
+        want = [quantize_rows(x.cpu()), quantize_cols(w.cpu().t())]
+        want_y = int_mm(want[0][0], want[1][0])
+        want_out = int8_matmul(x.cpu(), w.cpu().t(), b.cpu())
+    for (gq, gs), (wq, ws) in zip(got, want):
+        assert torch.equal(gq.cpu(), wq) and torch.equal(gs.cpu(), ws)
+    assert torch.equal(got_y.cpu(), want_y)
+    assert _bf16_ulps(got_out.cpu(), want_out) <= 1
+
+
+def test_int8_projection_refuses_what_int_mm_does_not_take(cuda):
+    from vitslam_tpu_torch.ops.quant import int8_matmul
+
+    w = torch.randn(64, 32, device=cuda)
+    with torch.no_grad(), pytest.raises(ValueError, match="more than 16 rows"):
+        int8_matmul(torch.randn(16, 32, device=cuda), w.t())
+
+
+def test_track_head_fp32_on_the_card_matches_the_cpu(cuda):
+    """A small TrackHead (features 32, hidden 64, updater depth 2, 2
+    iterations, 4 correlation levels down to a one-pixel-tall level) in
+    fp32 on the card, TF32 off, against the CPU on the same inputs, the flow
+    head drawn from a seed: relative L2 error per output within 1e-3."""
+    from vitslam_tpu_torch.models import TrackHead
+    from vitslam_tpu_torch.nn.layers import init_weights
+
+    kw = dict(dim_in=64, patch_size=14, features=32, iters=2, corr_levels=4, hidden_size=64,
+              updater_depth=2, dtype=torch.float32)
+    cpu = init_weights(TrackHead(**kw, device="cpu"), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        flow = cpu.tracker.updateformer.flow_head.weight
+        flow.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    card = TrackHead(**kw, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    images = torch.tensor(rng.uniform(size=(1, 3, 3, 28, 42)), dtype=torch.float32)
+    taps = [torch.tensor(rng.normal(size=(1, 3, 11, 64)), dtype=torch.float32) for _ in range(4)]
+    query = torch.tensor([[[10.0, 12.0], [20.0, 5.0], [41.0, 27.0]]])
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = card([t.to(cuda) for t in taps], images.to(cuda), 5, query.to(cuda))
+            want = cpu(taps, images, 5, query)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert torch.isfinite(g).all()
+        assert float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)) <= 1e-3

@@ -39,7 +39,9 @@ MODULES = [
     "vitslam_tpu_torch.parallel.seq", "vitslam_tpu_torch.io.flax_msgpack",
     "vitslam_tpu_torch.io.from_jax", "vitslam_tpu_torch.data.kitti_odometry",
     "vitslam_tpu_torch.data.waymo", "vitslam_tpu_torch.ops.transfer",
-    "vitslam_tpu_torch.ops.attention", "chip_smoke",
+    "vitslam_tpu_torch.ops.attention", "vitslam_tpu_torch.ops.quant",
+    "vitslam_tpu_torch.models.track_head", "vitslam_tpu_torch.utils.debug",
+    "vitslam_tpu_torch.utils.profiling", "vitslam_tpu_torch.viz.viser_viz", "chip_smoke",
 ]
 # installed here, absent on the machine with the card: the package must
 # import without them (they are imported where a file is read or a plot

@@ -13,8 +13,10 @@ loaded from ``checkpoint.model_checkpoint_path`` (and
 ``checkpoint.from_pretrained`` as the fallback) when the config names one,
 each a checkpoint of the port or of the reference (``io/checkpoint.py``).
 The fused block tails of the backbone (kernel K5) follow the reference's
-switch ``VITSLAM_MLP_TAIL`` (1 = both sites, mlp, proj; default off), read
-here once.
+switch ``VITSLAM_MLP_TAIL`` (1 = both sites, mlp, proj; default off), and
+its int8 serving mode ``VITSLAM_INT8=1`` makes the model with ``int8=True``
+(the backbone's projections through ``ops.quant``); both are read here
+once.
 
 Several ranks: one reference command covers all of a host's devices, so
 ``--num_devices N`` makes this command a launcher that starts N ranks on
@@ -45,7 +47,12 @@ def mlp_tail_from_env(environ=os.environ) -> str:
     return MLP_TAIL_ENV.get(environ.get("VITSLAM_MLP_TAIL", "0"), "off")
 
 
-def build_from_config(cfg, device: str = "cuda", mlp_tail: str = "off"):
+def int8_from_env(environ=os.environ) -> bool:
+    """The reference's int8 switch: ``VITSLAM_INT8=1`` and nothing else."""
+    return environ.get("VITSLAM_INT8", "0") == "1"
+
+
+def build_from_config(cfg, device: str = "cuda", mlp_tail: str = "off", int8: bool = False):
     """Instantiate (model, loss, metrics, train_data, val/test data) from a
     composed config; the model on ``device``, seeded from ``seed_value``,
     then loaded from the config's checkpoint if it names one."""
@@ -56,7 +63,8 @@ def build_from_config(cfg, device: str = "cuda", mlp_tail: str = "off"):
     from .nn.layers import init_weights
 
     seed = int(cfg.get("seed_value", 42))
-    model = instantiate(cfg["model"], device=torch.device(device), mlp_tail=mlp_tail)
+    model = instantiate(cfg["model"], device=torch.device(device), mlp_tail=mlp_tail,
+                        int8=int8)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
     model.eval()
     loss = instantiate(cfg["loss"])
@@ -163,7 +171,7 @@ def main(argv=None):
     if args.num_devices:
         cfg["num_devices"] = args.num_devices
     model, loss, metrics, train_data, val_data = build_from_config(
-        cfg, device=device, mlp_tail=mlp_tail_from_env())
+        cfg, device=device, mlp_tail=mlp_tail_from_env(), int8=int8_from_env())
     try:
         trainer = Trainer(cfg, model, loss, train_data=train_data, val_data=val_data,
                           metrics=metrics, shape_buckets=cfg.get("shape_buckets"))

@@ -11,9 +11,9 @@ vitslam_tpu/eval/orchestrator.py).
 * the alignment diagnostics (``log_additional_data``);
 * in a gang of ranks, each metric's states are concatenated over all ranks
   in rank order before ``compute`` (the reference's ``dist_reduce_fx="cat"``;
-  ``parallel.allgather_rows`` through each metric's ``gather_fn`` hook).
-
-Not ported yet, and raised rather than skipped: the viser viewer.
+  ``parallel.allgather_rows`` through each metric's ``gather_fn`` hook);
+* the viser viewer of one sequence (``visualize_sequence``,
+  ``viz.viser_viz``).
 """
 from __future__ import annotations
 
@@ -231,8 +231,15 @@ class Metrics:
         return out
 
     def visualize_sequence(self, dataset, pipeline):
-        raise NotImplementedError("the viser viewer (viz/viser_viz.py) is not ported yet "
-                                  "(ROADMAP queue 1); set metrics.visualize=false")
+        """Serve the first sequence's predictions in the viser viewer. Without
+        viser it raises ImportError before the sequence runs."""
+        from ..viz.viser_viz import require_viser, viser_wrapper
+
+        require_viser()
+        seq_name = dataset.get_seq_name(0)
+        seq_data = get_sequence_data(dataset, 0, seq_name, dataset.seq_frame_num[0])
+        preds = self.run_sequence(seq_data, pipeline)
+        return viser_wrapper(self._viz_dict(preds, seq_data), background_mode=False)
 
     def save_dict_for_visualization(self, preds: dict, seq_data: dict, save_path: str):
         np.save(f"{save_path}visualization_data.npy", self._viz_dict(preds, seq_data))

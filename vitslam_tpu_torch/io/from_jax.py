@@ -14,7 +14,12 @@ parameter names:
 * a leading ``params.`` (the flax variable collection) is dropped;
 * ``kernel`` -> ``weight``; LayerNorm ``scale`` -> ``weight``;
 * the patch embedding's scanned ``blocks.<i>.block.`` -> ``blocks.<i>.``
-  (the port's ModuleList index; the aggregator's ``layers.<i>.`` maps as is).
+  (the port's ModuleList index; the aggregator's ``layers.<i>.`` maps as is);
+* the track head's numbered flax modules ``time_blocks_<i>``,
+  ``space_{point2virtual,virtual,virtual2point}_blocks_<i>``,
+  ``ffeat_updater_0``, ``vis_predictor_0`` and ``conf_predictor_0`` ->
+  ``<name>.<i>`` (ModuleList / Sequential indices, the VGGT-1B checkpoint's
+  names); its GroupNorm ``scale`` -> ``weight`` like a LayerNorm's.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ from torch import nn
 
 _LEAF = {"kernel": "weight", "scale": "weight"}
 _SCANNED = ("layers", "blocks")
+_NUMBERED = re.compile(r"(^|\.)(time_blocks|space_point2virtual_blocks|space_virtual_blocks|"
+                       r"space_virtual2point_blocks|ffeat_updater|vis_predictor|"
+                       r"conf_predictor)_(\d+)\.")
 
 
 def flatten_tree(tree: dict, prefix: tuple = ()) -> dict:
@@ -86,6 +94,7 @@ def port_name(jax_key: str) -> str:
     """The port's parameter name for an exported flax key."""
     key = jax_key[len("params."):] if jax_key.startswith("params.") else jax_key
     key = re.sub(r"\.blocks\.(\d+)\.block\.", r".blocks.\1.", key)
+    key = _NUMBERED.sub(r"\1\2.\3.", key)
     head, _, leaf = key.rpartition(".")
     leaf = _LEAF.get(leaf, leaf)
     return f"{head}.{leaf}" if head else leaf

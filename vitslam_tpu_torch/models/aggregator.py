@@ -13,6 +13,9 @@ vitslam_tpu/models/aggregator.py).
 * ``mlp_tail`` ("off" | "mlp" | "proj" | "both"): the fused block tails
   (K5) of every patch-embed, frame and global block, as the reference's
   ``fused_tail=True`` blocks under ``VITSLAM_MLP_TAIL``;
+* ``int8``: every patch-embed, frame and global block is built with
+  ``quant=True`` (as the reference's), and this switches their projections
+  to int8 (``nn.layers.set_int8``; the fused tails are then off);
 * optional KV merge of the global attention (``merge_pool`` p > 1 and
   ``merge_stride`` s): anchor frames (every s-th, frame 0 included) give all
   their tokens as keys/values, every other frame its special tokens plus its
@@ -34,7 +37,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import Block, Conv2d, LayerNorm, _param
+from ..nn.layers import Block, Conv2d, LayerNorm, _param, set_int8
 from ..nn.rope import patch_grid_positions, rope_cache_2d
 from ..ops.attention import remat
 from ..ops.resize import bicubic_matrix, resize_matmul
@@ -77,7 +80,8 @@ class PatchEmbedViT(nn.Module):
                                 if num_register_tokens else None)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qk_norm=False,
-                  init_values=init_values, dtype=dtype, device=device, mlp_tail=mlp_tail)
+                  init_values=init_values, dtype=dtype, device=device, mlp_tail=mlp_tail,
+                  quant=True)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, dtype, device=device)
 
@@ -126,7 +130,7 @@ class AggregatorLayer(nn.Module):
         self.remat = remat
         kw = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm, init_values=init_values,
                   rope="2d", rope_base=rope_base, dtype=dtype, device=device,
-                  mlp_tail=mlp_tail)
+                  mlp_tail=mlp_tail, quant=True)
         self.frame_block = Block(dim, num_heads, **kw)
         self.global_block = Block(dim, num_heads, **kw, seq_group=seq_group)
 
@@ -166,10 +170,11 @@ class Aggregator(nn.Module):
                  init_values: float = 0.01, dtype=torch.bfloat16,
                  intermediate_layers: Sequence[int] = (4, 11, 17, 23),
                  merge_pool: int = 0, merge_stride: int = 1, device=None,
-                 mlp_tail: str = "off", seq_group=None, remat: bool = False):
+                 mlp_tail: str = "off", seq_group=None, remat: bool = False,
+                 int8: bool = False):
         """remat: the patch embedding's and the layers' blocks are
         recomputed in the backward (``ops.attention.remat``) when gradients
-        are on."""
+        are on. int8: the blocks' projections run int8."""
         super().__init__()
         self.merge_pool, self.merge_stride = merge_pool, merge_stride
         self.seq_group = seq_group
@@ -187,6 +192,7 @@ class Aggregator(nn.Module):
             AggregatorLayer(embed_dim, num_heads, mlp_ratio, qk_norm, init_values,
                             rope_base, dtype, device, mlp_tail, seq_group, remat)
             for _ in range(depth))
+        set_int8(self, int8)
 
     def init_params(self, g):
         nn.init.normal_(self.camera_token, 0.0, 1e-6, generator=g)

@@ -7,6 +7,9 @@ learned layers (``resize_layer_0/1``: k=s transposed convs 4x / 2x,
 fused top-down through residual conv units (``fusion_3..0``, each upsampling
 with align-corners bilinear), then decoded at full pixel resolution. Convs
 run in the compute dtype, the final 1x1 conv and activations in fp32.
+``feature_only`` (the TrackHead's feature extractor) stops after a 3x3
+``head_conv1`` at ``features`` channels and returns that map resized to
+1/``down_ratio`` of the image, channels last.
 """
 from __future__ import annotations
 
@@ -107,6 +110,7 @@ class DPTHead(nn.Module):
                  out_channels: Sequence[int] = (256, 512, 1024, 1024),
                  activation: str = "inv_log", conf_activation: str = "expp1",
                  patch_size: int = 14, pos_embed: bool = True,
+                 feature_only: bool = False, down_ratio: int = 1,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
         if activation not in ("exp", "inv_log", "linear"):
@@ -116,6 +120,7 @@ class DPTHead(nn.Module):
         self.dim_in, self.output_dim, self.patch_size = dim_in, output_dim, patch_size
         self.activation, self.conf_activation = activation, conf_activation
         self.use_pos_embed, self.out_channels, self.dtype = pos_embed, tuple(out_channels), dtype
+        self.feature_only, self.down_ratio, self.features = feature_only, down_ratio, features
         oc = self.out_channels
         kw = dict(dtype=dtype, device=device)
         for i in range(4):
@@ -130,6 +135,9 @@ class DPTHead(nn.Module):
         self.fusion_2 = FeatureFusionBlock(features, True, **kw)
         self.fusion_1 = FeatureFusionBlock(features, True, **kw)
         self.fusion_0 = FeatureFusionBlock(features, True, **kw)
+        if feature_only:
+            self.head_conv1 = Conv2d(features, features, 3, padding=1, **kw)
+            return
         self.head_conv1 = Conv2d(features, features // 2, 3, padding=1, **kw)
         self.head_conv2 = Conv2d(features // 2, 32, 3, padding=1, **kw)
         self.head_out = Conv2d(32, output_dim, 1, dtype=torch.float32, device=device)
@@ -137,7 +145,8 @@ class DPTHead(nn.Module):
     def forward(self, token_list, images: torch.Tensor, patch_start_idx: int):
         """token_list: 4 taps (B, S, T, dim_in), shallow -> deep; images
         (B, S, 3, H, W), for the output size. Returns (map (B, S, H, W,
-        output_dim-1), conf (B, S, H, W)), fp32."""
+        output_dim-1), conf (B, S, H, W)), fp32; in feature_only mode one
+        (B, S, H/dr, W/dr, features) map in the compute dtype."""
         B, S, _, H, W = images.shape
         gh, gw = H // self.patch_size, W // self.patch_size
         if len(token_list) != 4:
@@ -164,6 +173,10 @@ class DPTHead(nn.Module):
         y = self.fusion_1(y, skip=f1, out_hw=f0.shape[-2:])
         y = self.fusion_0(y, skip=f0)
         y = self.head_conv1(y)
+        if self.feature_only:
+            h, w = H // self.down_ratio, W // self.down_ratio
+            y = _resize(y, h, w)
+            return y.reshape(B, S, self.features, h, w).permute(0, 1, 3, 4, 2)
         y = _resize(y, H, W)
         y = F.relu(self.head_conv2(y))
         y = self.head_out(y)  # fp32

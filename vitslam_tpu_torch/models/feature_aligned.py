@@ -40,7 +40,7 @@ class FeatureAlignedVGGT(nn.Module):
                  temporal_attention: bool = True, align_embed_dim: int = 1024,
                  align_dec_dim: int = 512, global_merge_pool: int = 0,
                  global_merge_stride: int = 1, dtype=torch.bfloat16, device=None,
-                 mlp_tail: str = "off", remat: bool = False):
+                 mlp_tail: str = "off", remat: bool = False, int8: bool = False):
         super().__init__()
         self.enable_camera, self.enable_depth = enable_camera, enable_depth
         self.enable_point = enable_point
@@ -53,7 +53,7 @@ class FeatureAlignedVGGT(nn.Module):
             enable_point=enable_point, enable_track=enable_track,
             dpt_frames_chunk=dpt_frames_chunk, global_merge_pool=global_merge_pool,
             global_merge_stride=global_merge_stride, dtype=dtype, device=device,
-            mlp_tail=mlp_tail, remat=remat)
+            mlp_tail=mlp_tail, remat=remat, int8=int8)
         self.alignment_head = AlignmentHead(
             patch_size=patch_size, in_dim=2 * embed_dim, embed_dim=align_embed_dim,
             dec_dim=align_dec_dim, num_memory_tokens=num_memory_tokens,

@@ -38,7 +38,8 @@ class PointAlignedVGGT(nn.Module):
                  enable_point: bool = True, enable_track: bool = False,
                  dpt_frames_chunk: int = 0, global_merge_pool: int = 0,
                  global_merge_stride: int = 1, dtype=torch.bfloat16, device=None,
-                 mlp_tail: str = "off", seq_group=None, remat: bool = False):
+                 mlp_tail: str = "off", seq_group=None, remat: bool = False,
+                 int8: bool = False):
         super().__init__()
         self.seq_group = seq_group
         if not enable_point:
@@ -52,7 +53,7 @@ class PointAlignedVGGT(nn.Module):
             enable_point=True, enable_track=enable_track,
             dpt_frames_chunk=dpt_frames_chunk, global_merge_pool=global_merge_pool,
             global_merge_stride=global_merge_stride, dtype=dtype, device=device,
-            mlp_tail=mlp_tail, seq_group=seq_group, remat=remat)
+            mlp_tail=mlp_tail, seq_group=seq_group, remat=remat, int8=int8)
 
     def embed_frames(self, images: torch.Tensor) -> torch.Tensor:
         """Per-frame patch embedding (the pipeline's unique-frame dedup)."""

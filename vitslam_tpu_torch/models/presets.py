@@ -3,7 +3,8 @@
 ``flagship()`` is the reference's shipped configuration: a VGGT-1B-scale
 backbone (DINOv2-L patch embed: 24 blocks at 1024; 24 frame/global pairs at
 1024; taps 4/11/17/23) + an AlignmentHead with 8 memory tokens and temporal
-attention; camera, depth and point heads on, track head off. The large-chunk
+attention; camera, depth and point heads on, track head off, bf16 backbone
+projections (``int8=True``: the int8 serving mode). The large-chunk
 presets put the same backbone under the training-free point- and
 pose-aligned models, which the reference runs at chunk width 75 / overlap
 30. The KV merge of the global attention is a keyword override
@@ -26,14 +27,14 @@ FLAGSHIP = dict(
     img_size=518, patch_size=14, embed_dim=1024, depth=24, num_heads=16,
     patch_embed_depth=24, intermediate_layers=(4, 11, 17, 23),
     enable_camera=True, enable_depth=True, enable_point=True,
-    enable_track=False, dtype=torch.bfloat16,
+    enable_track=False, dtype=torch.bfloat16, int8=False,
 )
 
 SMALL = dict(
     img_size=224, patch_size=14, embed_dim=384, depth=6, num_heads=6,
     patch_embed_depth=4, intermediate_layers=(1, 2, 4, 5),
     enable_camera=True, enable_depth=True, enable_point=True,
-    enable_track=False, dtype=torch.bfloat16,
+    enable_track=False, dtype=torch.bfloat16, int8=False,
 )
 
 

@@ -1,9 +1,10 @@
 """VGGTCore — the backbone + decoder-head stack shared by the aligned model
 variants (port of vitslam_tpu/models/vggt_core.py): an Aggregator plus
-optional CameraHead / DPTHead(depth) / DPTHead(point). The TrackHead is not
-ported (every reference config disables it). ``mlp_tail`` picks the
-backbone blocks' fused tail sites (``nn.layers.Block``); the heads never
-take it.
+optional CameraHead / DPTHead(depth) / DPTHead(point) / TrackHead (every
+reference config disables the last; ``decode_track`` runs it).
+``mlp_tail`` picks the backbone blocks' fused tail sites
+(``nn.layers.Block``) and ``int8`` switches the backbone's projections to
+int8 (``ops.quant``); the heads take neither.
 
 ``seq_group`` (sequence parallelism, ``parallel/seq.py``): the encode runs
 on this rank's slice of the chunk's frames. The backbone gathers keys and
@@ -22,6 +23,7 @@ from ..parallel.mesh import all_gather
 from .aggregator import Aggregator
 from .camera_head import CameraHead
 from .dpt_head import DPTHead
+from .track_head import TrackHead
 
 
 class VGGTCore(nn.Module):
@@ -36,10 +38,8 @@ class VGGTCore(nn.Module):
                  dpt_frames_chunk: int = 0, camera_trunk_depth: int = 4,
                  global_merge_pool: int = 0, global_merge_stride: int = 1,
                  dtype=torch.bfloat16, device=None, mlp_tail: str = "off",
-                 seq_group=None, remat: bool = False):
+                 seq_group=None, remat: bool = False, int8: bool = False):
         super().__init__()
-        if enable_track:
-            raise NotImplementedError("the TrackHead is not ported yet")
         self.dpt_frames_chunk = dpt_frames_chunk
         self.seq_group = seq_group
         self.aggregator = Aggregator(
@@ -48,7 +48,7 @@ class VGGTCore(nn.Module):
             patch_embed_heads=patch_embed_heads,
             intermediate_layers=intermediate_layers, merge_pool=global_merge_pool,
             merge_stride=global_merge_stride, dtype=dtype, device=device,
-            mlp_tail=mlp_tail, seq_group=seq_group, remat=remat)
+            mlp_tail=mlp_tail, seq_group=seq_group, remat=remat, int8=int8)
         dim_in = 2 * embed_dim
         dpt = dict(dim_in=dim_in, features=dpt_features,
                    out_channels=tuple(dpt_out_channels), patch_size=patch_size,
@@ -62,6 +62,9 @@ class VGGTCore(nn.Module):
         self.point_head = (DPTHead(output_dim=4, activation="inv_log",
                                    conf_activation="expp1", **dpt)
                            if enable_point else None)
+        self.track_head = (TrackHead(dim_in=dim_in, patch_size=patch_size, dtype=dtype,
+                                     device=device)
+                           if enable_track else None)
 
     def encode(self, images, patch_tokens=None):
         """images (B, S, 3, H, W) -> (taps list, patch_start_idx)."""
@@ -99,6 +102,11 @@ class VGGTCore(nn.Module):
                      patch_start_idx) for s0 in range(0, S, fc)]
         return (torch.cat([o[0] for o in outs], dim=1),
                 torch.cat([o[1] for o in outs], dim=1))
+
+    def decode_track(self, taps, images, patch_start_idx, query_points):
+        """-> tracks (B, S, N, 2) pixels, visibility, confidence (B, S, N)
+        of query_points (B, N, 2), pixels of frame 0."""
+        return self.track_head(taps, images, patch_start_idx, query_points)
 
     def forward(self, images):
         """Plain single-chunk forward: the raw predictions dict."""

@@ -16,10 +16,11 @@ from .layers import (
     ln_apply,
     qk_logit_bound,
     qk_shift_from,
+    set_int8,
 )
 
 __all__ = [
     "Attention", "Block", "Conv2d", "CrossAttention", "CrossAttentionBlock",
     "Dense", "GatedUpdate", "HeadLayerNorm", "LayerNorm", "LayerScale", "Mlp",
-    "init_weights", "ln_apply", "qk_logit_bound", "qk_shift_from",
+    "init_weights", "ln_apply", "qk_logit_bound", "qk_shift_from", "set_int8",
 ]

@@ -1,7 +1,8 @@
 """Transformer building blocks (port of vitslam_tpu/nn/layers.py): Dense,
 LayerNorm, Mlp, LayerScale, qk-norm self- and cross-attention, pre-norm
-blocks with RoPE, and the fused block tails (``Block(mlp_tail=...)``, kernel
-K5 through ``ops.mlp_tail``).
+blocks with RoPE, the fused block tails (``Block(mlp_tail=...)``, kernel
+K5 through ``ops.mlp_tail``) and the int8 projections (``Dense(quant=True)``
+under ``set_int8``, through ``ops.quant``).
 
 Parameters are fp32; each module has a compute ``dtype`` (bf16 in the
 backbone) and casts its inputs and weights to it at each matmul, as flax
@@ -22,6 +23,7 @@ from torch import nn
 from ..ops.attention import ROUTE_COUNTS, attention_route, scaled_dot_product_attention
 from ..ops.fused_attention import flat_flash_attention, fused_qkv_attention
 from ..ops.mlp_tail import mlp_tail
+from ..ops.quant import int8_matmul
 from ..parallel.mesh import all_gather
 from .rope import apply_rope_1d, apply_rope_2d, apply_rope_cached, apply_rope_flat
 
@@ -98,14 +100,17 @@ def ln_apply(x, scale, bias, dtype, eps: float = LN_EPS):
 
 
 class Dense(nn.Module):
-    """Linear layer with fp32 params and a compute dtype (flax nn.Dense)."""
+    """Linear layer with fp32 params and a compute dtype (flax nn.Dense).
+    ``quant=True`` (the reference's QuantizableDense): while the int8 mode
+    is on (``set_int8``) the product runs through ``ops.quant.int8_matmul``
+    on the input as it comes and the fp32 weight."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, quant: bool = False):
         super().__init__()
         self.weight = _param(out_features, in_features, device=device)
         self.bias = _param(out_features, device=device) if bias else None
-        self.dtype = dtype
+        self.dtype, self.quant, self.int8 = dtype, quant, False
 
     def init_params(self, g):
         lecun_normal_(self.weight, self.weight.shape[1], g)
@@ -113,8 +118,19 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
+        if self.int8:
+            return int8_matmul(x, self.weight.t(), self.bias, self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+def set_int8(module: nn.Module, enabled: bool) -> nn.Module:
+    """Switch the int8 mode of every ``Dense(quant=True)`` in ``module``
+    (the reference's VITSLAM_INT8, here a property of the model)."""
+    for m in module.modules():
+        if isinstance(m, Dense) and m.quant:
+            m.int8 = enabled
+    return module
 
 
 class Conv2d(nn.Module):
@@ -234,14 +250,14 @@ def dense_tail(dense: Dense, h, res, ls_gamma, tail_ln, gelu: bool):
 class Mlp(nn.Module):
     """fc1 -> exact-erf GELU -> fc2. With ``tail=(res, ls_gamma)`` the
     caller asks for the fused tail: gelu + fc2 + LayerScale + residual in
-    K5, returning res + ls * fc2(gelu(fc1(x)))."""
+    K5, returning res + ls * fc2(gelu(fc1(x))). ``quant``: both Denses'."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, bias: bool = True, dtype=torch.float32,
-                 device=None):
+                 device=None, quant: bool = False):
         super().__init__()
-        self.fc1 = Dense(in_features, hidden_features, bias, dtype, device)
-        self.fc2 = Dense(hidden_features, out_features, bias, dtype, device)
+        self.fc1 = Dense(in_features, hidden_features, bias, dtype, device, quant)
+        self.fc2 = Dense(hidden_features, out_features, bias, dtype, device, quant)
 
     def forward(self, x, tail=None):
         if tail is not None:
@@ -276,22 +292,23 @@ class Attention(nn.Module):
     are split over this process group in rank order; the LayerNormed and
     rotated keys and values are gathered over it, the queries stay local,
     and the route follows the gathered key count (never K1, which reads
-    q, k and v from one packed projection)."""
+    q, k and v from one packed projection). ``quant``: the qkv (also over
+    ``kv``) and output projections'."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = True,
                  proj_bias: bool = True, qk_norm: bool = True,
                  rope: Optional[str] = None, rope_base: float = 100.0,
-                 dtype=torch.float32, device=None, seq_group=None):
+                 dtype=torch.float32, device=None, seq_group=None, quant: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.qk_norm, self.rope, self.rope_base = qk_norm, rope, rope_base
         self.seq_group = seq_group
         dh = dim // num_heads
-        self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype, device)
+        self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype, device, quant)
         if qk_norm:
             self.q_norm = HeadLayerNorm(num_heads, dh, dtype, device=device)
             self.k_norm = HeadLayerNorm(num_heads, dh, dtype, device=device)
-        self.proj = Dense(dim, dim, proj_bias, dtype, device)
+        self.proj = Dense(dim, dim, proj_bias, dtype, device, quant)
 
     def _norm_params(self):
         return ((self.q_norm.weight, self.q_norm.bias),
@@ -411,23 +428,25 @@ class Block(nn.Module):
     centered one, not ``ln_apply``'s E[x^2] - E[x]^2), "mlp" fuses gelu +
     fc2 + LayerScale + residual. The frozen backbone's blocks take it; the
     parameters are the same either way. ``seq_group``: the attention's
-    (``Attention``)."""
+    (``Attention``). ``quant``: the four projections may run int8
+    (``set_int8``); while they do, the block takes no fused tail, as the
+    reference's does not."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, proj_bias: bool = True,
                  qk_norm: bool = True, init_values: Optional[float] = None,
                  rope: Optional[str] = None, rope_base: float = 100.0,
                  dtype=torch.float32, device=None, mlp_tail: str = "off",
-                 seq_group=None):
+                 seq_group=None, quant: bool = False):
         super().__init__()
         if mlp_tail not in TAIL_SITES:
             raise ValueError(f"mlp_tail must be one of {sorted(TAIL_SITES)}, got {mlp_tail!r}")
         self.dtype, self.tail_sites = dtype, TAIL_SITES[mlp_tail]
         self.norm1 = LayerNorm(dim, dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, proj_bias, qk_norm,
-                              rope, rope_base, dtype, device, seq_group)
+                              rope, rope_base, dtype, device, seq_group, quant)
         self.norm2 = LayerNorm(dim, dtype, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, device=device, quant=quant)
         if init_values is not None:
             self.ls1 = LayerScale(dim, init_values, device)
             self.ls2 = LayerScale(dim, init_values, device)
@@ -436,7 +455,8 @@ class Block(nn.Module):
 
     def forward(self, x, pos=None, kv=None, pos_kv=None):
         kv_n = self.norm1(kv) if kv is not None else None
-        sites = self.tail_sites if x.numel() // x.shape[-1] >= TAIL_MIN_ROWS else ()
+        tails = x.numel() // x.shape[-1] >= TAIL_MIN_ROWS and not self.attn.qkv.int8
+        sites = self.tail_sites if tails else ()
         ls1, ls2 = (None, None) if self.ls1 is None else (self.ls1.gamma, self.ls2.gamma)
         if "proj" in sites:
             x, y = self.attn(self.norm1(x), pos, kv=kv_n, pos_kv=pos_kv,

@@ -1,2 +1,3 @@
-"""Eval plots (port of vitslam_tpu/viz/plots.py); the viser viewer is not
-ported yet."""
+"""Eval plots (port of vitslam_tpu/viz/plots.py) and the viser viewer
+(``viser_viz``, its preparation in numpy and torch; viser itself is
+optional)."""
