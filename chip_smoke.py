@@ -109,6 +109,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 track width; the head in fp32 on the card (TF32 off) held to
                 the same head on the CPU; the model's bf16 head against
                 fp32, its time, device launches and peak memory.
+16. tp         — tensor parallelism, right after the distributed phase and
+                the same way: a gloo gang of 4 processes on the card, two
+                nodes of 2 (LOCAL_WORLD_SIZE), as a (data 2, model 2) mesh,
+                takes one global-mode (20, 5) train step of the full-width
+                flagship through the Trainer with num_model_shards 2 (every
+                split parameter held as its half, gathered where it is
+                read), one batch row a data rank, held against the DP
+                phase's one-process step (objective 1e-3, gradient norm
+                1e-2, gradients GRAD_RTOL); its sharded save
+                (io/sharded_ckpt.py, the orbax backend) is loaded here at
+                model 1, bit-equal. Then one int8 projection's gradients on
+                the card against the CPU, native_available(), and the pod
+                dry run (vitslam_tpu_torch.parallel.dryrun) of 4 ranks on
+                the card. Prints the rank peaks, the bytes each rank's
+                parameter gathers receive and the phase's seconds.
 
 The kernel phase also holds K3's lse output and K4 against their plain
 versions at the global head's shapes (and K4's outputs from two runs to
@@ -1830,15 +1845,26 @@ def _dist_serve(rank: int, world: int, out: Path) -> None:
     torch.save({"pred": pred, "launches": launches}, out / f"serve_{rank}.pt")
 
 
+def _whole_hash(trainer) -> str:
+    """head_grad_check.state_hash over the whole trainable tensors (gathered
+    over the model group under tensor parallelism: every rank calls it)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in sorted(trainer.state.trainable.items()):
+        h.update(name.encode())
+        h.update(trainer.whole(name, t.detach()).float().cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
 def _dp_step(trainer, batch: dict) -> dict:
     """One train step of ``trainer`` on ``batch`` at TRAIN_BUCKET, data-
-    parallel when the trainer has a mesh: the losses, the gradients, their
-    global norm, then the AdamW update and a hash of the trainable tensors
-    after it."""
+    parallel when the trainer has a mesh (and tensor-parallel when it has
+    model shards): the losses, the whole gradients, their global norm, then
+    the AdamW update and a hash of the whole trainable tensors after it."""
     import torch
 
-    from vitslam_tpu_torch.head_grad_check import state_hash
-    from vitslam_tpu_torch.train import global_norm, loss_and_grads
+    from vitslam_tpu_torch.train import loss_and_grads
 
     width, overlap = TRAIN_BUCKET
     chunks, merged = trainer._prepare_chunks(batch, width, overlap)
@@ -1847,12 +1873,12 @@ def _dp_step(trainer, batch: dict) -> dict:
         trainer.model, trainer.loss, st.trainable, chunks, merged, st.step, overlap,
         trainer.gt_alignment_type, generator=torch.Generator().manual_seed(11),
         data_group=None if trainer.mesh is None else trainer.mesh.group("data"))
-    norm = float(global_norm(grads.values()))
+    norm = float(st.optimizer.grad_norm(grads))
     st.optimizer.step(grads)
     torch.cuda.synchronize()
     return dict(objective=float(losses["objective"]), grad_norm=norm,
-                grads={n: g.cpu() for n, g in grads.items()}, state=state_hash(trainer),
-                rows=chunks[0]["images"].shape[0])
+                grads={n: trainer.whole(n, g).cpu() for n, g in grads.items()},
+                state=_whole_hash(trainer), rows=chunks[0]["images"].shape[0])
 
 
 def _train_case(batch_rows: int):
@@ -1892,9 +1918,6 @@ def _dist_train(rank: int, world: int, out: Path) -> None:
     torch.save(res, out / f"train_{rank}.pt")
 
 
-DIST_SCENARIOS = {"sp": _dist_sp, "serve": _dist_serve, "train": _dist_train}
-
-
 def _dist_worker(rank: int, port: int, world: int, outdir: str, scenarios: str) -> int:
     """One rank of a gang of the distributed phase (``chip_smoke.py
     --dist-worker RANK PORT WORLD OUTDIR SCENARIOS``): joins the gloo gang on
@@ -1922,8 +1945,9 @@ def _dist_worker(rank: int, port: int, world: int, outdir: str, scenarios: str) 
     return 0
 
 
-def _gang(smi: str, world: int, scenarios: str, out: Path) -> None:
+def _gang(smi: str, world: int, scenarios: str, out: Path, per_node: int = 0) -> None:
     """Run ``scenarios`` in a gloo gang of ``world`` processes on the card
+    (nodes of ``per_node`` ranks, LOCAL_WORLD_SIZE; one node by default)
     and print the ranks' lines."""
     from vitslam_tpu_torch import parallel
 
@@ -1932,7 +1956,7 @@ def _gang(smi: str, world: int, scenarios: str, out: Path) -> None:
         lambda r, port: [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker", str(r),
                          str(port), str(world), str(out), scenarios],
         world, timeout=600, retries=1, cwd=str(ROOT),
-        env=parallel.clean_env({"LOCAL_WORLD_SIZE": str(world)}))
+        env=parallel.clean_env({"LOCAL_WORLD_SIZE": str(per_node or world)}))
     for o in outs:
         print("\n".join(line for line in o.splitlines() if line.startswith("[distributed")))
     print(f"[distributed] gloo gang of {world} processes on one card ({scenarios}): "
@@ -1940,12 +1964,13 @@ def _gang(smi: str, world: int, scenarios: str, out: Path) -> None:
           f"rate of the distributed paths), on {smi}")
 
 
-def phase_distributed(smi: str) -> dict:
+def phase_distributed(smi: str) -> tuple[dict, dict]:
     """The distributed paths on the card: a gloo gang of DIST_RANKS
     processes sharing it runs the sequence-parallel encode and chunk-
     parallel serving, a gang of DP_RANKS one data-parallel train step; this
     process then runs each on its own and holds the gangs to it, and runs
-    the 5/1 serving through a 1-rank NCCL group."""
+    the 5/1 serving through a 1-rank NCCL group. Returns the stats and this
+    process's train step (the tensor-parallel phase's reference too)."""
     import shutil
     import tempfile
 
@@ -1953,7 +1978,6 @@ def phase_distributed(smi: str) -> dict:
     import torch.distributed as dist
 
     from vitslam_tpu_torch import parallel
-    from vitslam_tpu_torch.head_grad_check import _rel_l2
     from vitslam_tpu_torch.models import flagship, flagship_point_aligned
 
     out = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
@@ -2077,28 +2101,15 @@ def phase_distributed(smi: str) -> dict:
     stacked = _dp_step(trainer, batch)
     del trainer, model, encode
     _release()
-    obj = [res["objective"] for res in train]
-    norm = [res["grad_norm"] for res in train]
     states = {res["state"] for res in train}
-    g = train[0]["grads"]
-
-    def compare(want):
-        errs = {n: _rel_l2(g[n], want["grads"][n]) for n in g if want["grads"][n].abs().max() > 0}
-        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
-        obj_err = max(abs(o - want["objective"]) for o in obj) / abs(want["objective"])
-        norm_err = max(abs(n - want["grad_norm"]) for n in norm) / want["grad_norm"]
-        return (f"objective {obj} vs {want['objective']:.6g} (rel {obj_err:.2e}); grad_norm "
-                f"{norm} vs {want['grad_norm']:.6g} (rel {norm_err:.2e}); gradients of "
-                f"{len(errs)} tensors, max rel-L2 {worst[0][1]:.3e}, worst {worst}; state after "
-                f"the step {want['state']}"), obj_err, norm_err, worst
-    text, obj_err, norm_err, worst = compare(ref)
+    text, obj_err, norm_err, worst = _compare_step(train, ref)
     print(f"[distributed] DP train step at {TRAIN_BUCKET}, {DP_RANKS} ranks x 1 sample vs one "
           f"process x {DP_RANKS} (frozen encode one row at a time): {text} (tol objective "
           f"{DIST_OBJ_RTOL}, grad_norm {DIST_NORM_RTOL}, gradients {GRAD_RTOL}); ranks' "
           f"trainable tensors after the step: hashes {sorted(states)}; one process's launches "
           f"{ref_launches}")
     print(f"[distributed] the same against one process with the stacked encode (not gated): "
-          f"{compare(stacked)[0]}")
+          f"{_compare_step(train, stacked)[0]}")
     for r, res in enumerate(train):
         stats[f"distributed DP train rank {r}"] = dict(launches=res["launches"])
     if len(states) != 1:
@@ -2107,10 +2118,222 @@ def phase_distributed(smi: str) -> dict:
         raise AssertionError("distributed DP train step disagrees with one process")
     if train[0]["launches"]["flash_attention_backward"] == 0:
         raise AssertionError("distributed DP train: K4 was not launched")
-    stats["distributed DP train rank 0"].update(objective=obj, grad_norm=norm,
-                                                grad_rel_l2_max=worst[0][1])
-    return stats
+    stats["distributed DP train rank 0"].update(
+        objective=[res["objective"] for res in train],
+        grad_norm=[res["grad_norm"] for res in train], grad_rel_l2_max=worst[0][1])
+    return stats, ref
 
+
+def _compare_step(ranks: list, want: dict):
+    """The ranks' step (objective, gradient norm; rank 0's gradients)
+    against one process's: (text, objective error, norm error, the five
+    worst gradients by relative L2 error)."""
+    from vitslam_tpu_torch.head_grad_check import _rel_l2
+
+    obj = [res["objective"] for res in ranks]
+    norm = [res["grad_norm"] for res in ranks]
+    g = ranks[0]["grads"]
+    errs = {n: _rel_l2(g[n], want["grads"][n]) for n in g if want["grads"][n].abs().max() > 0}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    obj_err = max(abs(o - want["objective"]) for o in obj) / abs(want["objective"])
+    norm_err = max(abs(n - want["grad_norm"]) for n in norm) / want["grad_norm"]
+    return (f"objective {obj} vs {want['objective']:.6g} (rel {obj_err:.2e}); grad_norm "
+            f"{norm} vs {want['grad_norm']:.6g} (rel {norm_err:.2e}); gradients of "
+            f"{len(errs)} tensors, max rel-L2 {worst[0][1]:.3e}, worst {worst}; state after "
+            f"the step {want['state']}"), obj_err, norm_err, worst
+
+
+
+# the tensor-parallel phase: a gloo gang of TP_RANKS processes sharing the
+# card, two nodes of TP_PER_NODE (LOCAL_WORLD_SIZE), as a (data 2, model 2)
+# mesh: data across the nodes, model within, as the JAX package lays out a
+# pod. Each rank holds half of every split parameter and the whole global-
+# mode flagship step otherwise (one batch row a data rank), so it needs
+# about what a DP rank does less half the parameters: ~10-12 GiB
+TP_RANKS = 4
+TP_PER_NODE = 2
+TP_MODEL = 2
+# one int8 projection's gradients on the card against the CPU (the 5/1
+# global qkv shape): the same integers, scales and int32 product on both
+# (phase int8), fp32 sums in another order, so the largest difference of
+# each gradient within 1e-4 of its largest entry
+INT8_GRAD_SHAPE = (2060, 1024, 3072)
+INT8_GRAD_RTOL = 1e-4
+
+
+def _tp_trainer(out: Path):
+    """The DP phase's case (the shipped training config's global-mode
+    flagship over a 2-sample 40-frame batch) with num_model_shards 2 and the
+    sharded (orbax) checkpoint backend, saving under ``out``."""
+    import torch
+
+    from vitslam_tpu_torch.head_grad_check import head_trainer
+    from vitslam_tpu_torch.models import flagship
+    from vitslam_tpu_torch.utils import make_synthetic_batch
+
+    model = flagship(device="cuda", seed=0, enable_point=False, temporal_attention=False)
+    batch = make_synthetic_batch(B=TP_RANKS // TP_MODEL, N=40, H=154, W=518, seed=3)
+    trainer = head_trainer(model, batch, TRAIN_BUCKET, 1, str(out / "tp"),
+                           num_model_shards=TP_MODEL,
+                           checkpoint={"save_dir": str(out / "tp_ckpt"), "save_freq": 10 ** 9,
+                                       "resume_from_checkpoint": False, "backend": "orbax"})
+    trainer.init_state()
+    torch.cuda.empty_cache()  # the whole parameters, dropped for their slices
+    return trainer, batch
+
+
+def _dist_tp(rank: int, world: int, out: Path) -> None:
+    """One tensor- and data-parallel step of the global-mode head at (20,
+    5), then a sharded save of the train state; rank 0 also saves the whole
+    tensors, which this process compares with the sharded save."""
+    import torch
+
+    from vitslam_tpu_torch.parallel.mesh import gather_param
+
+    trainer, batch = _tp_trainer(out)
+    local = sum(p.numel() * p.element_size() for p in trainer.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    gather_param.calls = gather_param.bytes = 0
+    t = time.perf_counter()
+    res = _dp_step(trainer, batch)
+    res.update(launches=read_launches(), seconds=time.perf_counter() - t,
+               gathers=gather_param.calls, gathered_bytes=gather_param.bytes,
+               peak=torch.cuda.max_memory_allocated(), local_bytes=local,
+               sharded=len(trainer.shards.dims), coords=dict(trainer.mesh.coords))
+    t = time.perf_counter()
+    res["ckpt"] = trainer.ckpt.save(1, trainer.sharded_state_dict())
+    res["save_seconds"] = time.perf_counter() - t
+    opt = trainer.state.optimizer
+    whole = {"trainable": {n: trainer.whole(n, p.detach()).cpu()
+                           for n, p in trainer.state.trainable.items()},
+             "mu": {n: trainer.whole(n, m).cpu() for n, m in opt.mu.items()},
+             "nu": {n: trainer.whole(n, v).cpu() for n, v in opt.nu.items()},
+             "count": opt.count, "step": trainer.state.step}
+    print(f"[distributed rank {rank}] TP train step: mesh {res['coords']} of "
+          f"{dict(trainer.mesh.shape)}, {res['rows']} of {world // TP_MODEL} rows, "
+          f"{res['seconds']:.3f} s wall, max_memory_allocated {res['peak'] / 2**30:.2f} GiB, "
+          f"parameters held {local / 2**30:.2f} GiB ({res['sharded']} tensors sharded), "
+          f"{res['gathers']} parameter gathers receiving {res['gathered_bytes'] / 2**30:.2f} "
+          f"GiB, objective {res['objective']:.6g}, grad_norm {res['grad_norm']:.6g}, state "
+          f"{res['state']}, launches {res['launches']}; sharded save "
+          f"{res['save_seconds']:.2f} s", flush=True)
+    if rank != 0:
+        del res["grads"]
+    else:
+        torch.save(whole, out / "tp_whole.pt")
+    torch.save(res, out / f"tp_{rank}.pt")
+
+
+def _int8_gradients(smi: str) -> dict:
+    """One int8 projection's gradients (d/dx, d/dw, d/db of a weighted sum
+    of its output) on the card against the CPU, fp32 inputs."""
+    import torch
+
+    from vitslam_tpu_torch.ops.quant import int8_matmul
+
+    M, K, N = INT8_GRAD_SHAPE
+    g = torch.Generator().manual_seed(13)
+    x, w = torch.randn(M, K, generator=g), torch.randn(K, N, generator=g) / K ** 0.5
+    b, gy = torch.randn(N, generator=g) * 0.1, torch.randn(M, N, generator=g)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        ins = [t.to(dev).requires_grad_() for t in (x, w, b)]
+        (int8_matmul(*ins, out_dtype=torch.float32) * gy.to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in ins]
+    errs = {name: float((a - c).abs().max() / c.abs().max())
+            for name, a, c in zip(("dx", "dw", "db"), grads["cuda"], grads["cpu"])}
+    nonzero = {name: int((a != 0).sum()) for name, a in zip(("dx", "dw", "db"), grads["cuda"])}
+    print(f"[tp] int8 projection M {M} K {K} N {N} gradients, card vs CPU: largest difference "
+          f"over largest entry {json.dumps(errs)} (tol {INT8_GRAD_RTOL}); nonzero entries "
+          f"{json.dumps(nonzero)} (d/dx at each row's largest |x|, d/dw at each column's); "
+          f"on {smi}")
+    if not all(e <= INT8_GRAD_RTOL for e in errs.values()):
+        raise AssertionError(f"int8 gradients on the card differ from the CPU: {errs}")
+    return dict(errors=errs, nonzero=nonzero)
+
+
+DIST_SCENARIOS = {"sp": _dist_sp, "serve": _dist_serve, "train": _dist_train, "tp": _dist_tp}
+
+
+def phase_tp(smi: str, ref: dict) -> dict:
+    """Tensor parallelism on the card: a gloo gang of TP_RANKS processes
+    (two nodes of TP_PER_NODE) takes one global-mode train step of the
+    full-width flagship as a (data 2, model 2) mesh through the Trainer
+    (num_model_shards 2), held against this process's step on the same
+    global batch (``ref``, the DP phase's); its sharded save is loaded here
+    at model 1, bit-equal to the gang's whole tensors. Then one int8
+    projection's gradients card vs CPU, whether the native preprocessing
+    route runs, and the pod-topology dry run (parallel/dryrun.py) on the
+    card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vitslam_tpu_torch.io import load_sharded
+    from vitslam_tpu_torch.native import native_available
+    from vitslam_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    _release()
+    try:
+        _gang(smi, TP_RANKS, "tp", out, per_node=TP_PER_NODE)
+        ranks = [torch.load(out / f"tp_{r}.pt") for r in range(TP_RANKS)]
+        whole = torch.load(out / "tp_whole.pt")
+        template = {"trainable": {n: torch.zeros_like(t) for n, t in whole["trainable"].items()},
+                    "optimizer": {"count": 0, "mu": {n: torch.zeros_like(t)
+                                                     for n, t in whole["mu"].items()},
+                                  "nu": {n: torch.zeros_like(t) for n, t in whole["nu"].items()},
+                                  "mini_step": 0},
+                    "step": 0}
+        t = time.perf_counter()
+        loaded = load_sharded(ranks[0]["ckpt"], template)
+        load_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    stats = {}
+    states = {res["state"] for res in ranks}
+    text, obj_err, norm_err, worst = _compare_step(ranks, ref)
+    print(f"[tp] train step at {TRAIN_BUCKET}, {TP_RANKS} ranks as (data 2, model 2), two nodes "
+          f"of {TP_PER_NODE}, vs one process x 2 rows (frozen encode one row at a time, the DP "
+          f"phase's reference): {text} (tol objective {DIST_OBJ_RTOL}, grad_norm "
+          f"{DIST_NORM_RTOL}, gradients {GRAD_RTOL}); whole trainable tensors after the step: "
+          f"hashes {sorted(states)}")
+    peaks = [res["peak"] / 2 ** 30 for res in ranks]
+    print(f"[tp] rank peaks (max_memory_allocated) {[round(p, 2) for p in peaks]} GiB; "
+          f"parameters held a rank {ranks[0]['local_bytes'] / 2**30:.2f} GiB; step walls "
+          f"{[round(res['seconds'], 2) for res in ranks]} s; {ranks[0]['gathers']} parameter "
+          f"gathers a rank receiving {ranks[0]['gathered_bytes'] / 2**30:.2f} GiB a step; on {smi}")
+    if len(states) != 1:
+        raise AssertionError(f"tp train: whole trainable tensors differ across ranks: {states}")
+    if not (obj_err <= DIST_OBJ_RTOL and norm_err <= DIST_NORM_RTOL and worst[0][1] <= GRAD_RTOL):
+        raise AssertionError("tp train step disagrees with one process")
+    if ranks[0]["launches"]["flash_attention_backward"] == 0:
+        raise AssertionError("tp train: K4 was not launched")
+    same = (loaded["step"] == whole["step"] and loaded["optimizer"]["count"] == whole["count"]
+            and all(torch.equal(loaded["trainable"][n], whole["trainable"][n])
+                    for n in whole["trainable"])
+            and all(torch.equal(loaded["optimizer"][k][n], whole[k][n])
+                    for k in ("mu", "nu") for n in whole[k]))
+    print(f"[tp] sharded save ({ranks[0]['save_seconds']:.2f} s in the gang) loaded here at "
+          f"model 1 in {load_s:.2f} s: trainable tensors, mu, nu, count and step bit-equal "
+          f"{same}")
+    if not same:
+        raise AssertionError("tp: the sharded checkpoint does not load back bit-equal")
+    for r, res in enumerate(ranks):
+        stats[f"tp train rank {r}"] = dict(launches=res["launches"], peak_gib=peaks[r],
+                                           seconds=res["seconds"])
+    stats["tp train rank 0"].update(objective=ranks[0]["objective"],
+                                    grad_norm=ranks[0]["grad_norm"], grad_rel_l2_max=worst[0][1],
+                                    gathered_bytes=ranks[0]["gathered_bytes"])
+    stats["tp int8 gradients"] = dict(launches={}, **_int8_gradients(smi))
+    print(f"[tp] native preprocessing route: native_available() = {native_available()}")
+    dryrun_multichip(TP_RANKS, "cuda")
+    print(f"[tp] phase: {time.perf_counter() - t0:.1f} s wall on {smi}")
+    return stats
 
 # the int8 phase: one int8 projection at the 75/30 qkv shape on the card
 # against the same computation on the CPU: the integers and the int32
@@ -2471,14 +2694,29 @@ def phase_hooks(smi: str, model) -> dict:
     debug.enable_nan_checks(True)
     on = _device_launches(lambda: chunk(True))
     syncs.append(sum(_host_syncs(lambda: chunk(True)).values()))
+    # the gate: the checks of one chunk's outputs alone, off and on (a whole
+    # chunk's count moves between two runs of the same code: 6,624 and 6,695
+    # launches, H100 80GB HBM3, 700 W)
+    raw, out = chunk(False)
+
+    def checks():
+        debug.nan_check(raw, "raw")
+        debug.nan_check(out, "outputs")
+
+    debug.enable_nan_checks(False)
+    alone_off = (_device_launches(checks), sum(_host_syncs(checks).values()))
+    debug.enable_nan_checks(True)
+    alone_on = (_device_launches(checks), sum(_host_syncs(checks).values()))
     debug.enable_nan_checks(False)
     print(f"[hooks] a chunk's device launches / host syncs: {plain} / {syncs[0]} plain, {off} / "
-          f"{syncs[1]} with nan_check off, {on} / {syncs[2]} with it on")
-    if off != plain or syncs[1] != syncs[0] or on <= plain:
-        raise AssertionError(f"hooks: nan_check off added launches ({plain} -> {off}) or syncs "
-                             f"({syncs[0]} -> {syncs[1]}), or on added no launch ({on})")
+          f"{syncs[1]} with nan_check off, {on} / {syncs[2]} with it on; the checks of a "
+          f"chunk's outputs alone: {alone_off[0]} / {alone_off[1]} off, {alone_on[0]} / "
+          f"{alone_on[1]} on")
+    if alone_off != (0, 0) or syncs[1] != syncs[0] or alone_on[0] == 0:
+        raise AssertionError(f"hooks: nan_check off launched {alone_off[0]} kernels or synced "
+                             f"{alone_off[1]} times ({syncs[0]} -> {syncs[1]} syncs a chunk), "
+                             f"or on launched none ({alone_on[0]})")
 
-    raw, _ = chunk(False)
     planted = raw["depth_raw"].clone()
     planted.view(-1)[12345] = float("nan")
     records = []
@@ -2504,6 +2742,7 @@ def phase_hooks(smi: str, model) -> dict:
         raise AssertionError("hooks: the planted NaN was not reported")
     return {"hooks 5/1 chunk": dict(launches_plain=plain, launches_check_off=off,
                                     launches_check_on=on, host_syncs=syncs,
+                                    checks_alone_off=alone_off, checks_alone_on=alone_on,
                                     trace_mib=size / 2**20, timer=timer.summary())}
 
 
@@ -2518,7 +2757,9 @@ def main() -> int:
     sass = phase_build()
     # first, while this process holds no model: the gangs' ranks need ~25
     # GiB each on the shared card
-    dist_runs = phase_distributed(smi)
+    dist_runs, train_ref = phase_distributed(smi)
+    dist_runs.update(phase_tp(smi, train_ref))
+    del train_ref
     results = phase_kernels()
     phase_reference()
     runs, tails_off = phase_slice(smi)

@@ -374,7 +374,8 @@ def test_cli_fused_tails_from_the_env(tmp_path, monkeypatch):
 
 def test_cli_refuses_what_is_not_ported(vkitti, tmp_path):
     cfg_dir = _write_cfg(tmp_path / "cfg", _tiny_cfg(vkitti, str(tmp_path / "logs")))
-    with pytest.raises(NotImplementedError, match="part 2 of the distributed"):
+    # model shards need a gang whose size they divide (one process: 1 rank)
+    with pytest.raises(ValueError, match="does not divide the 1 rank"):
         cli.main(["--config", "tiny", "--config-dir", cfg_dir, "--device", "cpu",
                   "--set", "num_model_shards=2"])
     # several nodes are ported; they need the rendezvous address and the

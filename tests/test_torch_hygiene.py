@@ -1,6 +1,7 @@
-"""Hygiene of the port package: it never imports JAX or flax, every module
-imports on its own (and without OpenCV, PyYAML, matplotlib or msgpack,
-which the machine with the card lacks), and the weight loader is strict."""
+"""Hygiene of the port package: it never imports JAX, flax, orbax or the JAX
+package (vitslam_tpu), every module imports on its own (and without OpenCV,
+PyYAML, matplotlib or msgpack, which the machine with the card lacks), and
+the weight loader is strict."""
 import os
 import subprocess
 import sys
@@ -41,7 +42,10 @@ MODULES = [
     "vitslam_tpu_torch.data.waymo", "vitslam_tpu_torch.ops.transfer",
     "vitslam_tpu_torch.ops.attention", "vitslam_tpu_torch.ops.quant",
     "vitslam_tpu_torch.models.track_head", "vitslam_tpu_torch.utils.debug",
-    "vitslam_tpu_torch.utils.profiling", "vitslam_tpu_torch.viz.viser_viz", "chip_smoke",
+    "vitslam_tpu_torch.utils.profiling", "vitslam_tpu_torch.viz.viser_viz",
+    "vitslam_tpu_torch.io.sharded_ckpt", "vitslam_tpu_torch.native",
+    "vitslam_tpu_torch.native.bindings", "vitslam_tpu_torch.parallel.pod_worker",
+    "vitslam_tpu_torch.parallel.dryrun", "chip_smoke",
 ]
 # installed here, absent on the machine with the card: the package must
 # import without them (they are imported where a file is read or a plot
@@ -52,7 +56,8 @@ HOST_ONLY = ("cv2", "yaml", "matplotlib", "msgpack")
 @pytest.mark.parametrize("module", MODULES)
 def test_module_imports_alone_without_jax_or_flax(module):
     code = (f"import sys, {module}\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax'))\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'flax', 'orbax', 'vitslam_tpu'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

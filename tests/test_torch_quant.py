@@ -1,6 +1,6 @@
 """Port parity for the int8 serving mode: ops/quant.py (the quantisation of
 activations per row and weights per column, the int8 product with its fp32
-rescale), one int8 Block and the tiny feature-aligned model with int8 on,
+rescale and its gradient), one int8 Block and the tiny feature-aligned model with int8 on,
 each against the JAX package with VITSLAM_INT8=1 on the same numpy inputs
 in fp32. JAX reads the switch when it traces, so it is set before the
 first trace of a fresh function."""
@@ -114,16 +114,58 @@ def test_int8_matmul_matches_jax(bias, out):
 
 
 def test_int8_matmul_refuses_gradients_and_card_shapes():
+    """The products torch._int_mm refuses on the card raise there, before
+    the product; the CPU takes any shape."""
     x = torch.randn(20, 16, requires_grad=True)
     w = torch.randn(16, 8)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        tq.int8_matmul(x, w)
-    with torch.no_grad():
-        assert tq.int8_matmul(x, w).shape == (20, 8)
+    assert tq.int8_matmul(x, w).shape == (20, 8)
     tq.check_int_mm_shape(17, 1024, 3072)
     for m, k, n in ((16, 64, 64), (64, 60, 64), (64, 64, 12)):
         with pytest.raises(ValueError, match="multiples of 8"):
             tq.check_int_mm_shape(m, k, n)
+
+
+def _grad_case(shape, seed=4):
+    """x with a zero row (its scale clamped at 1e-12) and a row whose max
+    |x| is tied between two entries of opposite sign; w with a column whose
+    max |w| is tied."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    rows = x.reshape(-1, shape[-1])
+    rows[1] = 0.0
+    top = np.abs(rows[2]).max() + 0.5
+    rows[2, 3], rows[2, 6] = top, -top
+    w = rng.normal(size=(shape[-1], 6)).astype(np.float32)
+    w[2, 4] = w[5, 4] = np.abs(w[:, 4]).max() + 0.25
+    b = rng.normal(size=(6,)).astype(np.float32)
+    gy = rng.normal(size=shape[:-1] + (6,)).astype(np.float32)
+    return x, w, b, gy
+
+
+@pytest.mark.parametrize("shape", [(4, 8), (2, 5, 8)])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_int8_matmul_gradient_matches_jax(shape, out):
+    """d/dx, d/dw and d/db of sum(int8_matmul(x, w, b) * gy) against
+    jax.grad of the jitted reference, within 1e-6 of the largest entry:
+    the int32 product is a constant to both (the int8 cast has no
+    gradient), so d/dx is nonzero only at each row's largest |x| (the tie
+    shares it, the zero row has none) and d/dw only at each column's."""
+    x, w, b, gy = _grad_case(shape)
+    dt = getattr(jnp, out)
+    want = jax.jit(jax.grad(
+        lambda x, w, b: jnp.sum(jq.int8_matmul(x, w, b, dt).astype(jnp.float32) * gy),
+        argnums=(0, 1, 2)))(x, w, b)
+    tx, tw, tb = (torch.tensor(a, requires_grad=True) for a in (x, w, b))
+    y = tq.int8_matmul(tx, tw, tb, getattr(torch, out))
+    (y.float() * torch.tensor(gy)).sum().backward()
+    for got, ref in zip((tx.grad, tw.grad, tb.grad), want):
+        ref = np.asarray(ref)
+        assert np.abs(got.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+        np.testing.assert_array_equal(got.numpy() != 0, ref != 0)
+    rows = tx.grad.reshape(-1, shape[-1]).numpy()
+    assert (rows[1] == 0).all() and (rows[2] != 0).sum() == 2
+    assert ((rows != 0).sum(axis=1) == [1, 0, 2] + [1] * (len(rows) - 3)).all()
+    assert (tw.grad[:, 4] != 0).sum() == 2 and (tw.grad != 0).sum() == 7
 
 
 def test_dense_quantises_only_when_built_quant_and_switched_on():

@@ -2,10 +2,11 @@
 (vitslam_tpu_torch/data/{kitti_odometry,waymo}.py) against vitslam_tpu's on
 the JAX package's byte-level fixtures: every key of ``get_data`` for a
 whole sequence and a sampled window. The port reads K from P2 by scipy's
-RQ decomposition (the reference by OpenCV's) and splats LiDAR in numpy
-only (the reference takes its C++ splat when the library loads), so the
-reference's native paths are switched off for the comparison, and the
-native splat, where it loads, is held to the port's separately."""
+RQ decomposition (the reference by OpenCV's). Both packages take their C++
+splat and back-projection first when the library loads; both native paths
+are switched off for the comparison (numpy against numpy), and the
+reference's native splat, where it loads, is held to the port's numpy one
+separately."""
 import numpy as np
 import pytest
 
@@ -13,6 +14,7 @@ pytest.importorskip("torch")
 cv2 = pytest.importorskip("cv2")
 
 import vitslam_tpu.native as jnative  # noqa: E402
+import vitslam_tpu_torch.native as tnative  # noqa: E402
 from vitslam_tpu.data.base import CommonConfig as JCommon  # noqa: E402
 from vitslam_tpu.data.kitti_odometry import KITTIOdometryDataset as JKitti  # noqa: E402
 from vitslam_tpu.data.waymo import WaymoDataset as JWaymo  # noqa: E402
@@ -35,9 +37,19 @@ KW = dict(img_size=56, patch_size=14, fix_aspect_ratio=0.7, training=True,
 
 @pytest.fixture
 def numpy_reference(monkeypatch):
-    """The reference's readers on their numpy paths (what the port ports)."""
+    """The reference's readers and the port's on their numpy paths (the
+    native ones against each other: tests/test_torch_native.py)."""
     monkeypatch.setattr(jnative, "lidar_splat_depth_native", lambda *a, **k: None)
     monkeypatch.setattr(jnative, "depth_to_points_native", lambda *a, **k: None)
+    _port_on_numpy(monkeypatch)
+
+
+def _port_on_numpy(monkeypatch):
+    """The port's readers on their numpy paths (its native route returning
+    None, as with VITSLAM_NATIVE=0; the environment is left alone, which
+    the reference reads once, at its first load)."""
+    monkeypatch.setattr(tnative, "lidar_splat_depth_native", lambda *a, **k: None)
+    monkeypatch.setattr(tnative, "depth_to_points_native", lambda *a, **k: None)
 
 
 def _same(got: dict, want: dict):
@@ -115,10 +127,12 @@ def test_waymo_matches_jax(tmp_path, numpy_reference):
         _same(got, want)
 
 
-def test_lidar_splat_against_the_native_one():
+def test_lidar_splat_against_the_native_one(monkeypatch):
     """The port's numpy splat against the reference's C++ one, where that
     library loads here (the reference's default path)."""
     from vitslam_tpu.native.bindings import lidar_splat_depth_native
+
+    _port_on_numpy(monkeypatch)
 
     rng = np.random.default_rng(0)
     pts = np.concatenate([rng.uniform(-3, 3, (5000, 2)), rng.uniform(3, 30, (5000, 1))], 1)

@@ -357,7 +357,8 @@ def test_checkpoint_resume_and_fit(tmp_path, monkeypatch):
     """Trainer.fit writes the CSV log and <exp>_step<k>.ckpt files and
     updates the _latest link; a run cut before its clean finish leaves the
     link, and a new Trainer resumes from it to the same trainable tensors,
-    optimizer state and step; a clean finish removes the link."""
+    optimizer state and step; a clean finish removes the link. The orbax
+    backend does the same with sharded step directories."""
     import os
 
     model = seeded(FeatureAlignedVGGT(**TINY, dtype=torch.float32), seed=2)
@@ -411,11 +412,27 @@ def test_checkpoint_resume_and_fit(tmp_path, monkeypatch):
     with pytest.raises(ValueError):  # the test mode needs val_data and metrics
         again.test()
     # several devices need a gang of ranks (tests/test_torch_parallel.py);
-    # tensor parallelism and the orbax backend are part 2 of the slice
+    # so do model shards (one process is a world of 1, which 2 does not
+    # divide; the gang runs in tests/test_torch_tensor_parallel.py)
     with pytest.raises(RuntimeError, match="gang"):
         ttrain.Trainer(dict(_cfg(tmp_path, 1), num_devices=2), fresh,
                        ttrain.MultitaskLoss(**LOSS_CFG))
-    for extra in ({"num_model_shards": 2}, {"checkpoint": {"backend": "orbax"}}):
-        with pytest.raises(NotImplementedError, match="part 2 of the distributed"):
-            ttrain.Trainer(dict(_cfg(tmp_path, 1), **extra), fresh,
-                           ttrain.MultitaskLoss(**LOSS_CFG))
+    with pytest.raises(ValueError, match="does not divide the 1 rank"):
+        ttrain.Trainer(dict(_cfg(tmp_path, 1), num_model_shards=2), fresh,
+                       ttrain.MultitaskLoss(**LOSS_CFG))
+    # the orbax backend: sharded checkpoints (io/sharded_ckpt.py), here in
+    # one process: a step directory and the link, resumed from
+    sharded = dict(_cfg(tmp_path / "sharded", 1), checkpoint=dict(
+        save_dir=str(tmp_path / "sharded" / "ckpt"), save_freq=1, backend="orbax",
+        resume_from_checkpoint=True))
+    orbax = ttrain.Trainer(sharded, fresh, ttrain.MultitaskLoss(**LOSS_CFG),
+                           train_data=_Loader())
+    monkeypatch.setattr(orbax.ckpt, "finish", lambda: None)
+    saved = {n: p.detach().clone() for n, p in orbax.fit().trainable.items()}
+    assert sorted(os.listdir(tmp_path / "sharded" / "ckpt")) == ["_latest_checkpoints",
+                                                                 "tiny_step1.orbax"]
+    fourth = FeatureAlignedVGGT(**TINY, dtype=torch.float32)
+    fourth.load_state_dict(init)
+    back = ttrain.Trainer(sharded, fourth, ttrain.MultitaskLoss(**LOSS_CFG)).init_state()
+    assert back.step == 1 and back.optimizer.count == 1
+    assert all(torch.equal(back.trainable[n].detach(), saved[n]) for n in saved)

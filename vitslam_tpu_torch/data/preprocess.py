@@ -114,8 +114,13 @@ def resize_crop_image(
 def depth_to_points(depth: np.ndarray, extrinsics: np.ndarray,
                     intrinsics: np.ndarray):
     """Depth (H, W) + w2c (3, 4) + K -> (world (H,W,3), cam (H,W,3),
-    mask (H,W)), in numpy (the reference's path when its native library
-    is absent)."""
+    mask (H,W)): the native C++ kernel when its route is on
+    (``vitslam_tpu_torch.native``), numpy otherwise, as the reference."""
+    from ..native import depth_to_points_native
+
+    native = depth_to_points_native(depth.astype(np.float32), extrinsics, intrinsics)
+    if native is not None:
+        return native
     h, w = depth.shape
     u, v = np.meshgrid(np.arange(w), np.arange(h), indexing="xy")
     pix = np.stack([u, v, np.ones_like(u)], axis=-1).reshape(-1, 3).astype(np.float64)

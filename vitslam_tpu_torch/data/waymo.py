@@ -4,9 +4,9 @@ poses) and ``calibration.pkl`` (per-camera extrinsics, normalised
 projection matrices, image dims); the model <-> Waymo axis conversion; the
 intrinsics denormalised; LiDAR rasterised to depth by a vectorised
 bilinear 4-neighbour splat with a scatter-min z-buffer and an
-order-independent epsilon-window average (``lidar_to_depth``). The
-reference's optional C++ splat (vitslam_tpu/native) is not ported: the
-numpy path is the port's only one. OpenCV is imported where a frame is read.
+order-independent epsilon-window average (``lidar_to_depth``: the native
+C++ splat when its route is on, ``vitslam_tpu_torch.native``, else numpy, as
+the reference). OpenCV is imported where a frame is read.
 """
 from __future__ import annotations
 
@@ -42,6 +42,12 @@ def lidar_to_depth(points_h: np.ndarray, intrinsics: np.ndarray,
     Returns:
         (H, W) float32 depth map (0 = no return).
     """
+    from ..native import lidar_splat_depth_native
+
+    native = lidar_splat_depth_native(np.ascontiguousarray(points_h[:3].T), intrinsics,
+                                      extrinsics, image_size, eps)
+    if native is not None:
+        return native
     H, W = int(image_size[0]), int(image_size[1])
     cam = (intrinsics @ (extrinsics @ points_h)).T  # (N, 3)
     cam = cam[cam[:, 2] > 0]

@@ -41,11 +41,11 @@ class OneBatch:
         yield self.batch
 
 
-def head_trainer(model, batch: dict, bucket, steps: int, tmp: str):
+def head_trainer(model, batch: dict, bucket, steps: int, tmp: str, **cfg_keys):
     """A Trainer of ``model`` with the training config's train keys
-    (``train.config.VKITTI_TRAIN_CFG``) for ``steps`` steps over ``batch``
-    at one (width, overlap) bucket, logging under ``tmp``, no checkpoints
-    along the way."""
+    (``train.config.VKITTI_TRAIN_CFG``, and ``cfg_keys`` over them) for
+    ``steps`` steps over ``batch`` at one (width, overlap) bucket, logging
+    under ``tmp``, no checkpoints along the way."""
     from .train import MultitaskLoss, Trainer
     from .train.config import VKITTI_TRAIN_CFG
 
@@ -53,6 +53,7 @@ def head_trainer(model, batch: dict, bucket, steps: int, tmp: str):
                logging={"log_dir": f"{tmp}/logs", "log_freq": 1},
                checkpoint={"save_dir": f"{tmp}/ckpt", "save_freq": 10 ** 9,
                            "resume_from_checkpoint": False})
+    cfg.update(cfg_keys)
     return Trainer(cfg, model, MultitaskLoss(**cfg["loss"]), train_data=OneBatch(batch),
                    shape_buckets=[list(bucket)])
 

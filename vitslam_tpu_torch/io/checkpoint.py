@@ -18,8 +18,9 @@ msgpack map. For ``load_model_params`` a flax file's variable tree, with a
 leading ``model`` key stripped as the reference strips ``model/``, goes
 through ``from_jax.export_torch_style`` and ``port_name``; either tier may
 be in either format (e.g. a head the reference trained over a backbone
-saved by the port). The reference's train state (optax moments) is not
-read.
+saved by the port). ``load_checkpoint`` also reads the reference's whole
+train state (trainable and frozen tensors, optax's AdamW moments, the
+accumulated gradients, the step) into the port's layout, for a resume.
 
 In a gang of ranks only rank 0 writes (the step checkpoints, the link and
 its removal); every rank may read.
@@ -34,7 +35,14 @@ import torch
 
 from ..parallel.mesh import rank
 from .flax_msgpack import read_flax_msgpack
-from .from_jax import as_tensor, export_flat, flatten_tree, port_name
+from .from_jax import (
+    TRAIN_STATE_KEYS,
+    as_tensor,
+    export_flat,
+    flatten_tree,
+    port_name,
+    train_state_from_jax,
+)
 
 
 def _to_host(tree):
@@ -68,10 +76,15 @@ def checkpoint_format(path: str) -> str:
 
 
 def load_checkpoint(path: str) -> Any:
-    """The saved tree on the CPU: a ``torch.save`` file's as saved, a flax
-    file's as nested dicts of numpy arrays (bf16 leaves as tensors)."""
+    """The saved tree on the CPU: a ``torch.save`` file's as saved; a flax
+    file's as nested dicts of numpy arrays (bf16 leaves as tensors), except
+    that a JAX package train state comes in the port's train-state layout
+    (``from_jax.train_state_from_jax``), for a Trainer to resume from."""
     if checkpoint_format(path) == "flax":
-        return read_flax_msgpack(path)
+        tree = read_flax_msgpack(path)
+        if isinstance(tree, dict) and set(tree) == TRAIN_STATE_KEYS:
+            return train_state_from_jax(tree)
+        return tree
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -92,9 +105,12 @@ class CheckpointManager:
         return osp.join(self.latest_dir, f"{self.exp_name}.ckpt")
 
     def maybe_save(self, step: int, tree: Any) -> Optional[str]:
+        """``save`` at a multiple of save_freq; ``tree`` may be a function
+        returning the tree, called only then (on every rank: under tensor
+        parallelism it gathers)."""
         if step == 0 or step % self.save_freq != 0:
             return None
-        return self.save(step, tree)
+        return self.save(step, tree() if callable(tree) else tree)
 
     def save(self, step: int, tree: Any) -> str:
         if rank() != 0:

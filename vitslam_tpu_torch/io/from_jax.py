@@ -9,7 +9,8 @@ Dense (in, out) / Conv (kh, kw, in, out) kernels are transposed into
 torch's (out, in) / (out, in, kh, kw) layout, under '.'-joined flax names.
 ``load_jax_params`` takes that flat dict (or the JAX package's own
 ``export_torch_style`` output) and maps the flax names onto the port's
-parameter names:
+parameter names (``train_state_from_jax`` does the same for a whole JAX
+train state, optimizer moments included):
 
 * a leading ``params.`` (the flax variable collection) is dropped;
 * ``kernel`` -> ``weight``; LayerNorm ``scale`` -> ``weight``;
@@ -123,3 +124,63 @@ def load_jax_params(module: nn.Module, flat: dict, strict: bool = True) -> list[
         raise KeyError(f"unused keys {unused[:5]} ({len(unused)}), "
                        f"unfilled params {missing[:5]} ({len(missing)})")
     return missing
+
+
+# the leaves of a JAX package TrainState (vitslam_tpu/train/train_step.py),
+# as flax serialises the dataclass
+TRAIN_STATE_KEYS = frozenset({"trainable", "frozen", "opt_state", "step"})
+
+
+def _port_tree(tree: dict) -> dict:
+    """port name -> CPU tensor of a flax parameter tree (or of a tree of
+    its shape: an optax moment, the accumulated gradients)."""
+    return {port_name(k): as_tensor(v) for k, v in export_torch_style(tree).items()}
+
+
+def _expect(node, keys: set, where: str) -> dict:
+    if not isinstance(node, dict) or set(node) != keys:
+        found = sorted(node) if isinstance(node, dict) else type(node).__name__
+        raise KeyError(f"{where}: expected the keys {sorted(keys)}, found {found}")
+    return node
+
+
+def _adamw_state(chain: dict, where: str) -> dict:
+    """count, mu, nu of the optax state of vitslam_tpu/train/optim.py's
+    chain(clip_by_global_norm, adamw): (EmptyState, (ScaleByAdamState(count,
+    mu, nu), EmptyState, ScaleByScheduleState(count)))."""
+    _expect(chain, {"0", "1"}, where)
+    _expect(chain["0"], set(), f"{where}/0")
+    inner = _expect(chain["1"], {"0", "1", "2"}, f"{where}/1")
+    adam = _expect(inner["0"], {"count", "mu", "nu"}, f"{where}/1/0")
+    _expect(inner["1"], set(), f"{where}/1/1")
+    schedule = _expect(inner["2"], {"count"}, f"{where}/1/2")
+    if int(schedule["count"]) != int(adam["count"]):
+        raise ValueError(f"{where}: the schedule's count {int(schedule['count'])} is not "
+                         f"Adam's {int(adam['count'])}")
+    return {"count": int(adam["count"]), "mu": _port_tree(adam["mu"]),
+            "nu": _port_tree(adam["nu"])}
+
+
+def train_state_from_jax(tree: dict) -> dict:
+    """The port's train state (``train.Trainer.restore``'s layout) of a JAX
+    package TrainState read from its checkpoint file: ``trainable`` and
+    ``frozen`` by port name (kernels transposed, scanned layers split, as
+    ``export_torch_style``), the optimizer's ``count``, ``mu`` and ``nu``
+    (and, under ``optax.MultiSteps``, ``mini_step`` and the accumulated
+    gradients ``acc``) in the same layout as their parameters, and
+    ``step``. A leaf outside that structure raises KeyError naming it."""
+    _expect(tree, set(TRAIN_STATE_KEYS), "train state")
+    opt = tree["opt_state"]
+    if isinstance(opt, dict) and "inner_opt_state" in opt:
+        _expect(opt, {"mini_step", "gradient_step", "inner_opt_state", "acc_grads",
+                      "skip_state"}, "opt_state")
+        _expect(opt["skip_state"], set(), "opt_state/skip_state")
+        optimizer = _adamw_state(opt["inner_opt_state"], "opt_state/inner_opt_state")
+        if int(opt["gradient_step"]) != optimizer["count"]:
+            raise ValueError(f"opt_state: gradient_step {int(opt['gradient_step'])} is not "
+                             f"Adam's count {optimizer['count']}")
+        optimizer.update(mini_step=int(opt["mini_step"]), acc=_port_tree(opt["acc_grads"]))
+    else:
+        optimizer = dict(_adamw_state(opt, "opt_state"), mini_step=0, acc=None)
+    return {"trainable": _port_tree(tree["trainable"]), "frozen": _port_tree(tree["frozen"]),
+            "optimizer": optimizer, "step": int(tree["step"])}

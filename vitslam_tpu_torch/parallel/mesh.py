@@ -7,8 +7,9 @@ the gloo backend), and a ``Mesh`` is the same (data, model) grid over the
 ranks of the default process group, with one process group per axis for
 this rank: rank r sits at (r // n_model, r % n_model), as the JAX package
 reshapes its device list. Batches are split over ``data`` by
-``shard_batch``; parameters stay replicated (tensor parallelism over
-``model`` is not ported yet: ``model_partition_spec`` is its layout rule).
+``shard_batch``. Parameters are replicated, or under tensor parallelism
+(``shard_params_model``) split over ``model`` by ``model_partition_spec``:
+each rank holds its slice, and every read of the parameter all-gathers it.
 
 A JAX process is a host, and its local devices form its part of the mesh.
 Here the ranks of one node stand for the devices of one JAX process:
@@ -139,19 +140,131 @@ def replicate(tensors: dict, mesh: Mesh, axis: str = "data") -> dict:
     return tensors
 
 
-def model_partition_spec(shape, n_model: int) -> tuple:
+def model_partition_spec(shape, n_model: int, kernel: bool = True) -> tuple:
     """The layout of one parameter under tensor parallelism over ``model``,
-    as the JAX package's rule: a dense weight splits its output dimension
-    (dim 0 of the port's (out, in) weight: the last dim of the JAX (in, out)
-    kernel), a 3-D parameter its last dim, when that dim is a multiple of
-    n_model and at least 2 * n_model; everything else is replicated (the
-    empty spec). Returns one entry per dim, "model" on the split dim.
-    Unused until tensor parallelism is ported."""
+    as the JAX package's rule on the same leaf: a 2-D or 3-D JAX leaf splits
+    its last dim when that dim is a multiple of n_model and at least
+    2 * n_model; everything else is replicated (the empty spec). A dense
+    weight (``kernel``: the JAX (in, out) kernel, transposed) splits dim 0
+    of the port's (out, in) weight; any other 2-D or 3-D parameter (a token,
+    a memory, a raw einsum weight) has the JAX leaf's layout and splits its
+    last dim. Returns one entry per dim, "model" on the split dim."""
     ndim = len(shape)
-    dim = {2: 0, 3: 2}.get(ndim)
+    dim = {2: 0 if kernel else 1, 3: 2}.get(ndim)
     if dim is not None and shape[dim] % n_model == 0 and shape[dim] >= 2 * n_model:
         return tuple("model" if d == dim else None for d in range(ndim))
     return ()
+
+
+@dataclass(frozen=True)
+class ModelShards:
+    """The parameters of a model that ``shard_params_model`` split over the
+    mesh's ``model`` axis: parameter name -> the dim it is split along."""
+    mesh: Mesh
+    dims: dict
+
+    def full(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of parameter ``name`` (or of a tensor of its
+        shape, e.g. an optimizer moment) from this rank's slice: a
+        collective over the model group, a no-op for a replicated name."""
+        if name not in self.dims:
+            return local
+        return _gather(local.detach(), self.mesh.group("model"), self.dims[name])
+
+    def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole tensor of parameter ``name``."""
+        if name not in self.dims:
+            return full
+        dim, n = self.dims[name], self.mesh.size("model")
+        size = full.shape[dim] // n
+        return full.narrow(dim, self.mesh.index("model") * size, size)
+
+
+def gather_param(p: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The whole tensor of a sharded parameter from this rank's slice ``p``,
+    gathered over the model ``group`` along ``dim``: differentiable (this
+    rank's slice of the incoming gradient) while autograd records. Counts
+    its calls and the bytes this rank receives in ``gather_param.calls`` /
+    ``gather_param.bytes``."""
+    gather_param.calls += 1
+    gather_param.bytes += p.numel() * p.element_size() * (dist.get_world_size(group) - 1)
+    if torch.is_grad_enabled():
+        return all_gather(p, group, dim=dim, replicated=True)
+    # autograd off (no_grad, inference_mode): a plain tensor flagged as the
+    # parameter is, since torch's matmul picks its path (and so its
+    # summation order) by the operands' requires_grad, which an inference
+    # tensor does not carry
+    with torch.inference_mode(False), torch.no_grad():
+        whole = _gather(p.detach(), group, dim)
+    return whole.requires_grad_(p.requires_grad)
+
+
+gather_param.calls = 0
+gather_param.bytes = 0
+_GATHERING_CLASSES: dict = {}
+
+
+def _gathering_class(cls: type) -> type:
+    """``cls`` with an attribute read of a sharded parameter returning the
+    whole tensor, gathered over the model group (as a torch parametrization
+    does, but the parameter keeps its name)."""
+    if cls not in _GATHERING_CLASSES:
+        def __getattr__(self, name):
+            shards = self.__dict__.get("_model_shards")
+            if shards is not None and name in shards[0]:
+                return gather_param(self._parameters[name], shards[1], shards[0][name])
+            return cls.__getattr__(self, name)
+
+        _GATHERING_CLASSES[cls] = type(cls.__name__, (cls,), {
+            "__getattr__": __getattr__, "__module__": cls.__module__,
+            "__qualname__": cls.__qualname__})
+    return _GATHERING_CLASSES[cls]
+
+
+@torch.no_grad()
+def shard_params_model(model: torch.nn.Module, mesh: Mesh) -> ModelShards:
+    """Tensor parallelism (port of vitslam_tpu/parallel/mesh.py::
+    shard_params_model): every parameter of ``model`` that
+    ``model_partition_spec`` splits becomes this rank's contiguous slice
+    along its split dim (index ``mesh.index("model")`` of
+    ``mesh.size("model")``), under the same name, so the optimizer, the
+    freeze patterns and the checkpoints see the plain names and the local
+    slices. Every read of such a parameter (``module.weight``, by the
+    module's forward or by any other reader, as ``nn.layers.dense_tail``
+    reads a Dense's weight for K5) all-gathers the whole tensor over the
+    model group, and the result is freed after its use, as GSPMD gathers in
+    front of a Pallas call: every kernel sees the tensors it sees unsharded.
+    The gather's backward hands this rank its slice of the incoming
+    gradient without communication (every rank of a model group computes
+    the same replicated loss). The model must hold its weights already.
+
+    One layout difference from the JAX package: it stacks the per-layer
+    vectors of its scanned layers (biases, LayerNorm scales, LayerScale
+    gammas) into (L, C) leaves and splits them; the port keeps them per
+    layer, 1-D, and replicated. Only the layout differs, never a value."""
+    n = mesh.size("model")
+    dims: dict = {}
+    if n == 1:
+        return ModelShards(mesh, dims)
+    index = mesh.index("model")
+    for mname, module in model.named_modules():
+        local = {}
+        for pname, p in list(module._parameters.items()):
+            if p is None:
+                continue
+            spec = model_partition_spec(tuple(p.shape), n, kernel=pname == "weight")
+            if not spec:
+                continue
+            dim = spec.index("model")
+            size = p.shape[dim] // n
+            module._parameters[pname] = torch.nn.Parameter(
+                p.detach().narrow(dim, index * size, size).clone(), requires_grad=p.requires_grad)
+            local[pname] = dim
+            dims[f"{mname}.{pname}" if mname else pname] = dim
+        if local:
+            module.__class__ = _gathering_class(type(module))
+            module.__dict__["_model_shards"] = (local, mesh.group("model"))
+    return ModelShards(mesh, dims)
 
 
 def sync_global_devices(name: str = "barrier") -> None:

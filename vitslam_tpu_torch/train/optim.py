@@ -28,6 +28,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def param_path(name: str) -> str:
@@ -81,10 +82,20 @@ def warmup_cosine_schedule(max_lr: float, min_lr: float, total_steps: int,
     return schedule
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over every element of every tensor, in fp32."""
-    tensors = list(tensors)
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+def global_norm(tensors: Iterable[torch.Tensor], sharded: Iterable[torch.Tensor] = (),
+                group=None) -> torch.Tensor:
+    """sqrt(sum of squares) over every element of every tensor, in fp32.
+    Under tensor parallelism ``sharded`` holds this rank's slices of tensors
+    split over ``group`` (the model group): their squares are summed over
+    the group, those of the replicated ``tensors`` counted once, so the norm
+    is that of the whole gradient on every rank."""
+    total = sum((t.float() ** 2).sum() for t in tensors)
+    sharded = list(sharded)
+    if sharded:
+        part = sum((t.float() ** 2).sum() for t in sharded)
+        dist.all_reduce(part, group=group)
+        total = total + part
+    return torch.sqrt(torch.as_tensor(total))
 
 
 class AdamW:
@@ -92,12 +103,17 @@ class AdamW:
     gradient accumulation over ``accum_steps`` micro-steps, on a dict of
     name -> trainable parameter (see the module docstring for the
     arithmetic). ``step(grads)`` takes name -> gradient; its state dict
-    round-trips through ``state_dict`` / ``load_state_dict``."""
+    round-trips through ``state_dict`` / ``load_state_dict``. Under tensor
+    parallelism (``shards``, from ``parallel.shard_params_model``) the
+    parameters, gradients and moments of the sharded names are this rank's
+    slices, as optax's moments are under the JAX package's sharding, and
+    the clip reads the norm of the whole gradient."""
 
     def __init__(self, params: dict, schedule, weight_decay: float = 0.05,
                  grad_clip_norm: float = 1.0, accum_steps: int = 1,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, shards=None):
         self.params = dict(params)
+        self.shards = shards
         self.schedule = schedule
         self.weight_decay, self.grad_clip_norm = weight_decay, grad_clip_norm
         self.accum_steps = accum_steps
@@ -122,7 +138,7 @@ class AdamW:
             grads = {n: a.clone() for n, a in self.acc.items()}
             for a in self.acc.values():
                 a.zero_()
-        g_norm = global_norm(grads.values())
+        g_norm = self.grad_norm(grads)
         clip = None if g_norm < self.grad_clip_norm else self.grad_clip_norm / g_norm
         lr = self.schedule(self.count)
         self.count += 1
@@ -139,6 +155,16 @@ class AdamW:
             update += self.weight_decay * p.float()
             p.sub_((lr * update).to(p.dtype))
         return True
+
+    def grad_norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of the whole gradient (name -> gradient, or this
+        rank's slice of it for a sharded name)."""
+        if self.shards is None or not self.shards.dims:
+            return global_norm(grads.values())
+        dims = self.shards.dims
+        return global_norm([g for n, g in grads.items() if n not in dims],
+                           [g for n, g in grads.items() if n in dims],
+                           self.shards.mesh.group("model"))
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mini_step": self.mini_step, "mu": self.mu,
@@ -157,8 +183,9 @@ class AdamW:
 def build_optimizer(params: dict, max_lr: float = 5e-5, min_lr: float = 1e-8,
                     total_steps: int = 70000, warmup_percent: float = 0.05,
                     weight_decay: float = 0.05, grad_clip_norm: float = 1.0,
-                    accum_steps: int = 1):
-    """(AdamW over ``params``, its schedule), with the reference's defaults."""
+                    accum_steps: int = 1, shards=None):
+    """(AdamW over ``params``, its schedule), with the reference's defaults;
+    ``shards``: the model's tensor-parallel layout, if any."""
     schedule = warmup_cosine_schedule(max_lr, min_lr, total_steps, warmup_percent)
     return AdamW(params, schedule, weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
-                 accum_steps=accum_steps), schedule
+                 accum_steps=accum_steps, shards=shards), schedule

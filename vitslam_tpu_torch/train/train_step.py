@@ -22,6 +22,12 @@ sum is the gradient of the global objective, not an average of per-rank
 losses'. A batch whose rows do not divide over the group is held whole by
 every rank; each computes the same gradient, and the group's first rank's
 is broadcast so the ranks' parameters stay bit-identical.
+
+Tensor parallelism (``parallel.shard_params_model``) needs nothing here:
+the model's sharded parameters are gathered where they are read, the
+gradients of the trainable ones are this rank's slices, the data group's
+sum runs over those slices, and the optimizer's norm is the whole
+gradient's (``AdamW.grad_norm``).
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from ..ops.attention import plain_attention_routes
 from ..parallel.mesh import all_gather
 from ..slam.chunking import CHUNK_AXIS_KEYS, FRAME_AXIS_KEYS
 from ..slam.gt_alignment import align_outputs
-from .optim import AdamW, global_norm
+from .optim import AdamW
 
 
 @dataclass
@@ -161,7 +167,7 @@ def make_train_step(model, loss_fn, num_overlap: int,
         losses, grads = loss_and_grads(
             model, loss_fn, state.trainable, chunk_batches, merged_batch, state.step,
             num_overlap, gt_alignment_type, use_gt_poses, generator, plain_attention, data_group)
-        metrics = dict(losses, grad_norm=global_norm(grads.values()))
+        metrics = dict(losses, grad_norm=state.optimizer.grad_norm(grads))
         state.optimizer.step(grads)
         state.step += 1
         return state, metrics

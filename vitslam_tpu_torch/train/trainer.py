@@ -18,19 +18,35 @@ ranks of a node share their node's seed, so they draw the same global
 batch and chunk shapes; each takes its rows when B divides over the data
 axis, else the whole batch (``train_step``), and the step's loss is the
 global batch's. Every rank of the data group must draw the same chunk
-shapes (a step checks it). Logging and checkpoint writes happen on rank 0.
-Tensor parallelism (``num_model_shards`` > 1) and the orbax (sharded)
-checkpoint backend belong to part 2 of the distributed slice and raise
-NotImplementedError.
+shapes (a step checks it). Logging and msgpack checkpoint writes happen on
+rank 0.
+
+Tensor parallelism (``num_model_shards`` = n > 1): the gang's W ranks form
+a (W / n, n) (data, model) mesh, and ``init_state`` shards the model's
+parameters over ``model`` (``parallel.shard_params_model``): trainable and
+frozen tensors and the optimizer's moments are held as slices, as the JAX
+package shards its whole TrainState. A model group lies within one node
+(n divides ``LOCAL_WORLD_SIZE``), as the JAX package keeps ``model`` within
+a process, so its ranks share their node's seed and draw the same batch,
+chunk shapes, dropout and loss offsets; a step checks that too. The
+msgpack checkpoint gathers the whole tensors and is the file one process
+would write; a resume slices it again. ``checkpoint.backend: orbax``
+writes sharded checkpoints (``io/sharded_ckpt.py``), every rank its part.
+Resuming also takes a train state the JAX package saved (a flax msgpack
+file: ``io.checkpoint.load_checkpoint``).
 """
 from __future__ import annotations
 
+import os
+import zlib
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..io.checkpoint import CheckpointManager, load_checkpoint
+from ..io.sharded_ckpt import ShardedCheckpointManager, as_dtensors
 from ..parallel import (
     allgather_rows,
     is_distributed,
@@ -39,6 +55,7 @@ from ..parallel import (
     rank,
     replicate,
     shard_batch,
+    shard_params_model,
 )
 from ..slam import ChunkedPipeline, chunk_batch, generate_chunks, merge_chunk_outputs
 from ..slam.chunking import normalize_extrinsics_and_points
@@ -67,11 +84,6 @@ def sample_chunk_shapes(rng: np.random.Generator, S: int, chunk_width_range, ove
     return w, o
 
 
-def _part_2(what: str):
-    raise NotImplementedError(f"{what} is not ported yet: it belongs to part 2 of the "
-                              "distributed slice of the port (ROADMAP queue 1)")
-
-
 class Trainer:
     def __init__(self, cfg: dict, model, loss: MultitaskLoss, train_data=None,
                  val_data=None, metrics=None, freeze_patterns=None, shape_buckets=None):
@@ -83,17 +95,29 @@ class Trainer:
         self.metrics = metrics
         self.shape_buckets = shape_buckets
 
-        if int(cfg.get("num_model_shards", 1)) > 1:
-            _part_2("tensor parallelism (num_model_shards > 1)")
-        ckpt_cfg = cfg.get("checkpoint", {})
-        if str(ckpt_cfg.get("backend", "msgpack")) == "orbax":
-            _part_2("the orbax (sharded) checkpoint backend")
-        # one data mesh over every rank of the gang (the reference's mesh
-        # over all devices); a single process has none
-        self.mesh = make_mesh(n_model=1) if is_distributed() else None
+        # one (data, model) mesh over every rank of the gang (the
+        # reference's mesh over all devices); a single process has none
+        n_model = int(cfg.get("num_model_shards", 1))
+        world = dist.get_world_size() if is_distributed() else 1
+        if n_model < 1 or world % n_model:
+            raise ValueError(f"num_model_shards={n_model} does not divide the {world} rank(s) "
+                             "of the gang (launch with python -m vitslam_tpu_torch.cli "
+                             "--num_devices N)")
+        per_node = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+        if per_node % n_model:
+            raise ValueError(f"num_model_shards={n_model} does not divide the {per_node} ranks "
+                             "of a node: a model group must lie within one node")
+        self.mesh = make_mesh(n_data=world // n_model, n_model=n_model) if is_distributed() \
+            else None
         if int(cfg.get("num_devices", 0)) > 1 and self.mesh is None:
             raise RuntimeError("num_devices > 1 needs a gang of ranks: launch with "
                                "python -m vitslam_tpu_torch.cli --num_devices N")
+        self.shards = None  # the tensor-parallel layout, once init_state shards the model
+        ckpt_cfg = cfg.get("checkpoint", {})
+        backend = str(ckpt_cfg.get("backend", "msgpack"))
+        if backend not in ("msgpack", "orbax"):
+            raise ValueError(f"checkpoint.backend must be 'msgpack' or 'orbax', got {backend!r}")
+        self.sharded_ckpt = backend == "orbax"
 
         self.max_steps = int(cfg.get("max_steps", 1000))
         self.sample_mode = cfg.get("sample_mode", "chunk_overlap")
@@ -124,8 +148,9 @@ class Trainer:
         self.logger = CSVLogger(log_cfg.get("log_dir", "logs"), self.exp_name,
                                 write=rank() == 0)
         self.log_freq = int(log_cfg.get("log_freq", 10))
-        self.ckpt = CheckpointManager(ckpt_cfg.get("save_dir", "ckpt"), self.exp_name,
-                                      save_freq=int(ckpt_cfg.get("save_freq", 500)))
+        manager = ShardedCheckpointManager if self.sharded_ckpt else CheckpointManager
+        self.ckpt = manager(ckpt_cfg.get("save_dir", "ckpt"), self.exp_name,
+                            save_freq=int(ckpt_cfg.get("save_freq", 500)))
         self.resume = bool(ckpt_cfg.get("resume_from_checkpoint", False))
 
         self.seed = int(cfg.get("seed_value", 42))
@@ -144,34 +169,105 @@ class Trainer:
 
     # --- state -----------------------------------------------------------
     def init_state(self, sample_batch: Optional[dict] = None) -> TrainState:
-        """Freeze by the patterns, build the optimizer over the trainable
-        parameters, and resume from the ``_latest`` link when asked to.
-        (The model already holds its weights; ``sample_batch`` is accepted
-        for the reference's signature.)"""
+        """Shard the model over the mesh's model axis (once), freeze by the
+        patterns, build the optimizer over the trainable parameters, and
+        resume from the ``_latest`` link when asked to. (The model already
+        holds its weights; ``sample_batch`` is accepted for the reference's
+        signature.)"""
+        if self.mesh is not None and self.shards is None:
+            self.shards = shard_params_model(self.model, self.mesh)
         trainable = freeze_params(self.model, self.freeze_patterns)
-        optimizer, self.schedule = build_optimizer(trainable, **self.optim_kwargs)
+        optimizer, self.schedule = build_optimizer(trainable, **self.optim_kwargs,
+                                                   shards=self.shards)
         self.state = TrainState(trainable=trainable, optimizer=optimizer, step=0)
         if self.mesh is not None:
             replicate(trainable, self.mesh)
         if self.resume:
             path = self.ckpt.resume_path()
             if path:
-                self.restore(load_checkpoint(path))
+                if self.sharded_ckpt:
+                    self._restore_sharded()
+                else:
+                    self.restore(load_checkpoint(path))
                 print(f"resumed from {path} at step {self.state.step}")
         return self.state
 
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of a trainable parameter ``name`` (or of its
+        gradient or moment) from this rank's: gathered over the model group
+        under tensor parallelism (every rank of the group calls it)."""
+        return t if self.shards is None else self.shards.full(name, t)
+
+    def _local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return t if self.shards is None else self.shards.local(name, t)
+
     def state_dict(self) -> dict:
-        """The train state as saved: trainable tensors by name, optimizer
-        state, step."""
+        """The train state as the msgpack backend saves it: trainable
+        tensors by name, optimizer state, step; under tensor parallelism the
+        whole tensors, gathered over the model group (every rank calls
+        it)."""
         s = self.state
-        return {"trainable": {n: p.detach() for n, p in s.trainable.items()},
-                "optimizer": s.optimizer.state_dict(), "step": s.step}
+        opt = s.optimizer.state_dict()
+        for key in ("mu", "nu", "acc"):
+            if opt[key] is not None:
+                opt[key] = {n: self.whole(n, t) for n, t in opt[key].items()}
+        return {"trainable": {n: self.whole(n, p.detach()) for n, p in s.trainable.items()},
+                "optimizer": opt, "step": s.step}
+
+    def sharded_state_dict(self) -> dict:
+        """The train state as the sharded backend saves it: this rank's
+        tensors, the sliced ones as DTensors viewing them (so a load fills
+        the live state in place)."""
+        s = self.state
+        opt = s.optimizer.state_dict()
+        return {"trainable": as_dtensors({n: p.detach() for n, p in s.trainable.items()},
+                                         self.shards),
+                "optimizer": {"count": opt["count"], "mini_step": opt["mini_step"],
+                              **{k: as_dtensors(opt[k], self.shards)
+                                 for k in ("mu", "nu", "acc") if opt[k] is not None}},
+                "step": s.step}
+
+    def _save_state(self) -> dict:
+        return self.sharded_state_dict() if self.sharded_ckpt else self.state_dict()
+
+    def _restore_sharded(self) -> None:
+        with torch.no_grad():
+            saved = self.ckpt.restore(self.sharded_state_dict())
+        opt = self.state.optimizer
+        opt.count, opt.mini_step = int(saved["optimizer"]["count"]), \
+            int(saved["optimizer"]["mini_step"])
+        self.state.step = int(saved["step"])
 
     def restore(self, saved: dict) -> None:
+        """Load a whole-tensor train state (the msgpack backend's, or a JAX
+        package train state read by ``load_checkpoint``, whose frozen
+        tensors are loaded too) into the model and the optimizer, slicing
+        the sharded names. A saved tensor the model cannot place, or a
+        trainable tensor the state lacks, is a KeyError naming it."""
+        params = dict(self.model.named_parameters())
+        trainable = self.state.trainable
+        for group, names in (("trainable", trainable), ("frozen", params)):
+            unknown = sorted(set(saved.get(group, {})) - set(names))
+            if unknown:
+                raise KeyError(f"{group} tensors of the checkpoint the model cannot place: "
+                               f"{unknown[:5]} ({len(unknown)})")
+        missing = sorted(set(trainable) - set(saved["trainable"]))
+        if missing:
+            raise KeyError(f"trainable tensors missing from the checkpoint: {missing[:5]} "
+                           f"({len(missing)})")
         with torch.no_grad():
-            for n, p in self.state.trainable.items():
-                p.copy_(saved["trainable"][n])
-        self.state.optimizer.load_state_dict(saved["optimizer"])
+            for group in ("trainable", "frozen"):
+                for n, t in saved.get(group, {}).items():
+                    params[n].copy_(self._local(n, t))
+        opt = dict(saved["optimizer"])
+        if (opt.get("acc") is None) != (self.state.optimizer.acc is None):
+            held = "lacks" if opt.get("acc") is None else "holds"
+            raise KeyError(f"optimizer acc: the checkpoint {held} accumulated gradients, "
+                           f"this trainer's accum_steps is {self.accum_steps}")
+        for key in ("mu", "nu", "acc"):
+            if opt.get(key) is not None:
+                opt[key] = {n: self._local(n, t) for n, t in opt[key].items()}
+        self.state.optimizer.load_state_dict(opt)
         self.state.step = int(saved["step"])
 
     def _get_step_fn(self, num_overlap: int):
@@ -229,7 +325,7 @@ class Trainer:
             width, overlap = sample_chunk_shapes(self.rng_np, S, self.chunk_width_range,
                                                  self.overlap_range, self.shape_buckets)
             if self.mesh is not None:
-                self._check_same_shapes(step, batch["images"].shape, width, overlap)
+                self._check_same_draws(step, batch["images"].shape, width, overlap)
             chunks, merged = self._prepare_chunks(batch, width, overlap)
             self.state, metrics = self._get_step_fn(overlap)(self.state, chunks, merged,
                                                              self.generator)
@@ -242,18 +338,24 @@ class Trainer:
                 progress.update(step, host)
             if (step + 1) % self.val_freq == 0:
                 self.validate(step)
-            self.ckpt.maybe_save(step + 1, self.state_dict())
+            self.ckpt.maybe_save(step + 1, self._save_state)
         self.ckpt.finish()
         return self.state
 
-    def _check_same_shapes(self, step: int, images_shape, width: int, overlap: int) -> None:
-        """Every rank of the data group must run the step on one batch shape
-        and one (width, overlap): the predictions are gathered over it."""
-        mine = np.asarray([[*images_shape, width, overlap]])
-        every = allgather_rows(mine, self.mesh.group("data"))
-        if (every != mine).any():
-            raise ValueError(f"step {step}: the data-parallel ranks drew different batch "
-                             f"shapes / (width, overlap): {every.tolist()}")
+    def _check_same_draws(self, step: int, images_shape, width: int, overlap: int) -> None:
+        """Every rank of the mesh must run the step on one batch shape and
+        one (width, overlap) (the predictions are gathered over the data
+        group), and the ranks of a model group on one generator state too
+        (they compute one replicated loss, dropout and offsets included)."""
+        draws = zlib.crc32(self.generator.get_state().numpy().tobytes())
+        every = allgather_rows(np.asarray([[*images_shape, width, overlap, draws]]))
+        shapes, draws = every[:, :-1], every[:, -1].reshape(self.mesh.size("data"), -1)
+        if (shapes != shapes[0]).any():
+            raise ValueError(f"step {step}: the ranks drew different batch shapes / "
+                             f"(width, overlap): {shapes.tolist()}")
+        if (draws != draws[:, :1]).any():
+            raise ValueError(f"step {step}: the ranks of a model group hold different "
+                             f"generator states: {draws.tolist()}")
 
     def current_params(self) -> dict:
         """name -> parameter of the model (trained and frozen)."""
