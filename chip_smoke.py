@@ -146,6 +146,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 seeded weights: ATE and RPE finite, K1 launched 72 times a
                 chunk. Before that, the host ms of one frame's resize,
                 numpy against cv2.resize where cv2 imports.
+20. orbax      — right after the configs, with orbax, tensorstore and zstandard
+                blocked: the zstd decoder (native/zstd.cpp) built by g++,
+                the committed level-1 frame of 262,144 seeded fp32 normals
+                (tests/data/torch_orbax/) decoded bit-equal to the same
+                draw regenerated, its MB/s on the host and the implied time
+                to read a flagship train state; the committed JAX orbax
+                train state read by io/orbax_format.py, every leaf's sha256
+                the JAX restore's; a Trainer (backend orbax) resumed on the
+                card from its _latest link for one finite step.
+21. learning_loop — after the cli phase: vitslam_tpu_torch.learning_loop_demo
+                on cuda, LOOP_STEPS training steps and the four evaluations,
+                every ATE, RPE and Chamfer finite, docs/ untouched.
 
 The kernel phase also holds K3's lse output and K4 against their plain
 versions at the global head's shapes (and K4's outputs from two runs to
@@ -3058,6 +3070,198 @@ def phase_bench(smi: str) -> dict:
     return runs
 
 
+# the orbax phase: a train state the JAX package saved under
+# checkpoint.backend orbax (tests/data/torch_orbax/, written on the CPU by
+# tests/test_torch_orbax.py --write-fixture: this machine cannot write
+# orbax), read with the three packages that could read it blocked
+ORBAX_FIXTURE = ROOT / "tests" / "data" / "torch_orbax"
+ORBAX_BLOCKED = ("orbax", "tensorstore", "zstandard")
+# a flagship train state: 1.19B frozen + 127.3M trainable with mu, nu and
+# the accumulated gradients, fp32
+FLAGSHIP_TRAIN_STATE_BYTES = 4 * (1.19e9 + 4 * 127.3e6)
+# the decode rate: the median of this many decodes of the 1 MiB frame
+DECODE_REPEATS = 25
+
+
+def _leaf_hashes(tree: dict, prefix: str = "") -> dict:
+    """path -> (shape, dtype, sha256) of the leaves of a tree read by
+    read_orbax, as tests/test_torch_orbax.py hashes them."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaf_hashes(v, f"{prefix}{k}/"))
+            continue
+        if isinstance(v, torch.Tensor):
+            shape, dtype, raw = list(v.shape), "bfloat16", v.view(torch.int16).numpy().tobytes()
+        else:
+            a = np.asarray(v)
+            shape, dtype, raw = list(a.shape), str(a.dtype), a.tobytes()
+        out[prefix + k] = dict(shape=shape, dtype=dtype, sha256=hashlib.sha256(raw).hexdigest())
+    return out
+
+
+def phase_orbax(smi: str, device: str = "cuda") -> dict:
+    """With orbax, tensorstore and zstandard blocked: build the zstd decoder
+    (g++), decode the committed normals frame bit-equal to the regenerated
+    draw and time it, read the committed JAX orbax train state with every
+    leaf's hash as the JAX package restores it, and resume a Trainer on
+    ``device`` from the fixture's _latest link for one finite step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    saved = {m: sys.modules.get(m) for m in ORBAX_BLOCKED}
+    sys.modules.update({m: None for m in ORBAX_BLOCKED})  # `import orbax` now raises
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_orbax_"))
+    try:
+        from vitslam_tpu_torch import train as ttrain
+        from vitslam_tpu_torch.head_grad_check import OneBatch
+        from vitslam_tpu_torch.io.orbax_format import orbax_nbytes, read_orbax
+        from vitslam_tpu_torch.models import FeatureAlignedVGGT
+        from vitslam_tpu_torch.native import bindings
+        from vitslam_tpu_torch.utils.synthetic import make_synthetic_batch
+
+        t0 = time.perf_counter()
+        bindings._zstd()  # built by g++ into _build/ unless a current build is there
+        build_s = time.perf_counter() - t0
+        meta = json.loads((ORBAX_FIXTURE / "fixture.json").read_text())
+        n = meta["normals"]
+        want = np.random.default_rng(n["seed"]).standard_normal(n["count"], dtype=np.float32)
+        frame = (ORBAX_FIXTURE / "normals.zst").read_bytes()
+        got = np.empty(n["count"], np.float32)
+        times = []
+        for _ in range(DECODE_REPEATS):
+            t0 = time.perf_counter()
+            bindings.zstd_decompress_into(frame, got.view(np.uint8))
+            times.append(time.perf_counter() - t0)
+        if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+            raise AssertionError("orbax: the decoded normals differ from the regenerated draw")
+        rate = got.nbytes / statistics.median(times) / 1e6
+        print(f"[orbax] {ORBAX_BLOCKED} blocked; zstd decoder built in {build_s:.2f} s; the "
+              f"{n['count']}-float normals frame (level {n['level']}, {len(frame)} bytes) "
+              f"decoded bit-equal to the regenerated draw at {rate:.1f} MB/s of output on the "
+              f"host (median of {DECODE_REPEATS}); a flagship train state "
+              f"({FLAGSHIP_TRAIN_STATE_BYTES / 1e9:.2f} GB fp32) at that rate: "
+              f"{FLAGSHIP_TRAIN_STATE_BYTES / 1e6 / rate:.1f} s of decoding alone, a lower "
+              f"bound for read_orbax (the phase checkpoints times the msgpack flagship's "
+              f"load); {smi}")
+
+        shutil.copytree(ORBAX_FIXTURE / "run", tmp / "run", symlinks=True)
+        link = tmp / meta["link"]
+        if not link.is_symlink():  # a checkout that dropped the link: make it again
+            link.parent.mkdir(exist_ok=True)
+            link.symlink_to(Path("..") / Path(meta["checkpoint"]).name)
+        t0 = time.perf_counter()
+        tree = read_orbax(str(link))
+        read_s = time.perf_counter() - t0
+        hashes = _leaf_hashes(tree)
+        bad = sorted(p for p in meta["leaves"] if hashes.get(p) != meta["leaves"][p])
+        if bad or set(hashes) != set(meta["leaves"]):
+            raise AssertionError(f"orbax: leaves differ from the JAX restore: {bad[:5]}, "
+                                 f"{sorted(set(hashes) ^ set(meta['leaves']))[:5]}")
+        print(f"[orbax] read_orbax of the fixture ({orbax_nbytes(str(link))} bytes, "
+              f"{len(hashes)} leaves): {read_s:.3f} s, every leaf's sha256 the JAX restore's")
+
+        model = FeatureAlignedVGGT(**dict(meta["model"], intermediate_layers=tuple(
+            meta["model"]["intermediate_layers"])), dtype=torch.float32, device=device)
+        step = meta["step"]
+        cfg = dict(exp_name=meta["exp_name"], max_steps=step + 1, accum_steps=meta["accum_steps"],
+                   chunk_width=[3, 4], num_overlap=[1, 1], gt_alignment_type="scale_from_poses",
+                   logging=dict(log_dir=str(tmp / "logs"), log_freq=1),
+                   checkpoint=dict(save_dir=str(tmp / "run"), backend="orbax",
+                                   save_freq=10 ** 9, resume_from_checkpoint=True),
+                   optim=dict(frozen_module_names=meta["freeze"]))
+        batch = make_synthetic_batch(B=1, N=7, H=28, W=28, seed=0)
+        trainer = ttrain.Trainer(cfg, model, ttrain.MultitaskLoss(
+            cameraPose={"weight": 1.0, "loss_type": "l1"}, total_steps=step + 1),
+            train_data=OneBatch(batch))
+        logged = []
+        log = trainer.logger.log_metrics
+        trainer.logger.log_metrics = lambda m, k: (logged.append((k, dict(m))), log(m, k))
+        count = int(tree["opt_state"]["inner_opt_state"]["1"]["0"]["count"])
+        reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.fit()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+        shutil.rmtree(tmp, ignore_errors=True)
+    on = str(next(model.parameters()).device)
+    print(f"[orbax] Trainer (backend orbax, resume) on {on} resumed at step {step} (Adam count "
+          f"{count}, mini-step 1 of {meta['accum_steps']}) and took step {logged[0][0] if logged else '?'}"
+          f" in {fit_s:.2f} s: {json.dumps({k: v for k, v in logged[0][1].items()} if logged else {})}")
+    if len(logged) != 1 or logged[0][0] != step or state.step != step + 1:
+        raise AssertionError(f"orbax: expected one step from {step}, logged {[k for k, _ in logged]}, "
+                             f"state at {state.step}")
+    if not np.isfinite(logged[0][1]["objective"]):
+        raise AssertionError(f"orbax: non-finite objective {logged[0][1]['objective']}")
+    if state.optimizer.count != count + 1:  # the accumulated micro-step applies the update
+        raise AssertionError(f"orbax: Adam count {state.optimizer.count}, expected {count + 1}")
+    return {"orbax": dict(decode_mb_s=rate, build_s=build_s, read_s=read_s, fit_s=fit_s,
+                          flagship_s=FLAGSHIP_TRAIN_STATE_BYTES / 1e6 / rate,
+                          seconds=fit_s, launches=launches)}
+
+
+# the learning-loop phase: the demo's 300 steps take ~260 s on the H100 (a
+# step of the 2-block model is host-bound: PERF.md), so the phase trains
+# fewer; the full run is `python -m vitslam_tpu_torch.learning_loop_demo`
+LOOP_STEPS = 30
+
+
+def phase_learning_loop(smi: str) -> dict:
+    """python -m vitslam_tpu_torch.learning_loop_demo on cuda (its main):
+    the feature-aligned AlignmentHead trained LOOP_STEPS steps on the
+    VKITTI fixture, then the four evaluations; every metric of the four
+    rows finite, the report written outside docs/, which stays as it
+    was."""
+    import shutil
+    import tempfile
+
+    from vitslam_tpu_torch import learning_loop_demo
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    jax_report = ROOT / "docs" / "LEARNING_LOOP_DEMO.md"
+    before = jax_report.read_bytes() if jax_report.exists() else None
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = learning_loop_demo.main(["--steps", str(LOOP_STEPS), "--device", "cuda",
+                                       "--workdir", tmp])
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        report = Path(out["report"]).read_text()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _release()
+    print(f"[learning_loop] {LOOP_STEPS} steps in {out['train_s']:.1f} s, four evaluations in "
+          f"{out['eval_s']:.1f} s, the phase {secs:.1f} s on {smi}; launches {launches}")
+    for line in report.splitlines():
+        if line.startswith("| mean") or line.startswith("Training objective"):
+            print(f"[learning_loop] {line}")
+    rows = out["results"]
+    tags = learning_loop_demo.METRIC_TAGS
+    bad = [(r, k) for r, m in rows.items() for k, v in m.items()
+           if any(k.endswith("/" + t) for t in tags) and not np.isfinite(v)]
+    if bad or any(not any(k.endswith("/" + t) for k in m) for m in rows.values() for t in tags):
+        raise AssertionError(f"learning_loop: missing or non-finite metrics {bad[:5]}")
+    if (jax_report.read_bytes() if jax_report.exists() else None) != before:
+        raise AssertionError("learning_loop: docs/LEARNING_LOOP_DEMO.md changed")
+    return {"learning_loop": dict(seconds=secs, train_s=out["train_s"], eval_s=out["eval_s"],
+                                  results=rows, launches=launches)}
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:2] == ["--dist-worker"]:
@@ -3069,6 +3273,7 @@ def main() -> int:
 
     sass = phase_build()
     phase_configs()
+    orbax_run = phase_orbax(smi)
     # first, while this process holds no model: the gangs' ranks need ~25
     # GiB each on the shared card
     dist_runs, train_ref = phase_distributed(smi)
@@ -3078,6 +3283,8 @@ def main() -> int:
     # the benchmark's scenario processes need the card to themselves
     dist_runs.update(phase_bench(smi))
     dist_runs.update(phase_cli(smi))
+    dist_runs.update(phase_learning_loop(smi))
+    dist_runs.update(orbax_run)
     results = phase_kernels()
     phase_reference()
     runs, tails_off = phase_slice(smi)

@@ -1,7 +1,12 @@
-"""Hygiene of the port package: it never imports JAX, flax, orbax or the JAX
-package (vitslam_tpu), every module imports on its own (and without OpenCV,
-PyYAML, matplotlib or msgpack, which the port does not need), and
-the weight loader is strict."""
+"""Hygiene of the port package: it never imports JAX, flax, orbax,
+tensorstore, zstandard or the JAX package (vitslam_tpu), every module
+imports on its own (and without OpenCV, PyYAML, matplotlib or msgpack,
+which the port does not need), and the weight loader is strict.
+
+Each module is imported alone in a child forked from one interpreter that
+has imported numpy and torch and nothing of the port (a fresh interpreter
+a module would cost ~3 s of start-up and torch import each)."""
+import json
 import os
 import subprocess
 import sys
@@ -47,25 +52,66 @@ MODULES = [
     "vitslam_tpu_torch.native.bindings", "vitslam_tpu_torch.parallel.pod_worker",
     "vitslam_tpu_torch.parallel.dryrun", "vitslam_tpu_torch.config.yaml_lite",
     "vitslam_tpu_torch.data.png", "vitslam_tpu_torch.bench", "vitslam_tpu_torch.train_bench",
+    "vitslam_tpu_torch.io.ocdbt", "vitslam_tpu_torch.io.orbax_format",
+    "vitslam_tpu_torch.utils.fixtures", "vitslam_tpu_torch.learning_loop_demo",
     "chip_smoke",
 ]
+# the packages no module of the port may import
+FORBIDDEN = ("jax", "flax", "orbax", "tensorstore", "zstandard", "vitslam_tpu")
 # installed here and not needed by the port: the package must import
 # without them (configs are read by config/yaml_lite.py and PNGs by
 # data/png.py; cv2 is imported only to read a JPEG and matplotlib where a
 # plot is made; the reference's checkpoints are read without msgpack)
-HOST_ONLY = ("cv2", "yaml", "matplotlib", "msgpack")
+HOST_ONLY = ("cv2", "yaml", "matplotlib", "msgpack", "tensorstore", "zstandard")
+# the import of each module in a child forked from this interpreter, up to
+# four at a time; prints {module: {"bad": [...]} or {"error": ...}}
+ALONE = """
+import json, os, sys
+import numpy, torch  # noqa: F401 (the base every module shares; nothing of the port)
+forbidden, todo = tuple(sys.argv[1].split(",")), sys.argv[2:]
+results, running = {}, {}
+
+def reap():
+    pid, _ = os.wait()
+    module, r = running.pop(pid)
+    with os.fdopen(r, "rb") as f:
+        results[module] = json.loads(f.read() or b'{"error": "no result"}')
+
+for module in todo:
+    while len(running) >= 4:
+        reap()
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            __import__(module)
+            out = {"bad": sorted(m for m in sys.modules if m.split(".")[0] in forbidden)}
+        except BaseException as e:
+            out = {"error": repr(e)}
+        os.write(w, json.dumps(out).encode())
+        os._exit(0)
+    os.close(w)
+    running[pid] = (module, r)
+while running:
+    reap()
+print(json.dumps(results))
+"""
+
+
+@pytest.fixture(scope="module")
+def alone():
+    """module -> the result of importing it alone (see ALONE)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", ALONE, ",".join(FORBIDDEN), *MODULES], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 @pytest.mark.parametrize("module", MODULES)
-def test_module_imports_alone_without_jax_or_flax(module):
-    code = (f"import sys, {module}\n"
-            "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'flax', 'orbax', 'vitslam_tpu'))\n"
-            "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
+def test_module_imports_alone_without_jax_or_flax(module, alone):
+    assert alone[module] == {"bad": []}, alone[module]
 
 
 def test_package_imports_without_cv2_yaml_or_matplotlib():

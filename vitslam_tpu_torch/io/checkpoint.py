@@ -22,6 +22,12 @@ saved by the port). ``load_checkpoint`` also reads the reference's whole
 train state (trainable and frozen tensors, optax's AdamW moments, the
 accumulated gradients, the step) into the port's layout, for a resume.
 
+``load_checkpoint`` also takes a directory: the orbax checkpoint the JAX
+package writes under ``checkpoint.backend: orbax`` (``manifest.ocdbt`` and
+``_METADATA``, read by ``io/orbax_format.py`` without orbax or tensorstore),
+with the same train-state layout. The port's own sharded saves (DCP
+directories, ``io/sharded_ckpt.py``) are read by their manager.
+
 In a gang of ranks only rank 0 writes (the step checkpoints, the link and
 its removal); every rank may read.
 """
@@ -43,6 +49,7 @@ from .from_jax import (
     port_name,
     train_state_from_jax,
 )
+from .orbax_format import is_orbax_dir, read_orbax
 
 
 def _to_host(tree):
@@ -64,7 +71,16 @@ def save_checkpoint(path: str, tree: Any) -> str:
 
 def checkpoint_format(path: str) -> str:
     """"torch" (a ``torch.save`` zip archive) or "flax" (msgpack, whose
-    top-level value is a map), from the file's first bytes."""
+    top-level value is a map), from a file's first bytes; for a directory
+    "orbax" (the JAX package's: ``manifest.ocdbt`` and ``_METADATA``) or
+    "dcp" (the port's sharded save: DCP's ``.metadata``)."""
+    if osp.isdir(path):
+        if is_orbax_dir(path):
+            return "orbax"
+        if osp.isfile(osp.join(path, ".metadata")):
+            return "dcp"
+        raise ValueError(f"{path}: a directory that is neither an orbax checkpoint "
+                         "(manifest.ocdbt and _METADATA) nor a DCP one (.metadata)")
     with open(path, "rb") as f:
         head = f.read(4)
     if head == b"PK\x03\x04":
@@ -77,14 +93,19 @@ def checkpoint_format(path: str) -> str:
 
 def load_checkpoint(path: str) -> Any:
     """The saved tree on the CPU: a ``torch.save`` file's as saved; a flax
-    file's as nested dicts of numpy arrays (bf16 leaves as tensors), except
-    that a JAX package train state comes in the port's train-state layout
-    (``from_jax.train_state_from_jax``), for a Trainer to resume from."""
-    if checkpoint_format(path) == "flax":
-        tree = read_flax_msgpack(path)
+    file's or an orbax directory's as nested dicts of numpy arrays (bf16
+    leaves as tensors), except that a JAX package train state comes in the
+    port's train-state layout (``from_jax.train_state_from_jax``), for a
+    Trainer to resume from."""
+    fmt = checkpoint_format(path)
+    if fmt in ("flax", "orbax"):
+        tree = read_flax_msgpack(path) if fmt == "flax" else read_orbax(path)
         if isinstance(tree, dict) and set(tree) == TRAIN_STATE_KEYS:
             return train_state_from_jax(tree)
         return tree
+    if fmt == "dcp":
+        raise ValueError(f"{path}: a DCP directory (the port's sharded save) is read by "
+                         "io.sharded_ckpt.load_sharded into a template")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

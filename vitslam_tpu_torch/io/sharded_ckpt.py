@@ -22,6 +22,12 @@ Kept from the reference's contract (orbax_ckpt.py):
 
 Every rank calls save and load (DCP plans them together); outside a gang
 they run in this process alone.
+
+The resume target may also be a directory the JAX package wrote under the
+same names (orbax on OCDBT: ``manifest.ocdbt`` and ``_METADATA``, where a
+DCP directory has ``.metadata``). ``restore`` refuses it: such a state is
+read whole by ``io.checkpoint.load_checkpoint`` and loaded by
+``Trainer.restore`` (``Trainer.init_state`` tells the two apart).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import ModelShards, rank, sync_global_devices
+from .orbax_format import is_orbax_dir
 
 
 def _device_mesh(mesh, device_type: str):
@@ -154,11 +161,18 @@ class ShardedCheckpointManager:
         return link if osp.isdir(link) else None
 
     def restore(self, template: dict) -> Optional[dict]:
-        """``load_sharded`` of the resume target into ``template``, or None."""
+        """``load_sharded`` of the resume target (a DCP directory) into
+        ``template``; None without a target. A JAX package's orbax
+        directory raises: it is a whole train state for ``Trainer.restore``
+        (through ``io.checkpoint.load_checkpoint``), not a template's load."""
         path = self.resume_path()
         if path is None:
             return None
-        return load_sharded(osp.realpath(path), template)
+        path = osp.realpath(path)
+        if is_orbax_dir(path):
+            raise ValueError(f"{path}: a JAX package orbax checkpoint; load it with "
+                             "Trainer.restore(io.checkpoint.load_checkpoint(path))")
+        return load_sharded(path, template)
 
     def finish(self):
         """Delete the resume link on a clean finish."""

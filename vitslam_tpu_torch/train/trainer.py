@@ -32,8 +32,10 @@ chunk shapes, dropout and loss offsets; a step checks that too. The
 msgpack checkpoint gathers the whole tensors and is the file one process
 would write; a resume slices it again. ``checkpoint.backend: orbax``
 writes sharded checkpoints (``io/sharded_ckpt.py``), every rank its part.
-Resuming also takes a train state the JAX package saved (a flax msgpack
-file: ``io.checkpoint.load_checkpoint``).
+Resuming also takes a train state the JAX package saved, under either of
+its backends (a flax msgpack file, or an orbax directory under
+``checkpoint.backend: orbax``: ``io.checkpoint.load_checkpoint``), read
+whole and loaded through ``restore``.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..io.checkpoint import CheckpointManager, load_checkpoint
+from ..io.checkpoint import CheckpointManager, checkpoint_format, load_checkpoint
 from ..io.sharded_ckpt import ShardedCheckpointManager, as_dtensors
 from ..parallel import (
     allgather_rows,
@@ -185,9 +187,9 @@ class Trainer:
         if self.resume:
             path = self.ckpt.resume_path()
             if path:
-                if self.sharded_ckpt:
+                if self.sharded_ckpt and checkpoint_format(os.path.realpath(path)) == "dcp":
                     self._restore_sharded()
-                else:
+                else:  # a msgpack or torch file, or a JAX package's orbax directory
                     self.restore(load_checkpoint(path))
                 print(f"resumed from {path} at step {self.state.step}")
         return self.state
