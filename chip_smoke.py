@@ -158,6 +158,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 21. learning_loop — after the cli phase: vitslam_tpu_torch.learning_loop_demo
                 on cuda, LOOP_STEPS training steps and the four evaluations,
                 every ATE, RPE and Chamfer finite, docs/ untouched.
+22. kv_merge   — right after learning_loop: vitslam_tpu_torch.kv_merge_quality
+                at the script's sizes (90 frames, 75/30, six settings, point
+                and pose; K1 at head dim 32 over 675 tokens on both exact
+                rows, nothing on the merged rows), the bench's merge sweep
+                (the point-aligned flagship at 75/30 under
+                VITSLAM_TOKEN_MERGE at exact, p2s2 and p4s10, in this
+                process: new-frames/s and every K2 launch at (30,900, Nk))
+                and vitslam_tpu_torch.kv_merge_trained on the checkpoint
+                the learning_loop phase wrote (its exact row equal to the
+                demo's trained row); docs/ untouched.
 
 The kernel phase also holds K3's lse output and K4 against their plain
 versions at the global head's shapes (and K4's outputs from two runs to
@@ -165,7 +175,10 @@ each other: bit-identical), K5 at the mlp and proj
 tails of the 5/1 and 75/30 chunks, beside torch.mm of the same operands,
 and K1, K2 and K3 at the bench's shapes (K1 at B=80 N=412, B=16 N=2,060
 and B=40 N=1,374; K2 at B=8 N=6,870; K3 at B=5 H=8 N=1,375 D=128, the
-AlignmentHead's frame attention at 518x518).
+AlignmentHead's frame attention at 518x518), K2 at every KV-merge
+setting's Nk at 75/30, and K1 (with its prep), K2 and K3 at head dim 32
+(K1 at the quality sweep's (1, 675, 2 heads)), kept as entries of their
+own in the kernels line (VARIANTS).
 Every path runs with the kernels' launch counts set to 0 just before it
 and reads them just after. The line before the last
 is a JSON summary of the kernels; the last line is {"ok": true, "device":
@@ -205,6 +218,18 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
     "flash_attention_backward": ("cuda", "vitslam_tpu_torch/csrc/flash_attention_bwd.cu",
                                  "vitslam_tpu/ops/flash_attention.py:384"),
     "mlp_tail": ("cuda", "vitslam_tpu_torch/csrc/mlp_tail.cu", "vitslam_tpu/ops/mlp_tail.py:54"),
+}
+# the same kernels at the KV-merge sweeps' shapes, kept as entries of their
+# own: name -> (the kernel's name in KERNELS, whose counter and source it
+# shares, the path whose run gives its launches, its case in the kernels
+# phase)
+VARIANTS = {
+    "fused_qkv_attention_dh32": ("fused_qkv_attention", "kv_merge quality point exact", None),
+    "qk_prep_dh32": ("qk_prep", "kv_merge quality point exact", None),
+    "flat_flash_attention_p2s2": ("flat_flash_attention", "kv_merge bench p2s2",
+                                  "merged 75/30 p2s2 B=1 Nq=30900 Nk=20059"),
+    "flat_flash_attention_p4s10": ("flat_flash_attention", "kv_merge bench p4s10",
+                                   "merged 75/30 p4s10 B=1 Nq=30900 Nk=5641"),
 }
 # K4 is two TPU kernels, dq (:384) and dk/dv (:421); the port's one backward
 # kernel (with its prep and dq passes) replaces both
@@ -643,6 +668,13 @@ def kernels_k2(results: dict, g, dev):
     cases = [  # (name, B, Nq, Nk, main-path case)
         ("global 75/30 B=1 Nq=Nk=30900", 1, 30900, 30900, True),
         ("merged 75/30 p4s10 B=1 Nq=30900 Nk=5641", 1, 30900, 5641, False),
+        # the other KV-merge settings of the bench's merge sweep at 75/30
+        # (anchors x 412 + merged frames x (5 specials + the pooled grid))
+        ("merged 75/30 p2s2 B=1 Nq=30900 Nk=20059", 1, 30900, 20059, False),
+        ("merged 75/30 p2s5 B=1 Nq=30900 Nk=13320", 1, 30900, 13320, False),
+        ("merged 75/30 p2s10 B=1 Nq=30900 Nk=11269", 1, 30900, 11269, False),
+        ("merged 75/30 p4s5 B=1 Nq=30900 Nk=8280", 1, 30900, 8280, False),
+        ("merged 75/30 p8s10 B=1 Nq=30900 Nk=4301", 1, 30900, 4301, False),
         ("ragged B=2 Nq=4200 Nk=5000", 2, 4200, 5000, False),
         # sequence-parallel global attention, 75/30 over 3 ranks: 25 frames'
         # queries against the 75 frames' gathered keys
@@ -869,6 +901,105 @@ def kernels_k5(results: dict, g, dev):
         torch.cuda.empty_cache()
 
 
+def kernels_dh32(results: dict, g, dev):
+    """K1 (with its prep), K2 and K3 at head dim 32 (the 64-byte swizzle,
+    wgmma n = 32 for P V) against their plain versions: K1 at the KV-merge
+    quality sweep's global attention (75 frames of 4 patches + 5 special
+    tokens, 2 heads of 32), K2 and K3 at larger shapes of the same head
+    dim. Kept under their own names (``<kernel>_dh32``)."""
+    import torch
+
+    from vitslam_tpu_torch.nn.layers import qk_shift_from
+    from vitslam_tpu_torch.nn.rope import patch_grid_positions, rope_cache_2d
+    from vitslam_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        q_fold,
+    )
+    from vitslam_tpu_torch.ops.fused_attention import (
+        _heads,
+        flat_flash_attention,
+        flat_flash_attention_plain,
+        fused_qkv_attention,
+        fused_qkv_attention_plain,
+        qk_prep,
+        qk_prep_plain,
+    )
+
+    heads, dh, B, N = 2, 32, 1, 675
+    C = heads * dh
+    case = "kv_merge quality global B=1 N=675 H=2 dh=32 LN+RoPE bounded"
+    qkv = torch.randn((B, N, 3 * C), generator=g, device=dev).to(torch.bfloat16)
+    ln = [(1 + 0.1 * torch.randn(dh, generator=g, device=dev),
+           0.1 * torch.randn(dh, generator=g, device=dev)) for _ in range(2)]
+    # 5 special tokens + a 2 x 2 patch grid a frame, as the sweep's model
+    pos = patch_grid_positions(75, 2, 2, 5, dev).reshape(1, N, 2)
+    cos, sin, nsplit = rope_cache_2d(pos, dh)
+    kw = dict(num_heads=heads, q_ln=ln[0], k_ln=ln[1], cos=cos, sin=sin, nsplit=nsplit,
+              static_max=qk_shift_from(ln[0], ln[1], dh))
+    got = fused_qkv_attention(qkv, **kw)
+    err, rl2 = _check("K1 dh32", case, got, fused_qkv_attention_plain(qkv, **kw), ATOL)
+    q, k, v = (_heads(qkv[..., i * C:(i + 1) * C], heads) for i in range(3))
+    sdpa_ms = _sdpa_ms(q, k, v)
+    tables = [t for pair in ln for t in pair] + [cos, sin]
+    _report(results, "fused_qkv_attention_dh32", case, True, err, rl2,
+            lambda: fused_qkv_attention(qkv, **kw),
+            _time_ms(lambda: fused_qkv_attention_plain(qkv, **kw)),
+            _time_ms(_flat_prep_sdpa(qkv, heads, ln, cos, sin, nsplit)),
+            4.0 * B * heads * N * N * dh, _nbytes(qkv, got, *tables), sdpa_ms=sdpa_ms)
+    pkw = {k_: v_ for k_, v_ in kw.items() if k_ != "static_max"}
+    pkw["fold"] = q_fold(dh)
+    got_p, want_p = qk_prep(qkv, **pkw), qk_prep_plain(qkv, **pkw)
+    torch.cuda.synchronize()
+    errs, same = [], []
+    for a, b in zip(got_p, want_p):
+        a, b = a.float(), b.float()
+        same.append((a == b).float().mean().item())
+        if not ((a - b).abs() <= 1e-6 + 2.0 ** -7 * b.abs()).all() or same[-1] < 0.999:
+            raise AssertionError(f"qk_prep dh32 {case}: beyond one bf16 ulp of the plain "
+                                 f"version, or only {same[-1]:.5f} bit-identical")
+        errs.append((a - b).abs().max().item())
+    _report(results, "qk_prep_dh32", case, True, max(errs), 0.0, lambda: qk_prep(qkv, **pkw),
+            _time_ms(lambda: qk_prep_plain(qkv, **pkw)), None, 0.0,
+            _nbytes(qkv[..., :2 * C], *got_p, *tables), bit_identical=min(same))
+    del qkv, got, got_p, want_p
+
+    smax = torch.tensor(24.0, device=dev)
+    for case, B, nq, nk, heads, main in (
+            ("D32 B=1 Nq=Nk=4352 H=2", 1, 4352, 4352, 2, True),
+            ("D32 B=1 Nq=30900 Nk=5641 H=32", 1, 30900, 5641, 32, False)):
+        C = heads * dh
+        q = (2 * torch.randn((B, nq, C), generator=g, device=dev)).to(torch.bfloat16)
+        k = torch.randn((B, nk, C), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, nk, 3 * C), generator=g, device=dev).to(torch.bfloat16)[..., 2 * C:]
+        got = flat_flash_attention(q, k, v, num_heads=heads, static_max=smax)
+        qs = (q.float() * q_fold(dh)).to(torch.bfloat16)
+        err, rl2 = _check("K2 dh32", case, got,
+                          flat_flash_attention_plain(qs, k, v, num_heads=heads), ATOL)
+        _report(results, "flat_flash_attention_dh32", case, main, err, rl2,
+                lambda: flat_flash_attention(q, k, v, num_heads=heads, static_max=smax),
+                _time_ms(lambda: flat_flash_attention_plain(qs, k, v, num_heads=heads)),
+                _sdpa_ms(_heads(q, heads), _heads(k, heads), _heads(v, heads)),
+                4.0 * B * heads * nq * nk * dh, _nbytes(q, k, v, got))
+        del q, k, v, qs, got
+    for case, B, H, nq, nk, bounded, main in (
+            ("D32 quality merged B=1 H=2 Nq=675 Nk=495 online-max", 1, 2, 675, 495, False,
+             True),
+            ("D32 B=1 H=32 Nq=2060 Nk=1474 bounded", 1, 32, 2060, 1474, True, False)):
+        q = (2 * torch.randn((B, H, nq, dh), generator=g, device=dev)).to(torch.bfloat16)
+        k = torch.randn((B, H, nk, dh), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, H, nk, dh), generator=g, device=dev).to(torch.bfloat16)
+        sm = smax if bounded else None
+        got = flash_attention(q, k, v, static_max=sm)
+        err, rl2 = _check("K3 dh32", case, got, flash_attention_plain(q, k, v), ATOL)
+        _report(results, "flash_attention_dh32", case, main, err, rl2,
+                lambda: flash_attention(q, k, v, static_max=sm),
+                _time_ms(lambda: flash_attention_plain(q, k, v)), _sdpa_ms(q, k, v),
+                4.0 * B * H * nq * nk * dh, _nbytes(q, k, v, got))
+        del q, k, v, got
+    torch.cuda.empty_cache()
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -876,6 +1007,7 @@ def phase_kernels() -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     results: dict = {}
     kernels_k1(results, g, dev)
+    kernels_dh32(results, g, dev)
     kernels_k2(results, g, dev)
     kernels_k3(results, g, dev)
     kernels_k3_lse_k4(results, g, dev)
@@ -3220,30 +3352,23 @@ def phase_orbax(smi: str, device: str = "cuda") -> dict:
 LOOP_STEPS = 30
 
 
-def phase_learning_loop(smi: str) -> dict:
-    """python -m vitslam_tpu_torch.learning_loop_demo on cuda (its main):
-    the feature-aligned AlignmentHead trained LOOP_STEPS steps on the
-    VKITTI fixture, then the four evaluations; every metric of the four
-    rows finite, the report written outside docs/, which stays as it
-    was."""
-    import shutil
-    import tempfile
-
+def phase_learning_loop(smi: str, workdir: str) -> dict:
+    """python -m vitslam_tpu_torch.learning_loop_demo on cuda (its main) in
+    ``workdir``: the feature-aligned AlignmentHead trained LOOP_STEPS steps
+    on the VKITTI fixture, then the four evaluations; every metric of the
+    four rows finite, the report written outside docs/, which stays as it
+    was. The workdir (its checkpoint) is left for the kv_merge phase."""
     from vitslam_tpu_torch import learning_loop_demo
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
     jax_report = ROOT / "docs" / "LEARNING_LOOP_DEMO.md"
     before = jax_report.read_bytes() if jax_report.exists() else None
-    try:
-        reset_launches()
-        t0 = time.perf_counter()
-        out = learning_loop_demo.main(["--steps", str(LOOP_STEPS), "--device", "cuda",
-                                       "--workdir", tmp])
-        secs = time.perf_counter() - t0
-        launches = read_launches()
-        report = Path(out["report"]).read_text()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = learning_loop_demo.main(["--steps", str(LOOP_STEPS), "--device", "cuda",
+                                   "--workdir", workdir])
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    report = Path(out["report"]).read_text()
     _release()
     print(f"[learning_loop] {LOOP_STEPS} steps in {out['train_s']:.1f} s, four evaluations in "
           f"{out['eval_s']:.1f} s, the phase {secs:.1f} s on {smi}; launches {launches}")
@@ -3260,6 +3385,150 @@ def phase_learning_loop(smi: str) -> dict:
         raise AssertionError("learning_loop: docs/LEARNING_LOOP_DEMO.md changed")
     return {"learning_loop": dict(seconds=secs, train_s=out["train_s"], eval_s=out["eval_s"],
                                   results=rows, launches=launches)}
+
+
+# the kv_merge phase's bench runs: the flagship point-aligned model at 75/30
+# under VITSLAM_TOKEN_MERGE, a few timed chunks each, and the (Nq, Nk) its
+# K2 launches must have (Nq = 75 x 412; Nk = anchors x 412 + merged frames
+# x (5 specials + the pooled 37 x 11 grid, edge-replicated))
+KV_BENCH = (("exact", "", 30900), ("p2s2", "2,2", 20059), ("p4s10", "4,10", 5641))
+KV_BENCH_CHUNKS = 3
+# the trained sweep's exact row against the demo's trained row: the same
+# weights over the same held-out fixture, one process, so the same numbers
+# up to the frozen weights' init (the same seed on the same device)
+KV_TRAINED_RTOL = 1e-4
+
+
+def _kv_quality(smi: str) -> dict:
+    """python -m vitslam_tpu_torch.kv_merge_quality (its main) at the
+    script's sizes on cuda: every metric finite, K1 (with its prep) at
+    head dim 32 launched on both exact rows and nothing on the merged
+    rows, the report outside docs/."""
+    import shutil
+    import tempfile
+
+    from vitslam_tpu_torch import kv_merge_quality as kvq
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kvq_")
+    try:
+        out = kvq.main(["--device", "cuda", "--workdir", tmp])
+        report = Path(out["report"]).read_text()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = out["rows"]
+    for line in report.splitlines():
+        if line.startswith("| point") or line.startswith("| pose"):
+            print(f"[kv_merge] {line}")
+    runs = {}
+    for fam, tg, vals, secs, routes, launches in rows:
+        if len(vals) != 6 or not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"kv_merge {fam}/{tg}: metrics {vals}")
+        k1 = launches["fused_qkv_attention"]
+        if tg == "exact":
+            if not k1 or k1 != launches["qk_prep"] or k1 != routes.get("fused"):
+                raise AssertionError(f"kv_merge {fam}/{tg}: K1 at head dim 32 not launched "
+                                     f"on every global attention: {launches}, {routes}")
+        elif any(launches.values()):
+            raise AssertionError(f"kv_merge {fam}/{tg}: kernels launched on the merged row "
+                                 f"(under 512 keys, plain): {launches}")
+        runs[f"kv_merge quality {fam} {tg}"] = dict(seconds=secs, launches=launches,
+                                                    routes=routes, metrics=vals)
+    print(f"[kv_merge] quality sweep: 12 rows in {out['seconds']:.1f} s on {smi}")
+    return runs
+
+
+def _kv_bench(smi: str) -> dict:
+    """The bench's merge sweep: vitslam_tpu_torch.bench's 75/30 point
+    scenario under VITSLAM_TOKEN_MERGE at exact, p2s2 and p4s10, in this
+    process; its new-frames/s, and every K2 launch at (30,900, Nk) of the
+    setting, none of K3."""
+    import os
+
+    import vitslam_tpu_torch.nn.layers as layers
+    from vitslam_tpu_torch import bench
+
+    env = {"BENCH_MODEL": "point", "BENCH_WIDTH": "75", "BENCH_OVERLAP": "30",
+           "BENCH_CHUNKS": str(KV_BENCH_CHUNKS)}
+    runs = {}
+    real_k2 = layers.flat_flash_attention
+    before = os.environ.get("VITSLAM_TOKEN_MERGE")
+    try:
+        for tg, merge, nk in KV_BENCH:
+            shapes = []
+
+            def recorded(q, k, v, **kw):
+                shapes.append((q.shape[1], k.shape[1]))
+                return real_k2(q, k, v, **kw)
+
+            layers.flat_flash_attention = recorded
+            os.environ["VITSLAM_TOKEN_MERGE"] = merge
+            line = bench.run_inference(bench.require_device("cuda"), env)
+            layers.flat_flash_attention = real_k2
+            _release()
+            launches = line["launches"]
+            print(f"[kv_merge] bench point 75/30 {tg} (VITSLAM_TOKEN_MERGE={merge!r}): "
+                  f"{line['value']} new-frames/s over {line['timed_chunks']} chunks "
+                  f"({line['timed_s']} s) on {smi}; K2 (Nq, Nk) {sorted(set(shapes))}; "
+                  f"launches {launches}")
+            if set(shapes) != {(30900, nk)} or launches["flash_attention"] \
+                    or launches["flat_flash_attention"] != 24 * line["timed_chunks"]:
+                raise AssertionError(f"kv_merge bench {tg}: K2 (Nq, Nk) {set(shapes)} != "
+                                     f"{{(30900, {nk})}}, or launches {launches}")
+            runs[f"kv_merge bench {tg}"] = dict(line, seconds=line["timed_s"], fps=line["value"])
+    finally:
+        layers.flat_flash_attention = real_k2
+        if before is None:
+            os.environ.pop("VITSLAM_TOKEN_MERGE", None)
+        else:
+            os.environ["VITSLAM_TOKEN_MERGE"] = before
+    return runs
+
+
+def _kv_trained(smi: str, demo_dir: str, demo: dict) -> dict:
+    """python -m vitslam_tpu_torch.kv_merge_trained (its main) on the
+    checkpoint the learning_loop phase wrote: three settings, every metric
+    finite, the exact row equal to the demo's trained row."""
+    from vitslam_tpu_torch import kv_merge_trained as kvt
+
+    t0 = time.perf_counter()
+    out = kvt.main(["--device", "cuda", "--demo-dir", demo_dir])
+    secs = time.perf_counter() - t0
+    rows = out["rows"]
+    tags = kvt.METRIC_TAGS
+    for tg, vals, _ in rows:
+        got = {k: v for k, v in vals.items() if any(k.endswith("/" + t) for t in tags)}
+        if len(got) != 2 * len(tags) or not all(np.isfinite(v) for v in got.values()):
+            raise AssertionError(f"kv_merge trained {tg}: metrics {got}")
+    trained = demo["learning_loop"]["results"]["feature_trained"]
+    exact = rows[0][1]
+    errs = {k: abs(exact[k] - v) / max(abs(v), 1e-12) for k, v in trained.items()
+            if any(k.endswith("/" + t) for t in tags)}
+    print(f"[kv_merge] trained sweep on step {out['step']} in {secs:.1f} s on {smi}; exact row "
+          f"against the demo's trained row: max rel {max(errs.values()):.2e} "
+          f"(tol {KV_TRAINED_RTOL})")
+    if not max(errs.values()) <= KV_TRAINED_RTOL:
+        raise AssertionError(f"kv_merge trained: exact row differs from the demo's trained "
+                             f"row: {errs}")
+    for line in Path(out["report"]).read_text().splitlines():
+        if line.startswith("| ") or line.startswith("- p"):
+            print(f"[kv_merge] {line}")
+    return {"kv_merge trained": dict(seconds=secs, rows=rows, step=out["step"])}
+
+
+def phase_kv_merge(smi: str, demo_dir: str, demo: dict) -> dict:
+    """The KV-merge sweeps: quality (random weights), the bench's speed
+    sweep at full width and the trained sweep on the learning_loop phase's
+    checkpoint; docs/KV_MERGE_QUALITY.md untouched."""
+    jax_report = ROOT / "docs" / "KV_MERGE_QUALITY.md"
+    before = jax_report.read_bytes()
+    t0 = time.perf_counter()
+    runs = _kv_quality(smi)
+    runs.update(_kv_bench(smi))
+    runs.update(_kv_trained(smi, demo_dir, demo))
+    if jax_report.read_bytes() != before:
+        raise AssertionError("kv_merge: docs/KV_MERGE_QUALITY.md changed")
+    print(f"[kv_merge] phase {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 def main() -> int:
@@ -3283,7 +3552,16 @@ def main() -> int:
     # the benchmark's scenario processes need the card to themselves
     dist_runs.update(phase_bench(smi))
     dist_runs.update(phase_cli(smi))
-    dist_runs.update(phase_learning_loop(smi))
+    import shutil
+    import tempfile
+
+    demo_dir = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        demo = phase_learning_loop(smi, demo_dir)
+        dist_runs.update(demo)
+        dist_runs.update(phase_kv_merge(smi, demo_dir, demo))
+    finally:
+        shutil.rmtree(demo_dir, ignore_errors=True)
     dist_runs.update(orbax_run)
     results = phase_kernels()
     phase_reference()
@@ -3319,14 +3597,17 @@ def main() -> int:
                  "flash_attention_lse": "train global (20, 5)",
                  "flash_attention_backward": "train global (20, 5)",
                  "mlp_tail": "tail 5/1 sequential"}
+    entries = {name: (name, main_path[name], None) for name in KERNELS}
+    entries.update(VARIANTS)
     kernels = []
-    for name, (route, source, replaces) in KERNELS.items():
-        cases = results[name]
-        main_case = next(c for c in cases if c["main"])
-        launches = runs[main_path[name]]["launches"][name]
+    for name, (kernel, path, case) in entries.items():
+        route, source, replaces = KERNELS[kernel]
+        cases = results[name] if name in results else results[kernel]
+        main_case = next(c for c in cases if (c["case"] == case if case else c["main"]))
+        launches = runs[path]["launches"][kernel]
         if launches == 0:
-            raise AssertionError(f"{name} was not launched on {main_path[name]}")
-        extra = {"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}
+            raise AssertionError(f"{name} was not launched on {path}")
+        extra = {"also_replaces": ALSO_REPLACES[kernel]} if kernel in ALSO_REPLACES else {}
         lib = Path(source).stem
         if lib in sass:
             extra["sass"] = sass[lib]
@@ -3338,8 +3619,9 @@ def main() -> int:
             call_ms=main_case["call_ms"],
             **{k: main_case[k] for k in ("unfused_ms", "tail_route_ms", "gemm_ms", "sdpa_ms")
                if k in main_case},
-            main_path=main_path[name], main_case=main_case["case"],
-            launches_by_path={label: st["launches"].get(name, 0) for label, st in runs.items()},
+            main_path=path, main_case=main_case["case"],
+            launches_by_path={label: st["launches"].get(kernel, 0) for label, st in runs.items()
+                              if "launches" in st},
             cases=cases))
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

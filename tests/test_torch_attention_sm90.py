@@ -17,7 +17,13 @@ from vitslam_tpu.nn.rope import patch_grid_positions as jax_grid  # noqa: E402
 from vitslam_tpu.nn.rope import rope_cache_1d as jax_rope_cache_1d  # noqa: E402
 from vitslam_tpu.nn.rope import rope_cache_2d as jax_rope_cache_2d  # noqa: E402
 from vitslam_tpu.ops.fused_attention import _fused_reference  # noqa: E402
-from vitslam_tpu_torch.ops.flash_attention import LOG2E, q_fold, tma_geometry  # noqa: E402
+from vitslam_tpu_torch.ops.flash_attention import (  # noqa: E402
+    LOG2E,
+    q_fold,
+    tma_box_cols,
+    tma_geometry,
+    tma_swizzle,
+)
 from vitslam_tpu_torch.ops.fused_attention import (  # noqa: E402
     _heads,
     fused_qkv_attention_plain,
@@ -202,6 +208,22 @@ def test_tma_geometry_k2_flat_heads_and_k3_transposed_views():
     assert geo["strides"] == (8 * 128 * 2, 256, 8 * 128 * 2)
     contiguous = _bf16(2, 4, 300, 128)
     assert tma_geometry(contiguous)["strides"] == (256, 300 * 256, 4 * 300 * 256)
+
+
+def test_tma_geometry_at_head_dim_32():
+    """Head dim 32 (K1's core, K2, K3): one 32-column box a row, the
+    64-byte swizzle (csrc/attention_fwd_sm90.cuh: Smem<32>); the v slice
+    of a packed (B, N, 3C) qkv at C = 64 keeps its 384-byte row stride."""
+    B, N, heads = 1, 675, 2
+    C = heads * 32
+    qkv = _bf16(B, N, 3 * C)
+    geo = tma_geometry(_heads(qkv[..., 2 * C:], heads))
+    assert geo == dict(dims=(32, N, heads, B), strides=(3 * C * 2, 64, 3 * C * 2),
+                       box=(32, 128, 1, 1), swizzle=64)
+    assert (tma_box_cols(32), tma_swizzle(32)) == (32, 64)
+    assert [(tma_box_cols(d), tma_swizzle(d)) for d in (64, 128)] == [(64, 128), (64, 128)]
+    with pytest.raises(ValueError, match="D in"):  # head dim 16 (F3)
+        tma_geometry(_bf16(1, 2, 100, 16))
 
 
 def test_tma_geometry_raises_on_what_tma_does_not_take():

@@ -5,6 +5,7 @@ reads the byte-level fixture as the reference does; and the CLI's test mode
 (and the trainer's validate / test) on the fixture gives the reference's
 metric keys and values, both packages holding the same weights, the port's
 model on the CPU."""
+import functools
 import glob
 import os
 
@@ -21,6 +22,8 @@ from vitslam_tpu.config import loader as jloader  # noqa: E402
 from vitslam_tpu.data.base import CommonConfig as JCommon  # noqa: E402
 from vitslam_tpu.data.dynamic import DynamicDataset as JDynamic  # noqa: E402
 from vitslam_tpu.data.vkitti import VKittiDataset as JVKitti  # noqa: E402
+from vitslam_tpu.slam import ChunkedPipeline as JPipeline  # noqa: E402
+from vitslam_tpu.train import trainer as jtrainer  # noqa: E402
 from vitslam_tpu.train.trainer import Trainer as JTrainer  # noqa: E402
 from vitslam_tpu.utils.fixtures import write_vkitti_fixture  # noqa: E402
 from vitslam_tpu_torch import cli  # noqa: E402
@@ -179,6 +182,18 @@ def _tiny_cfg(root, log_dir, img_size=28, aspect=0.7, embed=32):
     }
 
 
+def _two_stage_reference(mp, metrics) -> None:
+    """Run the reference trainer's inference on its two-stage driver
+    (``encode_batch=2``), which compiles the backbone once where the
+    sequential driver compiles it twice (the first chunk without state,
+    then with); the same outputs (tests/test_torch_large_chunk.py holds the
+    port to it the same way). Its ``metrics`` draw no plots: an empty log
+    dir, which the trainer leaves as it is, gives no image path; the values
+    are the same and only the port's plots are checked."""
+    mp.setattr(jtrainer, "ChunkedPipeline", functools.partial(JPipeline, encode_batch=2))
+    mp.setattr(metrics, "log_dir", "")
+
+
 def _write_cfg(cfg_dir, cfg) -> str:
     cfg_dir = str(cfg_dir)
     os.makedirs(cfg_dir, exist_ok=True)
@@ -205,7 +220,9 @@ def reference(vkitti, tmp_path_factory):
     params = jax_variables(lambda rng: model.init(rng, images, 1), port_model)
     trainer = JTrainer(cfg, model, loss, val_data=val_data, metrics=metrics, params=params)
     trainer.init_state(None)
-    return cfg_dir, trainer.validate(0), params
+    with pytest.MonkeyPatch.context() as mp:
+        _two_stage_reference(mp, metrics)
+        return cfg_dir, trainer.validate(0), params
 
 
 def _same_metrics(got: dict, want: dict):
@@ -332,6 +349,7 @@ def test_cli_test_mode_of_the_kittiod_and_waymo_configs_matches_jax(name, tmp_pa
     model, loss, metrics, _, jval, _ = jcli.build_from_config(jcfg)
     images = jnp.zeros((1, 5, 3, 28, 56), jnp.float32)
     params = jax_variables(lambda rng: model.init(rng, images, 1), port_model)
+    _two_stage_reference(monkeypatch, metrics)
     want = JTrainer(jcfg, model, loss, val_data=jval, metrics=metrics, params=params).test()
 
     got = cli.main(["--config", name, "--config-dir", configs, "--device", "cpu"]

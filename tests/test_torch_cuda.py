@@ -67,8 +67,23 @@ def test_k1_kernel_matches_plain(cuda, B, nq, with_ln, with_rope, bounded):
     """K1 against the plain version in bf16 on the card, elementwise within
     2e-2 + 2e-2 * |plain| (as in chip_smoke.py: bf16 output ulps, q rounded
     after the scale fold, bf16 P, summation order)."""
+    _check_k1(cuda, B, nq, with_ln, with_rope, bounded, 16, 64)
+
+
+@pytest.mark.parametrize("B,nq,with_ln,with_rope,bounded", [
+    (1, 675, True, True, True),      # the KV-merge quality sweep's global attention
+    (2, 412, False, False, False),   # no prep: the core folds q itself
+    (3, 1000, True, True, False),    # ragged, online max
+    (1, 4096, True, True, True),     # the largest fused window
+])
+def test_k1_kernel_matches_plain_at_head_dim_32(cuda, B, nq, with_ln, with_rope, bounded):
+    """K1 at head dim 32 (the 64-byte swizzle, wgmma n = 32 for P V, a prep
+    row of 4 lanes) against its plain version, as at head dim 64."""
+    _check_k1(cuda, B, nq, with_ln, with_rope, bounded, 2, 32)
+
+
+def _check_k1(cuda, B, nq, with_ln, with_rope, bounded, heads, dh):
     rng = np.random.default_rng(3)
-    heads, dh = 16, 64
     C = heads * dh
     x = torch.tensor(rng.normal(size=(B, nq, 3 * C)), dtype=torch.float32,
                      device=cuda).to(torch.bfloat16)
@@ -100,8 +115,8 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     x = torch.zeros((1, 412, 3 * 128), device=cuda, dtype=torch.float32)
     with pytest.raises(TypeError):
         fused_qkv_attention(x, num_heads=2)
-    with pytest.raises(ValueError):  # head dim 32
-        fused_qkv_attention(x.to(torch.bfloat16), num_heads=4)
+    with pytest.raises(ValueError, match="head dim"):  # head dim 16
+        fused_qkv_attention(x.to(torch.bfloat16), num_heads=8)
     with pytest.raises(ValueError):  # more than 4096 tokens
         fused_qkv_attention(torch.zeros((1, 4100, 3 * 128), device=cuda,
                                         dtype=torch.bfloat16), num_heads=2)
@@ -167,19 +182,81 @@ def test_k3_kernel_matches_plain(cuda, B, H, nq, nk, bounded, dh):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("B,nq,nk", [
+    (1, 4352, 4352),   # just above the fused window
+    (2, 4200, 5000),   # batched, both tails ragged
+])
+def test_k2_kernel_matches_plain_at_head_dim_32(cuda, B, nq, nk):
+    """K2 at head dim 32 (2 heads, v a strided slice of a packed projection)
+    against its plain version, as at head dim 64."""
+    rng = np.random.default_rng(4)
+    heads, dh = 2, 32
+    C = heads * dh
+    q = _bf16(rng, (B, nq, C), cuda)
+    k = _bf16(rng, (B, nk, C), cuda)
+    v = _bf16(rng, (B, nk, 3 * C), cuda)[..., 2 * C:]
+    before = flat_flash_attention.launches
+    got = flat_flash_attention(q, k, v, num_heads=heads, static_max=24.0)
+    torch.cuda.synchronize()
+    assert flat_flash_attention.launches == before + 1
+    qs = (q.float() * q_fold(dh)).to(torch.bfloat16)
+    want = flat_flash_attention_plain(qs, k, v, num_heads=heads)
+    assert got.shape == (B, nq, C) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("B,H,nq,nk,bounded", [
+    (1, 2, 675, 495, False),   # the quality sweep's merged global attention shape
+    (2, 4, 300, 337, True),    # ragged self/cross
+    (3, 2, 130, 4500, False),  # online max, many key tiles
+])
+def test_k3_kernel_and_lse_match_plain_at_head_dim_32(cuda, B, H, nq, nk, bounded):
+    """K3 and its lse output at head dim 32 against the plain version on
+    the kernel's own q (folded and rounded as the kernel does)."""
+    rng = np.random.default_rng(5)
+    dh = 32
+    q = _bf16(rng, (B, H, nq, dh), cuda, 2.0)
+    k = _bf16(rng, (B, H, nk, dh), cuda)
+    v = _bf16(rng, (B, H, nk, dh), cuda)
+    smax = 24.0 if bounded else None
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, static_max=smax)
+    out, lse = flash_attention_lse(q, k, v, static_max=smax)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.equal(got, out)
+    fold = q_fold(dh)
+    q_eff = (q.float() * fold).to(torch.bfloat16).float() / fold
+    want_out, want_lse = flash_attention_plain(q_eff, k, v, with_lse=True)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+    assert _rel_l2(out, want_out) <= 1e-2
+    torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=0)
+
+
+def test_k4_refuses_head_dim_32(cuda):
+    """The backward kernel takes head dims 64 and 128 only: at 32 it raises,
+    naming the head dim."""
+    rng = np.random.default_rng(6)
+    q, k, v, dout = (_bf16(rng, (1, 2, 200, 32), cuda) for _ in range(4))
+    out, lse = flash_attention_lse(q, k, v)
+    with pytest.raises(ValueError, match="head dim 32"):
+        flash_attention_backward(q, k, v, out, lse, dout)
+
+
 def test_k2_k3_reject_what_they_do_not_take(cuda):
     """On CUDA tensors the wrappers launch or raise: no silent fallback."""
     x = torch.zeros((1, 2, 600, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):  # fp32 keys
         flash_attention(x, x.float(), x)
-    with pytest.raises(ValueError):  # head dim 32
-        flash_attention(x[..., :32], x[..., :32], x[..., :32])
+    with pytest.raises(ValueError):  # head dim 16
+        flash_attention(x[..., :16], x[..., :16], x[..., :16])
     x96 = torch.zeros((1, 2, 600, 96), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # head dim 96: the kernels take 64 and 128
+    with pytest.raises(ValueError):  # head dim 96: the kernels take 32, 64 and 128
         flash_attention(x96, x96, x96)
     flat = torch.zeros((1, 4100, 128), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # head dim 32
-        flat_flash_attention(flat, flat, flat, num_heads=4, static_max=24.0)
+    with pytest.raises(ValueError):  # head dim 16
+        flat_flash_attention(flat, flat, flat, num_heads=8, static_max=24.0)
 
 
 def test_presets_default_to_the_gpu(cuda):
@@ -406,6 +483,9 @@ def test_flagship_block_tails_on_the_card(cuda):
     (2, 3, 100, 1, 64, False),     # Nk = 1: one valid key in a 128-key tile
     (1, 4, 257, 129, 128, False),  # Nk = one tile + 1, D 128
     (1, 2, 33, 1, 128, True),      # Nq < 64 and Nk = 1 at D 128
+    (1, 2, 40, 300, 32, True),     # the same at D 32 (64-byte swizzle)
+    (2, 3, 100, 1, 32, False),
+    (1, 4, 257, 129, 32, False),
 ])
 def test_core_short_and_ragged_tiles(cuda, B, H, nq, nk, dh, bounded):
     """K3 (with lse) where the tiles are mostly empty: TMA zero-fills the
@@ -468,7 +548,7 @@ def test_core_d128_lse_on_strided_views(cuda, bounded):
     torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 32])
 def test_core_q_fold_is_the_torch_fold(cuda, dh):
     """The kernel folds scale * log2(e) into q in shared memory; K4 rebuilds
     P from (q.float() * q_fold(D)).to(bf16). Read the kernel's q back
@@ -504,8 +584,23 @@ def test_k1_prep_kernel_matches_plain(cuda, B, N, with_ln, with_rope, nsplit):
     relative), or, where RoPE's x cos + rot sin cancels O(1) operands to
     near zero, within 1e-6 absolute (a few fp32 ulps of the operands); at
     least 99.9% are bit-identical."""
+    _check_prep(cuda, B, N, with_ln, with_rope, nsplit, 16, 64)
+
+
+@pytest.mark.parametrize("B,N,with_ln,with_rope,nsplit", [
+    (1, 675, True, True, 2),      # the quality sweep's global attention
+    (3, 300, True, True, 1),      # 1-D RoPE: the partner chunk two lanes away
+    (2, 130, True, False, 2),     # LayerNorm only
+    (2, 130, False, True, 2),     # RoPE only: the partner chunk the next lane
+    (5, 412, False, False, 2),    # the fold only
+])
+def test_k1_prep_kernel_matches_plain_at_head_dim_32(cuda, B, N, with_ln, with_rope, nsplit):
+    """The prep kernel at head dim 32 (4 lanes a head row), as at 64."""
+    _check_prep(cuda, B, N, with_ln, with_rope, nsplit, 2, 32)
+
+
+def _check_prep(cuda, B, N, with_ln, with_rope, nsplit, heads, dh):
     rng = np.random.default_rng(24)
-    heads, dh = 16, 64
     x = _bf16(rng, (B, N, 3 * heads * dh), cuda)
     kw = dict(num_heads=heads, nsplit=nsplit, fold=q_fold(dh))
     if with_ln:
@@ -750,3 +845,45 @@ def test_track_head_fp32_on_the_card_matches_the_cpu(cuda):
         g = g.cpu()
         assert torch.isfinite(g).all()
         assert float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)) <= 1e-3
+
+
+def _rel_l2_pose(got, want) -> float:
+    """Relative L2 error of pose encodings, the quaternion slots up to sign
+    (q and -q are one rotation)."""
+    a, b = got.double().clone(), want.double()
+    flip = (a[..., 3:7] * b[..., 3:7]).sum(-1, keepdim=True) < 0
+    a[..., 3:7] = torch.where(flip, -a[..., 3:7], a[..., 3:7])
+    return _rel_l2(a, b)
+
+
+@pytest.mark.parametrize("setting", [None, (4, 10)], ids=["exact", "p4s10"])
+def test_kv_merge_sweep_row_on_the_card_matches_the_cpu(cuda, setting, tmp_path):
+    """One point-aligned row of the KV-merge quality sweep at its default
+    sizes (90 frames, chunk 75 / overlap 30), one set of weights drawn in
+    fp32 on the CPU: on the card in bf16 (the exact row's global attention
+    is K1 at head dim 32 over 675 tokens; the merged row's 495 keys route
+    plain), on the CPU in bf16 and in fp32 (plain math). bf16 through a
+    random-weight model has a noise floor of its own, so the card's
+    relative L2 error against the fp32 run is held, per output, to 3 times
+    the CPU bf16 run's plus 1e-3 (chip_smoke.py's REFERENCE_FACTOR rule);
+    the card's metrics are finite."""
+    from vitslam_tpu_torch import kv_merge_quality as kvq
+    from vitslam_tpu_torch.utils.fixtures import write_vkitti_fixture
+
+    root = str(tmp_path / "vkitti")
+    write_vkitti_fixture(root, scene="01", setting="clone", n_frames=90, hw=kvq.FIXTURE_HW,
+                         seed=kvq.FIXTURE_SEED)
+    seq = kvq.load_sequence(root, 90)
+    weights = kvq.family_weights("point", "cpu", torch.float32)
+    card, _, routes, launches = kvq.predict("point", setting, seq, weights, 75, 30, cuda)
+    if setting is None:
+        assert launches["fused_qkv_attention"] == routes["fused"] == launches["qk_prep"] > 0
+    else:
+        assert "fused" not in routes and not any(launches.values())
+    ref = kvq.predict("point", setting, seq, weights, 75, 30, "cpu", torch.float32)[0]
+    cpu16 = kvq.predict("point", setting, seq, weights, 75, 30, "cpu", torch.bfloat16)[0]
+    for key, err in (("pose_enc", _rel_l2_pose), ("world_points", _rel_l2)):
+        got, floor = err(card[key], ref[key]), err(cpu16[key], ref[key])
+        assert got <= 3.0 * floor + 1e-3, (key, got, floor)
+    vals = kvq.sequence_metrics(card, seq)
+    assert len(vals) == 6 and all(np.isfinite(v) for v in vals.values())

@@ -27,32 +27,32 @@ torch.set_num_threads(2)
 H, DH = 2, 64  # the kernel's head dim
 
 
-def _case(nq, with_ln, with_rope, seed=0, B=2):
+def _case(nq, with_ln, with_rope, seed=0, B=2, heads=H, dh=DH):
     """numpy inputs: qkv, a 2-D RoPE cache on a patch grid, LN params."""
     rng = np.random.default_rng(seed)
-    C = H * DH
+    C = heads * dh
     qkv = rng.normal(size=(B, nq, 3 * C)).astype(np.float32)
     cos = sin = q_ln = k_ln = None
     if with_rope:
         pos = np.asarray(jax_grid(B, 5, -(-nq // 5), 0))[:, :nq]
-        c, s, _ = jax_rope_cache_2d(jnp.asarray(pos), DH)
+        c, s, _ = jax_rope_cache_2d(jnp.asarray(pos), dh)
         cos, sin = np.asarray(c), np.asarray(s)
     if with_ln:
-        q_ln = (rng.normal(1, 0.1, DH).astype(np.float32),
-                rng.normal(0, 0.1, DH).astype(np.float32))
-        k_ln = (rng.normal(1, 0.1, DH).astype(np.float32),
-                rng.normal(0, 0.1, DH).astype(np.float32))
+        q_ln = (rng.normal(1, 0.1, dh).astype(np.float32),
+                rng.normal(0, 0.1, dh).astype(np.float32))
+        k_ln = (rng.normal(1, 0.1, dh).astype(np.float32),
+                rng.normal(0, 0.1, dh).astype(np.float32))
     return qkv, cos, sin, q_ln, k_ln
 
 
-def _torch_kw(cos, sin, q_ln, k_ln, bounded, dtype=torch.float32):
-    kw = dict(num_heads=H)
+def _torch_kw(cos, sin, q_ln, k_ln, bounded, dtype=torch.float32, heads=H, dh=DH):
+    kw = dict(num_heads=heads)
     if cos is not None:
         kw.update(cos=torch.tensor(cos), sin=torch.tensor(sin), nsplit=2)
     if q_ln is not None:
         kw.update(q_ln=tuple(map(torch.tensor, q_ln)), k_ln=tuple(map(torch.tensor, k_ln)))
         if bounded:
-            kw["static_max"] = qk_shift_from(kw["q_ln"], kw["k_ln"], DH)
+            kw["static_max"] = qk_shift_from(kw["q_ln"], kw["k_ln"], dh)
     return kw
 
 
@@ -94,14 +94,15 @@ def test_plain_matches_jax_reference(nq, with_ln, with_rope):
     (130, True, True, False),     # LN + RoPE with an online max
     (640, True, True, True),      # several q blocks over one K tile
 ])
-def test_plain_matches_jax_kernel_interpret(nq, with_ln, with_rope, bounded):
+def test_plain_matches_jax_kernel_interpret(nq, with_ln, with_rope, bounded, B=2, heads=H,
+                                            dh=DH):
     """The JAX Pallas kernel (interpret mode) on fp32 qkv rounds q/k and P
     to bf16 inside; the port's plain version on fp32 qkv does not. 2e-2 is
     the tolerance the JAX package holds its kernel to against its own
     reference for the same reason."""
-    qkv, cos, sin, q_ln, k_ln = _case(nq, with_ln, with_rope, seed=1)
-    kw = _torch_kw(cos, sin, q_ln, k_ln, bounded)
-    jkw = dict(num_heads=H)
+    qkv, cos, sin, q_ln, k_ln = _case(nq, with_ln, with_rope, seed=1, B=B, heads=heads, dh=dh)
+    kw = _torch_kw(cos, sin, q_ln, k_ln, bounded, heads=heads, dh=dh)
+    jkw = dict(num_heads=heads)
     if cos is not None:
         jkw.update(cos=jnp.asarray(cos), sin=jnp.asarray(sin))
     if q_ln is not None:
@@ -113,6 +114,17 @@ def test_plain_matches_jax_kernel_interpret(nq, with_ln, with_rope, bounded):
     got = fused_qkv_attention_plain(torch.tensor(qkv), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("nq,B,heads,dh", [
+    # the KV-merge quality sweep's global attention: 75 frames of 4 patches
+    # + 5 special tokens, 2 heads of 32 (the JAX kernel packs 128 // 32 = 4
+    # heads a lane block); qk-norm, 2-D RoPE, fixed shift
+    (675, 1, 2, 32),
+])
+def test_plain_matches_jax_kernel_interpret_other_head_dims(nq, B, heads, dh):
+    """As test_plain_matches_jax_kernel_interpret, at another head dim."""
+    test_plain_matches_jax_kernel_interpret(nq, True, True, True, B=B, heads=heads, dh=dh)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version():

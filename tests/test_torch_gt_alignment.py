@@ -159,7 +159,9 @@ def pipelines():
     jmodel = JaxModel(**KW, dtype=jnp.float32)
     params = jax_variables(lambda r: jmodel.init(r, jnp.asarray(batch["images"][:, :4]), 1),
                            model)
-    return batch, ChunkedPipeline(model), JaxPipeline(jmodel, params)
+    # the reference's two-stage driver compiles its backbone once (the
+    # sequential one twice); the same outputs
+    return batch, ChunkedPipeline(model), JaxPipeline(jmodel, params, encode_batch=2)
 
 
 @pytest.mark.parametrize("alignment_type", ["scale_from_poses", "per_chunk_scale_from_poses",

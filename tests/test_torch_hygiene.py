@@ -54,6 +54,7 @@ MODULES = [
     "vitslam_tpu_torch.data.png", "vitslam_tpu_torch.bench", "vitslam_tpu_torch.train_bench",
     "vitslam_tpu_torch.io.ocdbt", "vitslam_tpu_torch.io.orbax_format",
     "vitslam_tpu_torch.utils.fixtures", "vitslam_tpu_torch.learning_loop_demo",
+    "vitslam_tpu_torch.kv_merge_quality", "vitslam_tpu_torch.kv_merge_trained",
     "chip_smoke",
 ]
 # the packages no module of the port may import

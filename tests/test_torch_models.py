@@ -1,7 +1,8 @@
 """Port parity for models/: patch embedding, Aggregator, CameraHead,
 DPTHead, AlignmentHead and the feature-aligned chunk step, each with the
-JAX module's weights (export_torch_style -> load_jax_params) on the same
-numpy inputs, in fp32 at small widths."""
+port module's seeded weights moved into the JAX module's variable tree
+(torch_weights.py: the tree from jax.eval_shape of the init, no compile)
+on the same numpy inputs, in fp32 at small widths."""
 import numpy as np
 import pytest
 
@@ -10,11 +11,12 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from torch_weights import jax_variables, seeded  # noqa: E402
 from vitslam_tpu import models as jm  # noqa: E402
 from vitslam_tpu.io.torch_convert import export_torch_style  # noqa: E402
 from vitslam_tpu.slam.state import FeatureAlignContext as JContext  # noqa: E402
 from vitslam_tpu_torch import models as tm  # noqa: E402
-from vitslam_tpu_torch.io import load_jax_params  # noqa: E402
+from vitslam_tpu_torch.io.from_jax import port_name  # noqa: E402
 from vitslam_tpu_torch.ops import ROUTE_COUNTS  # noqa: E402
 from vitslam_tpu_torch.slam.state import FeatureAlignContext  # noqa: E402
 
@@ -39,13 +41,14 @@ def _rel_close(got, want, rtol=RTOL):
 
 
 def _port(jmodule, tmodule, *args, static=()):
-    """Init the flax module (jitted: eager flax dispatches op by op), load
-    its weights into the port (strict); return the variables and a jitted
-    apply. ``static`` are the indices of static args (counting the
-    variables as 0)."""
-    init = jax.jit(jmodule.init, static_argnums=static)
-    variables = init(jax.random.PRNGKey(0), *args)
-    load_jax_params(tmodule, export_torch_style(variables))
+    """Seed the port module's weights and move them into the flax module's
+    variables (every flax leaf a port parameter, every parameter used);
+    return the variables and a jitted apply. ``static`` are the indices of
+    static args (counting the variables as 0)."""
+    seeded(tmodule)
+    variables = jax_variables(lambda rng: jmodule.init(rng, *args), tmodule)
+    assert {port_name(k) for k in export_torch_style(variables)} == \
+        {n for n, _ in tmodule.named_parameters()}
     return variables, jax.jit(jmodule.apply, static_argnums=static)
 
 

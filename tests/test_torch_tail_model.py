@@ -37,7 +37,9 @@ def test_tail_model_matches_jax_fused_tails(monkeypatch):
     batch = make_synthetic_batch(B=1, N=N_FRAMES, H=H, W=W)
     model = seeded(FeatureAlignedVGGT(**KW, dtype=torch.float32, mlp_tail="both"), seed=3)
     jmodel = JaxModel(**KW, dtype=jnp.float32)
-    jpipe = JaxPipeline(jmodel)
+    # the two-stage driver compiles the backbone (its interpreted kernels
+    # included) once, the sequential one twice; the same outputs
+    jpipe = JaxPipeline(jmodel, encode_batch=2)
     images = jnp.asarray(batch["images"][:, :WIDTH])
     jpipe.params = jax_variables(lambda rng: jmodel.init(rng, images, OVERLAP), model)
     monkeypatch.setenv("VITSLAM_MLP_TAIL", "1")

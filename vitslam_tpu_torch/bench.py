@@ -22,10 +22,13 @@ pose_only), BENCH_WIDTH / BENCH_OVERLAP (5 / 1), BENCH_CHUNKS (timed chunks,
 24), BENCH_ASPECT (0.3), BENCH_SMALL=1 (the small model at width 224),
 BENCH_ENCODE_BATCH (default ``max(1, (16 if H <= 300 else 8) * 5 //
 width)``), BENCH_TRAIN=1 (the train scenario, ``vitslam_tpu_torch.train_bench``
-at bucket 20:5) and BENCH_TRAIN_STEPS (3). Setting any of BENCH_MODEL,
-BENCH_ASPECT, BENCH_WIDTH, BENCH_OVERLAP, BENCH_SMALL or BENCH_TRAIN runs
-that one scenario and prints one JSON line ``{"metric", "value", "unit",
-"vs_baseline", ...}``; with none set the SUITE runs, each scenario in a
+at bucket 20:5) and BENCH_TRAIN_STEPS (3). VITSLAM_TOKEN_MERGE
+("<pool>,<stride>", read by the flagship presets) puts the KV merge on the
+flagship models' global attention, as the JAX bench's token-merge sweep
+does (``scripts/tpu_batch_r4.sh``).
+Setting any of BENCH_MODEL, BENCH_ASPECT, BENCH_WIDTH, BENCH_OVERLAP,
+BENCH_SMALL or BENCH_TRAIN runs that one scenario and prints one JSON line
+``{"metric", "value", "unit", "vs_baseline", ...}``; with none set the SUITE runs, each scenario in a
 subprocess, and after every scenario the cumulative line ``{"metric",
 "value", "unit", "vs_baseline", "all_metrics"}`` is printed (the last line
 holds everything finished so far). BENCH_BUDGET_S bounds the whole suite:

@@ -52,9 +52,11 @@ def int8_from_env(environ=os.environ) -> bool:
     return environ.get("VITSLAM_INT8", "0") == "1"
 
 
-def build_from_config(cfg, device: str = "cuda", mlp_tail: str = "off", int8: bool = False):
+def build_from_config(cfg, device: str = "cuda", mlp_tail: str = "off", int8: bool = False,
+                      init: bool = True):
     """Instantiate (model, loss, metrics, train_data, val/test data) from a
-    composed config; the model on ``device``, seeded from ``seed_value``,
+    composed config; the model on ``device``, seeded from ``seed_value``
+    (unless ``init`` is False: the caller then fills every parameter),
     then loaded from the config's checkpoint if it names one."""
     import torch
 
@@ -65,7 +67,8 @@ def build_from_config(cfg, device: str = "cuda", mlp_tail: str = "off", int8: bo
     seed = int(cfg.get("seed_value", 42))
     model = instantiate(cfg["model"], device=torch.device(device), mlp_tail=mlp_tail,
                         int8=int8)
-    init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    if init:
+        init_weights(model, torch.Generator(device=device).manual_seed(seed))
     model.eval()
     loss = instantiate(cfg["loss"])
     metrics = instantiate(cfg["metrics"]) if "metrics" in cfg else None

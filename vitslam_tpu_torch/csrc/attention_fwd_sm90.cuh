@@ -7,23 +7,26 @@
 // scale * log2(e) (folded here, once, on the Q tile in shared memory, or by
 // K1's prep kernel), the softmax shift is either fixed (qk-norm's logit
 // bound, read from a device scalar and multiplied by log2(e) here) or the
-// online row max; self or cross (Nq != Nk); head dim 64 or 128; optionally
-// the fp32 log2 lse per query row that the backward (K4) reads.
+// online row max; self or cross (Nq != Nk); head dim 32, 64 or 128;
+// optionally the fp32 log2 lse per query row that the backward (K4) reads.
 //
 // What bounds it on the H100: two Nq * Nk * D products per head against
 // O((Nq + Nk) * D) bytes, so every main-path shape but the smallest is
 // tensor-core bound. The design follows FA3's shape:
 // - TMA with mbarriers for every tile load. Q is loaded once per CTA (128
 //   rows); K and V tiles of 128 keys flow through a ring of kStages stages
-//   (3 at D 64, 2 at D 128). Each box is 64 head-dim columns (one 128-byte
-//   row of the 128-byte swizzle; D 128 is two boxes) by 128 rows. The
+//   (4 at D 32, 3 at D 64, 2 at D 128). Each box is 64 head-dim columns
+//   (one 128-byte row of the 128-byte swizzle; D 128 is two boxes) by 128
+//   rows; at D 32 a box is the 32 columns, one 64-byte row of the 64-byte
+//   swizzle (the descriptors' layout type and SBO follow it). The
 //   tensor maps are 4-D (head dim, token, head, batch) with the caller's
 //   strides, so a ragged last tile zero-fills inside its own (batch, head)
 //   and never reads the next one's rows (the Python mirror of this
 //   geometry is ops/flash_attention.py::tma_geometry).
 // - wgmma for both products, fp32 accumulation: S = Q K^T as
 //   m64n128k16 with both operands K-major in shared memory; O += P V as
-//   m64n64k16 (one per 64-column V box) with P from registers, re-packed
+//   m64n64k16 (one per 64-column V box; m64n32k16 at D 32) with P from
+//   registers, re-packed
 //   from the S accumulator as bf16 (FA3's layout: the accumulator of an
 //   n8 column pair is the A fragment of a k16 slice), and V as an MN-major
 //   B operand (transpose bit).
@@ -64,7 +67,6 @@ constexpr int kBlockM = 128;  // query rows per CTA: two consumer warpgroups of 
 constexpr int kBlockN = 128;  // keys per K/V tile
 constexpr int kConsumers = 2;
 constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kBoxBytes = kBlockN * kBoxCols * 2;   // one 128-row box: 16 KB
 
 struct FwdParams {
   CUtensorMap q_map, k_map, v_map;
@@ -80,8 +82,13 @@ struct FwdParams {
 
 template <int kD>
 struct Smem {
-  static constexpr int kBoxes = kD / kBoxCols;
-  static constexpr int kStages = kD == 64 ? 3 : 2;
+  static_assert(kD == 32 || kD == 64 || kD == 128, "head dim 32, 64 or 128");
+  static constexpr int kCols = kD < kBoxCols ? kD : kBoxCols;  // head-dim columns per box
+  static constexpr int kRowBytes = 2 * kCols;  // one swizzle row: 128 bytes, 64 at D 32
+  static constexpr int kBoxes = kD / kCols;
+  static constexpr int kNb = kCols / 8;               // n8 column blocks of O per box
+  static constexpr int kBoxBytes = kBlockN * kRowBytes;  // one 128-row box: 16 KB, 8 at D 32
+  static constexpr int kStages = kD == 128 ? 2 : kD == 64 ? 3 : 4;
   static constexpr int kTileBytes = kBoxes * kBoxBytes;             // one Q, K or V tile
   static constexpr int kBarOffset = (1 + 2 * kStages) * kTileBytes;  // q, k stages, v stages
   // + q_full, full[kStages], empty[kStages], and 1024 bytes to align the base
@@ -91,8 +98,8 @@ struct Smem {
 // One consumer thread's share of the online softmax over one 128-key tile:
 // s holds rows g and g + 8 of the warp's 16 (16 n8 column blocks), P comes
 // out as the A fragments of P V (k16 slice t covers blocks 2t and 2t + 1).
-template <bool kBounded, int kBoxes>
-__device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&o)[kBoxes][8][4],
+template <bool kBounded, int kBoxes, int kNb>
+__device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&o)[kBoxes][kNb][4],
                                              float (&m_row)[2], float (&l_row)[2], float shift,
                                              uint32_t (&pa)[8][4]) {
   float sub0 = shift, sub1 = shift;
@@ -118,7 +125,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&o)[kBoxe
 #pragma unroll
     for (int c = 0; c < kBoxes; ++c) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kNb; ++j) {
         o[c][j][0] *= alpha0;
         o[c][j][1] *= alpha0;
         o[c][j][2] *= alpha1;
@@ -148,10 +155,13 @@ template <int kD, bool kBounded, bool kFold>
 __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
   using S = Smem<kD>;
   constexpr int kBoxes = S::kBoxes;
+  constexpr int kNb = S::kNb;
+  constexpr int kRowBytes = S::kRowBytes;
+  constexpr int kBoxBytes = S::kBoxBytes;
   constexpr int kStages = S::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;  // 1024-byte aligned: the swizzle atom
+  const uint32_t base = (raw + 1023u) & ~1023u;  // 1024-byte aligned: the swizzle atoms
   unsigned char* const gbase = smem_raw + (base - raw);
   const uint32_t q_s = base;
   const uint32_t k_s = base + S::kTileBytes;                       // + stage * kTileBytes
@@ -183,7 +193,7 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
       mbar_expect_tx(q_full, S::kTileBytes);
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c) {
-        tma_load_4d(q_s + c * kBoxBytes, &p.q_map, q_full, c * kBoxCols, q0, h, b);
+        tma_load_4d(q_s + c * kBoxBytes, &p.q_map, q_full, c * S::kCols, q0, h, b);
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
@@ -193,9 +203,9 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
 #pragma unroll
         for (int c = 0; c < kBoxes; ++c) {
           tma_load_4d(k_s + s * S::kTileBytes + c * kBoxBytes, &p.k_map, full + 8 * s,
-                      c * kBoxCols, it * kBlockN, h, b);
+                      c * S::kCols, it * kBlockN, h, b);
           tma_load_4d(v_s + s * S::kTileBytes + c * kBoxBytes, &p.v_map, full + 8 * s,
-                      c * kBoxCols, it * kBlockN, h, b);
+                      c * S::kCols, it * kBlockN, h, b);
         }
       }
     }
@@ -208,7 +218,7 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
     const int lane = t % 32;
     const int g = lane >> 2;        // fragment row group
     const int c2 = (lane & 3) * 2;  // fragment column pair
-    const uint32_t q_rows = wg * 64 * 128;  // byte offset of this warpgroup's rows in a box
+    const uint32_t q_rows = wg * 64 * kRowBytes;  // byte offset of this warpgroup's rows in a box
 
     mbar_wait(q_full, 0);
     if (kFold) {
@@ -218,7 +228,7 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kRowBytes / 32; ++i) {  // 64 rows of kRowBytes, 16 bytes a thread
           uint4* chunk = reinterpret_cast<uint4*>(gbase + c * kBoxBytes + q_rows +
                                                   (i * 128 + t) * 16);
           uint4 v = *chunk;
@@ -237,11 +247,11 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     }
 
-    float o[kBoxes][8][4];
+    float o[kBoxes][kNb][4];
 #pragma unroll
     for (int c = 0; c < kBoxes; ++c) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) o[c][j][0] = o[c][j][1] = o[c][j][2] = o[c][j][3] = 0.f;
+      for (int j = 0; j < kNb; ++j) o[c][j][0] = o[c][j][1] = o[c][j][2] = o[c][j][3] = 0.f;
     }
     float m_row[2] = {-INFINITY, -INFINITY};
     float l_row[2] = {0.f, 0.f};
@@ -253,14 +263,16 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
       const uint32_t k_tile = k_s + s * S::kTileBytes;
       const uint32_t v_tile = v_s + s * S::kTileBytes;
 
-      // S = Q K^T: k16 slice kk of head dim lies in box kk / 4 at byte 32 * (kk % 4)
+      // S = Q K^T: k16 slice kk of head dim lies in box kk / kPer at byte
+      // 32 * (kk % kPer), kPer = kRowBytes / 32 slices a swizzle row
+      constexpr int kPer = kRowBytes / 32;
       float sc[16][4];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        wgmma_ss_m64n128k16(sc, desc_sw128(q_s + q_rows + off), desc_sw128(k_tile + off),
-                            kk > 0);
+        const uint32_t off = (kk / kPer) * kBoxBytes + (kk % kPer) * 32;
+        wgmma_ss_m64n128k16(sc, desc_sw<kRowBytes>(q_s + q_rows + off),
+                            desc_sw<kRowBytes>(k_tile + off), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -277,7 +289,7 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
         }
       }
       uint32_t pa[8][4];
-      softmax_tile<kBounded, kBoxes>(sc, o, m_row, l_row, shift, pa);
+      softmax_tile<kBounded, kBoxes, kNb>(sc, o, m_row, l_row, shift, pa);
 
       // O += P V: k16 slice t of the keys is rows 16t.. of each V box
 #pragma unroll
@@ -287,7 +299,12 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
       for (int t16 = 0; t16 < 8; ++t16) {
 #pragma unroll
         for (int c = 0; c < kBoxes; ++c) {
-          wgmma_rs_m64n64k16(o[c], pa[t16], desc_sw128(v_tile + c * kBoxBytes + t16 * 2048));
+          const uint64_t db = desc_sw<kRowBytes>(v_tile + c * kBoxBytes + t16 * 16 * kRowBytes);
+          if constexpr (kNb == 8) {
+            wgmma_rs_m64n64k16(o[c], pa[t16], db);
+          } else {
+            wgmma_rs_m64n32k16(o[c], pa[t16], db);
+          }
         }
       }
       wgmma_commit();
@@ -311,8 +328,8 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
 #pragma unroll
     for (int c = 0; c < kBoxes; ++c) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = c * kBoxCols + j * 8;
+      for (int j = 0; j < kNb; ++j) {
+        const int col = c * S::kCols + j * 8;
         if (n0 < p.nq) {
           *reinterpret_cast<uint32_t*>(ob + n0 * p.o_sn + col) =
               pack_bf16(o[c][j][0] * inv0, o[c][j][1] * inv0);
@@ -333,7 +350,7 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
 
 // Encode the maps and launch `kernel` (a wrapper of attention_fwd<kD, ...>)
 // on `stream`: q (B, H, nq, kD), k and v (B, H, nk, kD) and o (B, H, nq,
-// kD), each through element strides of (batch, head, token) with a
+// kD), kD 32, 64 or 128, each through element strides of (batch, head, token) with a
 // contiguous head dim. Returns the launch's error (cudaErrorInvalidValue
 // when a map cannot be encoded).
 template <int kD>
@@ -341,9 +358,10 @@ cudaError_t launch_fwd(void (*kernel)(FwdParams), FwdParams p, const void* q, co
                        const void* v, int B, int H, const long long (&qs)[3],
                        const long long (&ks)[3], const long long (&vs)[3],
                        cudaStream_t stream) {
-  if (!make_map(&p.q_map, q, kD, p.nq, H, B, qs[0], qs[1], qs[2]) ||
-      !make_map(&p.k_map, k, kD, p.nk, H, B, ks[0], ks[1], ks[2]) ||
-      !make_map(&p.v_map, v, kD, p.nk, H, B, vs[0], vs[1], vs[2])) {
+  constexpr int kCols = Smem<kD>::kCols;
+  if (!make_map(&p.q_map, q, kD, p.nq, H, B, qs[0], qs[1], qs[2], kBlockM, kCols) ||
+      !make_map(&p.k_map, k, kD, p.nk, H, B, ks[0], ks[1], ks[2], kBlockN, kCols) ||
+      !make_map(&p.v_map, v, kD, p.nk, H, B, vs[0], vs[1], vs[2], kBlockN, kCols)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = cudaFuncSetAttribute(

@@ -13,8 +13,9 @@
 // Both compute O = softmax(Q K^T) V per (batch, head) in the exp2 domain.
 // Q, K, V and O are addressed through (batch, head, token) strides, so K2's
 // flat layout (head h at column h * D, token stride C) and K3's (B, H, N, D)
-// layout are the same kernel; head dims 64 (the backbone) and 128 (the
-// AlignmentHead) are two instances of one template. The TPU kernels' TNS
+// layout are the same kernel; head dims 64 (the backbone), 128 (the
+// AlignmentHead) and 32 (the small backbones of the KV-merge quality
+// sweep, two heads of 32) are three instances of one template. The TPU kernels' TNS
 // variant, head groups, inner-K splits and single-K schedule are TPU layout
 // tuning and are not carried over; their zero-padded keys' mass
 // subtraction becomes a -inf mask of the ragged tail (the same numbers).
@@ -65,7 +66,7 @@ cudaError_t launch(const FwdParams& p, const void* q, const void* k, const void*
 
 // Plain C entry point (bound with ctypes). q: bf16 (B, H, Nq, dh) as it
 // comes (the kernel folds log2(e) / sqrt(dh) into it), k/v: bf16
-// (B, H, Nk, dh), o: bf16 (B, H, Nq, dh), dh 64 or 128, each addressed
+// (B, H, Nk, dh), o: bf16 (B, H, Nq, dh), dh 32, 64 or 128, each addressed
 // through the given element strides of (batch, head, token) with a
 // contiguous head dim; strides and bases 16-byte aligned (the TMA maps'
 // rule). static_max: fp32 device scalar holding the natural-log logit bound
@@ -79,7 +80,7 @@ extern "C" int vitslam_flash_attention_bf16(
     int B, int H, int nq, int nk, int dh, long long q_sb, long long q_sh, long long q_sn,
     long long k_sb, long long k_sh, long long k_sn, long long v_sb, long long v_sh,
     long long v_sn, long long o_sb, long long o_sh, long long o_sn, void* stream) {
-  if ((dh != 64 && dh != 128) || B < 1 || H < 1 || nq < 1 || nk < 1 || B > 65535 ||
+  if ((dh != 32 && dh != 64 && dh != 128) || B < 1 || H < 1 || nq < 1 || nk < 1 || B > 65535 ||
       H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -98,7 +99,8 @@ extern "C" int vitslam_flash_attention_bf16(
   const long long ks[3] = {k_sb, k_sh, k_sn};
   const long long vs[3] = {v_sb, v_sh, v_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dh == 64 ? launch<64>(p, q, k, v, B, H, qs, ks, vs, s)
-                                   : launch<128>(p, q, k, v, B, H, qs, ks, vs, s);
+  const cudaError_t err = dh == 32   ? launch<32>(p, q, k, v, B, H, qs, ks, vs, s)
+                          : dh == 64 ? launch<64>(p, q, k, v, B, H, qs, ks, vs, s)
+                                     : launch<128>(p, q, k, v, B, H, qs, ks, vs, s);
   return static_cast<int>(err);
 }

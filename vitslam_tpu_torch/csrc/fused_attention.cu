@@ -15,14 +15,16 @@
 // N^2 * 64 products per head dominate. The TPU kernel preps every K tile
 // again for every q tile (33 times per key at N = 2,060); here:
 // - qk_prep_kernel reads each (token, head) of q and k once, in 16-byte
-//   chunks (8 lanes per head row: the LayerNorm sums are 3 shuffles, the
-//   RoPE partner chunk is lane ^ 2 or lane ^ 4), applies LayerNorm, RoPE
+//   chunks (dh / 8 lanes per head row: at dh 64 the LayerNorm sums are 3
+//   shuffles and the RoPE partner chunk is lane ^ 2 or lane ^ 4, at dh 32
+//   2 shuffles and lane ^ 1 or lane ^ 2), applies LayerNorm, RoPE
 //   and (q only) the scale fold in fp32 with the plain version's operation
 //   order, rounds once to bf16 (where the TPU kernel rounds too) and writes
 //   q^ and k^ to scratch the wrapper allocates.
-// - the attention is attention_fwd_sm90.cuh's core at head dim 64 on
-//   q^, k^ and V read straight from the qkv slice through a tensor map with
-//   row stride 3C (never copied). Without LayerNorm and RoPE (patch embed)
+// - the attention is attention_fwd_sm90.cuh's core at head dim 64 (or 32,
+//   the small backbones of the KV-merge quality sweep) on q^, k^ and V read
+//   straight from the qkv slice through a tensor map with row stride 3C
+//   (never copied). Without LayerNorm and RoPE (patch embed)
 //   there is no prep launch: the core reads q and k from qkv too and folds
 //   the scale into its Q tile, as for K2/K3 (a prep pass that only folded
 //   would cost a read and a write of q, 13% of the call at 75/30).
@@ -36,8 +38,6 @@
 
 namespace {
 
-constexpr int kDh = 64;
-constexpr int kChunks = kDh / 8;  // 16-byte chunks (8 bf16) per head row
 constexpr int kPrepThreads = 256;
 constexpr float kLnEps = 1e-6f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -79,10 +79,11 @@ __device__ __forceinline__ void load8f(const float* src, float (&x)[8]) {
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
-// LayerNorm + RoPE of one head row held by 8 lanes (this lane: columns
-// d0 .. d0 + 7), in the plain version's order: (x - mean) * rsqrt(var +
-// eps), * scale, + bias; x * cos + rot * sin. All 32 lanes call it.
-template <bool kLn, bool kRope>
+// LayerNorm + RoPE of one head row of kDh columns held by kDh / 8 lanes
+// (this lane: columns d0 .. d0 + 7), in the plain version's order:
+// (x - mean) * rsqrt(var + eps), * scale, + bias; x * cos + rot * sin. All
+// 32 lanes call it.
+template <int kDh, bool kLn, bool kRope>
 __device__ __forceinline__ void prep8(float (&x)[8], int d0, const float* scale,
                                       const float* bias, const float (&c)[8], const float (&s)[8],
                                       int partner_xor, bool lower) {
@@ -94,7 +95,7 @@ __device__ __forceinline__ void prep8(float (&x)[8], int d0, const float* scale,
       sq = __fadd_rn(sq, __fmul_rn(x[e], x[e]));  // no FMA: the plain version rounds x^2
     }
 #pragma unroll
-    for (int off = 1; off < kChunks; off <<= 1) {
+    for (int off = 1; off < kDh / 8; off <<= 1) {
       sum += __shfl_xor_sync(kFull, sum, off);
       sq += __shfl_xor_sync(kFull, sq, off);
     }
@@ -110,7 +111,7 @@ __device__ __forceinline__ void prep8(float (&x)[8], int d0, const float* scale,
     }
   }
   if (kRope) {
-    // rotate_half_multi: within each block of 64 / nsplit columns,
+    // rotate_half_multi: within each block of kDh / nsplit columns,
     // rot[d] = -x[d + half] in the lower half, x[d - half] in the upper;
     // the partner chunk is lane ^ (half / 8)
     float r[8];
@@ -124,13 +125,14 @@ __device__ __forceinline__ void prep8(float (&x)[8], int d0, const float* scale,
   }
 }
 
-template <bool kLn, bool kRope>
+template <int kDh, bool kLn, bool kRope>
 __global__ void __launch_bounds__(kPrepThreads) qk_prep_kernel(const PrepParams p) {
+  constexpr int kChunks = kDh / 8;  // 16-byte chunks (8 bf16) per head row
   const long long idx = static_cast<long long>(blockIdx.x) * kPrepThreads + threadIdx.x;
   const int chunk = static_cast<int>(idx % kChunks);
   const long long rh = idx / kChunks;  // (token row, head), head fastest
   const long long rows = static_cast<long long>(p.B) * p.N;
-  // lanes of one head row are all in or all out (8 | 32): no early return
+  // lanes of one head row are all in or all out (kChunks | 32): no early return
   // before the shuffles
   const bool valid = rh < rows * p.H;
   const long long r = valid ? rh / p.H : 0;
@@ -153,29 +155,30 @@ __global__ void __launch_bounds__(kPrepThreads) qk_prep_kernel(const PrepParams 
   }
   float x[8];
   load8(src, x);
-  prep8<kLn, kRope>(x, d0, p.ln[0], p.ln[1], c, s, partner_xor, lower);
+  prep8<kDh, kLn, kRope>(x, d0, p.ln[0], p.ln[1], c, s, partner_xor, lower);
 #pragma unroll
   for (int e = 0; e < 8; ++e) x[e] = __fmul_rn(x[e], p.q_fold);
   if (valid) store8(p.q_out + r * C + h * kDh + d0, x);
   if (kLn || kRope) {
     load8(src + C, x);
-    prep8<kLn, kRope>(x, d0, p.ln[2], p.ln[3], c, s, partner_xor, lower);
+    prep8<kDh, kLn, kRope>(x, d0, p.ln[2], p.ln[3], c, s, partner_xor, lower);
     if (valid) store8(p.k_out + r * C + h * kDh + d0, x);
   }
 }
 
-template <bool kLn, bool kRope>
+template <int kDh, bool kLn, bool kRope>
 cudaError_t launch_prep(const PrepParams& p, cudaStream_t stream) {
-  const long long threads = static_cast<long long>(p.B) * p.N * p.H * kChunks;
+  const long long threads = static_cast<long long>(p.B) * p.N * p.H * (kDh / 8);
   const long long blocks = (threads + kPrepThreads - 1) / kPrepThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  qk_prep_kernel<kLn, kRope><<<static_cast<unsigned>(blocks), kPrepThreads, 0, stream>>>(p);
+  qk_prep_kernel<kDh, kLn, kRope>
+      <<<static_cast<unsigned>(blocks), kPrepThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-// K1's attention: the core at head dim 64 on q^ (already folded) or, for
+// K1's attention: the core at head dim kDh on q^ (already folded) or, for
 // the patch embed, on the raw q slice (kFold: the core folds it).
-template <bool kBounded, bool kFold>
+template <int kDh, bool kBounded, bool kFold>
 __global__ void __launch_bounds__(vitslam::sm90::kThreads, 1)
     fused_qkv_attention_kernel(const __grid_constant__ vitslam::sm90::FwdParams p) {
   vitslam::sm90::attention_fwd<kDh, kBounded, kFold>(p);
@@ -187,12 +190,13 @@ bool check_prep(const void* q_scale, const void* q_bias, const void* k_scale, co
                int nsplit) {
   const bool do_ln = q_scale != nullptr;
   const bool do_rope = cos != nullptr;
-  return dh == kDh && B >= 1 && N >= 1 && H >= 1 && (nsplit == 1 || nsplit == 2) &&
+  return (dh == 32 || dh == 64) && B >= 1 && N >= 1 && H >= 1 && (nsplit == 1 || nsplit == 2) &&
          (!do_rope || sin != nullptr) &&
          (!do_ln || (q_bias != nullptr && k_scale != nullptr && k_bias != nullptr)) &&
          (!(do_ln || do_rope) || k_out != nullptr);
 }
 
+template <int kDh>
 cudaError_t prep(const void* qkv, void* q_out, void* k_out, const void* cos, const void* sin,
                  long long tab_sb, long long tab_sn, const void* q_scale, const void* q_bias,
                  const void* k_scale, const void* k_bias, int B, int N, int H, int nsplit,
@@ -212,65 +216,26 @@ cudaError_t prep(const void* qkv, void* q_out, void* k_out, const void* cos, con
                nsplit,
                q_fold};
   if (q_scale != nullptr) {
-    return cos != nullptr ? launch_prep<true, true>(p, s) : launch_prep<true, false>(p, s);
+    return cos != nullptr ? launch_prep<kDh, true, true>(p, s)
+                          : launch_prep<kDh, true, false>(p, s);
   }
-  return cos != nullptr ? launch_prep<false, true>(p, s) : launch_prep<false, false>(p, s);
+  return cos != nullptr ? launch_prep<kDh, false, true>(p, s)
+                        : launch_prep<kDh, false, false>(p, s);
 }
 
-}  // namespace
-
-// Plain C entry points (bound with ctypes); each launches on `stream`,
-// allocates nothing, and returns cudaGetLastError() after its launches
-// (cudaErrorInvalidValue for what it does not take).
-//
-// The prep alone: qkv bf16 (B, N, 3*H*64) contiguous, 16-byte aligned;
-// q_out bf16 (B, N, H*64) contiguous, written with LN + RoPE of q, times
-// q_fold, in bf16; k_out the same for k without the fold, or null when
-// there is neither LayerNorm nor RoPE. cos/sin: fp32 with a contiguous last
-// dim of at least 64 at element strides (tab_sb, tab_sn) of (batch, token),
-// 16-byte aligned rows, or null without RoPE; ln_*: fp32 (64,) contiguous
-// and 16-byte aligned, all four or none.
-extern "C" int vitslam_qk_prep_bf16(const void* qkv, void* q_out, void* k_out, const void* cos,
-                                    const void* sin, long long tab_sb, long long tab_sn,
-                                    const void* q_scale, const void* q_bias, const void* k_scale,
-                                    const void* k_bias, int B, int N, int H, int dh, int nsplit,
-                                    float q_fold, void* stream) {
-  if (!check_prep(q_scale, q_bias, k_scale, k_bias, cos, sin, k_out, B, N, H, dh, nsplit)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(prep(qkv, q_out, k_out, cos, sin, tab_sb, tab_sn, q_scale, q_bias,
-                               k_scale, k_bias, B, N, H, nsplit, q_fold,
-                               static_cast<cudaStream_t>(stream)));
-}
-
-// K1: the prep (arguments as above; q_fold = scale * log2(e)) into the
-// scratch q_hat and k_hat, then the attention core over q^, k^ and the v
-// slice of qkv (row stride 3C, read in place) into out, bf16 (B, N, H*64)
-// contiguous: two launches. Without LayerNorm and RoPE (q_hat and k_hat
-// null) there is nothing to prep: one launch of the core on the q and k
-// slices of qkv, folding q_fold into q in shared memory as K2/K3 do (the
-// same fp32 multiply and one rounding as the prep's). static_max: fp32
-// device scalar holding the natural-log logit bound (the shift is
-// static_max * log2(e)), or null for the online row max.
-extern "C" int vitslam_fused_qkv_attention_bf16(
-    const void* qkv, void* q_hat, void* k_hat, void* out, const void* cos, const void* sin,
-    long long tab_sb, long long tab_sn, const void* q_scale, const void* q_bias,
-    const void* k_scale, const void* k_bias, const void* static_max, int B, int N, int H, int dh,
-    int nsplit, float q_fold, void* stream) {
-  const bool prepped = q_scale != nullptr || cos != nullptr;
-  if (!check_prep(q_scale, q_bias, k_scale, k_bias, cos, sin, k_hat, B, N, H, dh, nsplit) ||
-      prepped != (q_hat != nullptr) || B > 65535 || H > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
+// K1 at head dim kDh: the prep (when there is one), then the core.
+template <int kDh>
+cudaError_t fused(const void* qkv, void* q_hat, void* k_hat, void* out, const void* cos,
+                  const void* sin, long long tab_sb, long long tab_sn, const void* q_scale,
+                  const void* q_bias, const void* k_scale, const void* k_bias,
+                  const void* static_max, int B, int N, int H, int nsplit, float q_fold,
+                  cudaStream_t s) {
+  const bool prepped = q_hat != nullptr;
   if (prepped) {
-    err = prep(qkv, q_hat, k_hat, cos, sin, tab_sb, tab_sn, q_scale, q_bias, k_scale, k_bias, B,
-               N, H, nsplit, q_fold, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaError_t err = prep<kDh>(qkv, q_hat, k_hat, cos, sin, tab_sb, tab_sn, q_scale,
+                                      q_bias, k_scale, k_bias, B, N, H, nsplit, q_fold, s);
+    if (err != cudaSuccess) return err;
   }
-
-  using vitslam::sm90::launch_fwd;
   const long long C = static_cast<long long>(H) * kDh;
   const long long n = N;
   const __nv_bfloat16* qkv_b = static_cast<const __nv_bfloat16*>(qkv);
@@ -291,9 +256,65 @@ extern "C" int vitslam_fused_qkv_attention_bf16(
   const long long vs[3] = {n * 3 * C, kDh, 3 * C};
   const void* v = qkv_b + 2 * C;
   const bool bounded = static_max != nullptr;
-  auto kernel = prepped ? (bounded ? fused_qkv_attention_kernel<true, false>  // q^ arrives folded
-                                   : fused_qkv_attention_kernel<false, false>)
-                        : (bounded ? fused_qkv_attention_kernel<true, true>
-                                   : fused_qkv_attention_kernel<false, true>);
-  return static_cast<int>(launch_fwd<kDh>(kernel, p, q, k, v, B, H, qs, qs, vs, s));
+  auto kernel = prepped ? (bounded ? fused_qkv_attention_kernel<kDh, true, false>  // q^ folded
+                                   : fused_qkv_attention_kernel<kDh, false, false>)
+                        : (bounded ? fused_qkv_attention_kernel<kDh, true, true>
+                                   : fused_qkv_attention_kernel<kDh, false, true>);
+  return vitslam::sm90::launch_fwd<kDh>(kernel, p, q, k, v, B, H, qs, qs, vs, s);
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes); each launches on `stream`,
+// allocates nothing, and returns cudaGetLastError() after its launches
+// (cudaErrorInvalidValue for what it does not take).
+//
+// The prep alone: qkv bf16 (B, N, 3*H*dh) contiguous, 16-byte aligned, dh
+// 32 or 64; q_out bf16 (B, N, H*dh) contiguous, written with LN + RoPE of q, times
+// q_fold, in bf16; k_out the same for k without the fold, or null when
+// there is neither LayerNorm nor RoPE. cos/sin: fp32 with a contiguous last
+// dim of at least dh at element strides (tab_sb, tab_sn) of (batch, token),
+// 16-byte aligned rows, or null without RoPE; ln_*: fp32 (dh,) contiguous
+// and 16-byte aligned, all four or none.
+extern "C" int vitslam_qk_prep_bf16(const void* qkv, void* q_out, void* k_out, const void* cos,
+                                    const void* sin, long long tab_sb, long long tab_sn,
+                                    const void* q_scale, const void* q_bias, const void* k_scale,
+                                    const void* k_bias, int B, int N, int H, int dh, int nsplit,
+                                    float q_fold, void* stream) {
+  if (!check_prep(q_scale, q_bias, k_scale, k_bias, cos, sin, k_out, B, N, H, dh, nsplit)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dh == 32 ? prep<32>(qkv, q_out, k_out, cos, sin, tab_sb, tab_sn, q_scale, q_bias, k_scale,
+                          k_bias, B, N, H, nsplit, q_fold, s)
+               : prep<64>(qkv, q_out, k_out, cos, sin, tab_sb, tab_sn, q_scale, q_bias, k_scale,
+                          k_bias, B, N, H, nsplit, q_fold, s));
+}
+
+// K1: the prep (arguments as above; q_fold = scale * log2(e)) into the
+// scratch q_hat and k_hat, then the attention core over q^, k^ and the v
+// slice of qkv (row stride 3C, read in place) into out, bf16 (B, N, H*dh)
+// contiguous: two launches. Without LayerNorm and RoPE (q_hat and k_hat
+// null) there is nothing to prep: one launch of the core on the q and k
+// slices of qkv, folding q_fold into q in shared memory as K2/K3 do (the
+// same fp32 multiply and one rounding as the prep's). static_max: fp32
+// device scalar holding the natural-log logit bound (the shift is
+// static_max * log2(e)), or null for the online row max.
+extern "C" int vitslam_fused_qkv_attention_bf16(
+    const void* qkv, void* q_hat, void* k_hat, void* out, const void* cos, const void* sin,
+    long long tab_sb, long long tab_sn, const void* q_scale, const void* q_bias,
+    const void* k_scale, const void* k_bias, const void* static_max, int B, int N, int H, int dh,
+    int nsplit, float q_fold, void* stream) {
+  const bool prepped = q_scale != nullptr || cos != nullptr;
+  if (!check_prep(q_scale, q_bias, k_scale, k_bias, cos, sin, k_hat, B, N, H, dh, nsplit) ||
+      prepped != (q_hat != nullptr) || B > 65535 || H > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dh == 32 ? fused<32>(qkv, q_hat, k_hat, out, cos, sin, tab_sb, tab_sn, q_scale, q_bias,
+                           k_scale, k_bias, static_max, B, N, H, nsplit, q_fold, s)
+               : fused<64>(qkv, q_hat, k_hat, out, cos, sin, tab_sb, tab_sn, q_scale, q_bias,
+                           k_scale, k_bias, static_max, B, N, H, nsplit, q_fold, s));
 }

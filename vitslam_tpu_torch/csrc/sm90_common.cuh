@@ -5,14 +5,16 @@
 //
 // - Host: tensor maps (TMA descriptors) encoded through the driver entry
 //   point that the runtime hands out, so no library links -lcuda: 4-D
-//   (dim, token, head, batch) maps of bf16 attention operands and 2-D maps
-//   of row-major bf16 matrices, 128-byte swizzle, zero fill out of bounds.
+//   (dim, token, head, batch) maps of bf16 attention operands (boxes of 64
+//   columns with the 128-byte swizzle, or of 32 with the 64-byte one) and
+//   2-D maps of row-major bf16 matrices (128-byte swizzle), zero fill out
+//   of bounds.
 // - Device: mbarriers, TMA tile loads, bulk copies and the bulk
 //   reduce-add, named and cluster barriers with distributed shared memory,
-//   the wgmma descriptor of a 128-byte-swizzled operand, and the wgmma
-//   shapes the kernels issue:
+//   the wgmma descriptor of a 128- or 64-byte-swizzled operand, and the
+//   wgmma shapes the kernels use:
 //     SS m64n64k16 (either operand K- or MN-major), m64n128k16 and
-//     m64n256k16 (both K-major); RS m64n64k16 (B MN-major).
+//     m64n256k16 (both K-major); RS m64n64k16 and m64n32k16 (B MN-major).
 //   An RS product keeps its A registers until the wgmma has completed: the
 //   caller waits on the group and then pins them (fence_regs).
 #pragma once
@@ -61,11 +63,15 @@ inline EncodeTiledFn encode_tiled() {
 
 // A 4-D map over a bf16 tensor addressed as (batch, head, token, dim) with
 // element strides (sb, sh, sn) and a contiguous head dim of d columns:
-// dims (d, n, H, B), boxes of 64 columns by box_rows rows, 128-byte
-// swizzle, zero fill out of bounds. Strides and base must be 16-byte
-// aligned (the Python mirror is ops/flash_attention.py::tma_geometry).
+// dims (d, n, H, B), boxes of box_cols columns by box_rows rows, zero fill
+// out of bounds; a box row of 64 columns (128 bytes) takes the 128-byte
+// swizzle, one of 32 columns (64 bytes, head dim 32) the 64-byte swizzle.
+// Strides and base must be 16-byte aligned (the Python mirror is
+// ops/flash_attention.py::tma_geometry).
 inline bool make_map(CUtensorMap* map, const void* base, int d, int n, int H, int B,
-                     long long sb, long long sh, long long sn, int box_rows = 128) {
+                     long long sb, long long sh, long long sn, int box_rows = 128,
+                     int box_cols = kBoxCols) {
+  if (box_cols != 64 && box_cols != 32) return false;
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
@@ -76,10 +82,13 @@ inline bool make_map(CUtensorMap* map, const void* base, int d, int n, int H, in
   const long long batch = B > 1 ? 2LL * sb : row;
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(head),
                                  static_cast<cuuint64_t>(batch)};
-  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -223,18 +232,24 @@ __device__ __forceinline__ float ld_dsmem_f32(uint32_t addr, uint32_t rank) {
 
 // ---- device: wgmma --------------------------------------------------------------
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand tile whose
-// base is 1024-byte aligned (a k16 slice may start 32, 64 or 96 bytes into
-// a swizzle row): 8-row groups 1024 bytes apart (SBO). LBO, the stride
-// between 64-element MN atoms of an MN-major operand, is not used by any
+// Shared-memory matrix descriptor of a swizzled operand tile of
+// kRowBytes-byte rows: 128 (the 128-byte swizzle, base 1024-byte aligned) or
+// 64 (the 64-byte swizzle of head dim 32, base 512-byte aligned). A k16
+// slice may start 32 bytes (or 64, 96 in a 128-byte row) into a swizzle
+// row. 8-row groups lie 8 * kRowBytes apart (SBO). LBO, the stride between
+// MN atoms of an MN-major operand (64 or 32 elements), is not used by any
 // operand here (each MN-major operand spans one atom).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr) {
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "128- or 64-byte swizzle");
   uint64_t d = (addr & 0x3FFFFu) >> 4;
-  d |= static_cast<uint64_t>(1) << 16;            // LBO (unused): 16 bytes
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;    // SBO: 1024 bytes
-  d |= static_cast<uint64_t>(1) << 62;            // 128-byte swizzle
+  d |= static_cast<uint64_t>(1) << 16;                     // LBO (unused): 16 bytes
+  d |= static_cast<uint64_t>((8 * kRowBytes) >> 4) << 32;  // SBO: 1024 or 512 bytes
+  d |= static_cast<uint64_t>(kRowBytes == 128 ? 1 : 2) << 62;  // layout: 128B or 64B swizzle
   return d;
 }
+
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) { return desc_sw<128>(addr); }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
@@ -402,6 +417,22 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[8][4], const uint3
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32) += A (64 x 16 from registers) B (16 x 32, MN-major smem)
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[4][4], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

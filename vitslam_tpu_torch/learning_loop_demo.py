@@ -124,7 +124,9 @@ def run_test(cfg_name: str, overrides: list, device: str, params=(), graft=None,
     from .train.trainer import Trainer
 
     cfg = compose(cfg_name, CONFIGS, overrides=overrides)
-    model, loss, metrics, _, test_data = build_from_config(cfg, device=device)
+    # given parameters replace every seeded one: no init to draw then
+    model, loss, metrics, _, test_data = build_from_config(cfg, device=device,
+                                                           init=graft is not None)
     if graft is not None:
         grafted, shared = graft_backbone(_snapshot(model), graft)
         params = [grafted]

@@ -7,14 +7,23 @@ attention; camera, depth and point heads on, track head off, bf16 backbone
 projections (``int8=True``: the int8 serving mode). The large-chunk
 presets put the same backbone under the training-free point- and
 pose-aligned models, which the reference runs at chunk width 75 / overlap
-30. The KV merge of the global attention is a keyword override
-(``global_merge_pool``, ``global_merge_stride``).
+30.
+
+The KV merge of the global attention (``global_merge_pool``,
+``global_merge_stride``) is opt-in: ``VITSLAM_TOKEN_MERGE="<pool>,<stride>"``
+(``"<pool>"`` alone means stride 1, an empty value no merge) sets it on
+``flagship``, ``flagship_point_aligned``, ``flagship_pose_aligned`` and
+``flagship_pose_only`` (not on ``small_feature_aligned``), read when the
+preset is called; explicit keyword overrides win over it.
 
 Every preset builds the model on ``device`` (the GPU unless the caller asks
 for the CPU) with weights drawn from a ``torch.Generator`` seeded with
 ``seed``.
 """
 from __future__ import annotations
+
+import os
+from typing import Mapping, Optional
 
 import torch
 
@@ -38,6 +47,22 @@ SMALL = dict(
 )
 
 
+def token_merge_overrides(environ: Optional[Mapping[str, str]] = None) -> dict:
+    """The KV-merge keywords ``VITSLAM_TOKEN_MERGE`` asks for in
+    ``environ`` (default ``os.environ``): ``"<pool>,<stride>"`` (e.g.
+    ``"2,5"``), ``"<pool>"`` for stride 1, nothing when unset or empty."""
+    env = (os.environ if environ is None else environ).get("VITSLAM_TOKEN_MERGE", "")
+    if not env:
+        return {}
+    pool, stride = (env.split(",") + ["1"])[:2]
+    return dict(global_merge_pool=int(pool), global_merge_stride=int(stride))
+
+
+def _merged(overrides: dict) -> dict:
+    """``VITSLAM_TOKEN_MERGE``'s keywords under the explicit ``overrides``."""
+    return {**token_merge_overrides(), **overrides}
+
+
 def _build(cls, base: dict, overrides: dict, device, seed: int):
     kw = dict(base)
     kw.update(overrides)
@@ -53,7 +78,7 @@ def _feature(base: dict, overrides: dict, device, seed: int) -> FeatureAlignedVG
 
 
 def flagship(device="cuda", seed: int = 0, **overrides) -> FeatureAlignedVGGT:
-    return _feature(FLAGSHIP, overrides, device, seed)
+    return _feature(FLAGSHIP, _merged(overrides), device, seed)
 
 
 def small_feature_aligned(device="cuda", seed: int = 0,
@@ -66,13 +91,13 @@ def flagship_point_aligned(device="cuda", seed: int = 0, **overrides) -> PointAl
     most 16 frames per call (15 at width 75), so the full-resolution conv
     intermediates of all frames are never live at once."""
     kw = dict(enable_depth=False, dpt_frames_chunk=16)
-    kw.update(overrides)
+    kw.update(_merged(overrides))
     return _build(PointAlignedVGGT, FLAGSHIP, kw, device, seed)
 
 
 def flagship_pose_aligned(device="cuda", seed: int = 0, **overrides) -> PoseAlignedVGGT:
     kw = dict(enable_point=False, dpt_frames_chunk=16)
-    kw.update(overrides)
+    kw.update(_merged(overrides))
     return _build(PoseAlignedVGGT, FLAGSHIP, kw, device, seed)
 
 
@@ -80,5 +105,5 @@ def flagship_pose_only(device="cuda", seed: int = 0, **overrides) -> PoseAligned
     """Trajectory-only serving: the camera head alone, no DPT decode; the
     chunk-and-align math is the pose-aligned model's."""
     kw = dict(enable_depth=False, enable_point=False)
-    kw.update(overrides)
+    kw.update(_merged(overrides))
     return _build(PoseAlignedVGGT, FLAGSHIP, kw, device, seed)

@@ -23,7 +23,10 @@ import math
 import torch
 
 LOG2E = 1.4426950408889634  # log2(e): folded into q so the softmax is exp2
-KERNEL_HEAD_DIMS = (64, 128)
+# head dims the forward kernels take (K2, K3 and K1's core); the backward
+# (K4) takes BWD_HEAD_DIMS
+KERNEL_HEAD_DIMS = (32, 64, 128)
+BWD_HEAD_DIMS = (64, 128)
 # the plain versions compute their fp32 logits this many elements at a time
 # (a block of query rows against all keys), so the 30,900-token global
 # attention of the large-chunk slice fits the card
@@ -107,9 +110,20 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: float | None 
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-TMA_BOX_COLS = 64   # head-dim columns per TMA box: one 128-byte swizzle row
 TMA_BOX_ROWS = 128  # tokens per box: the kernels' Q and K/V tiles
-TMA_SWIZZLE = 128   # bytes
+
+
+def tma_box_cols(dh: int) -> int:
+    """Head-dim columns per TMA box (``Smem<kD>::kCols`` in
+    ``csrc/attention_fwd_sm90.cuh``): 64, one 128-byte row of the 128-byte
+    swizzle (D 128 is two boxes), or at D 32 the whole 32, one 64-byte row
+    of the 64-byte swizzle."""
+    return min(dh, 64)
+
+
+def tma_swizzle(dh: int) -> int:
+    """The swizzle of the maps in bytes: one box row, 128 or 64 at D 32."""
+    return 2 * tma_box_cols(dh)
 
 
 def tma_geometry(t: torch.Tensor, box_rows: int = TMA_BOX_ROWS) -> dict:
@@ -117,11 +131,11 @@ def tma_geometry(t: torch.Tensor, box_rows: int = TMA_BOX_ROWS) -> dict:
     view (``csrc/sm90_common.cuh::make_map``): dims (D, N, H, B) innermost
     first, byte strides of the token, head and batch dims (an extent-1 head
     or batch dim takes the token stride, since it is never stepped), boxes
-    of 64 columns by ``box_rows`` rows (128; K4's query tiles
-    ``bwd_query_tile(D)``), 128-byte swizzle, zero fill out of bounds.
-    Raises ValueError on what TMA does not take: a head dim other than 64
-    or 128, a strided head dim, byte strides or a base address not 16-byte
-    aligned, strides of 2^40 bytes or more."""
+    of ``tma_box_cols(D)`` columns by ``box_rows`` rows (128; K4's query
+    tiles ``bwd_query_tile(D)``), a ``tma_swizzle(D)``-byte swizzle, zero
+    fill out of bounds. Raises ValueError on what TMA does not take: a head
+    dim other than 32, 64 or 128, a strided head dim, byte strides or a
+    base address not 16-byte aligned, strides of 2^40 bytes or more."""
     if t.dim() != 4 or t.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"TMA view must be (B, H, N, D) with D in {KERNEL_HEAD_DIMS}, "
                          f"got {tuple(t.shape)}")
@@ -137,8 +151,8 @@ def tma_geometry(t: torch.Tensor, box_rows: int = TMA_BOX_ROWS) -> dict:
                          f"got {strides} (element strides {t.stride()})")
     if t.data_ptr() % 16:
         raise ValueError(f"TMA base address must be 16-byte aligned, got {t.data_ptr():#x}")
-    return dict(dims=(D, N, H, B), strides=strides, box=(TMA_BOX_COLS, box_rows, 1, 1),
-                swizzle=TMA_SWIZZLE)
+    return dict(dims=(D, N, H, B), strides=strides, box=(tma_box_cols(D), box_rows, 1, 1),
+                swizzle=tma_swizzle(D))
 
 
 # K4 (csrc/flash_attention_bwd.cu): a CTA owns 128 keys and streams tiles of
@@ -180,7 +194,7 @@ def _strides(*tensors) -> list[int]:
 
 def launch_streaming(q, k, v, out, static_max, lse=None) -> None:
     """Launch ``csrc/flash_attention.cu`` on (B, H, N, D) bf16 views q, k, v
-    and out, D 64 or 128, addressed through their strides; the kernel folds
+    and out, D 32, 64 or 128, addressed through their strides; the kernel folds
     ``q_fold(D)`` into q itself. ``static_max`` is a device scalar from
     ``static_max_operand`` (the natural-log bound) or None for an online
     row max; ``lse``, if given, an fp32 (B, H, Nq) contiguous buffer for the
@@ -225,7 +239,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         static_max=None):
     """K3 with its lse output: (out (B, H, Nq, D), lse (B, H, Nq) fp32, log2
     domain), the residuals of the backward. CPU tensor: the plain version;
-    CUDA tensor: the kernel (bf16, D 64 or 128), or an error. No autograd of
+    CUDA tensor: the kernel (bf16, D 32, 64 or 128), or an error. No autograd of
     its own. ``flash_attention_lse.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, with_lse=True)
@@ -243,10 +257,10 @@ def flash_attention_backward(q, k, v, out, lse, dout):
     """K4: (dq, dk, dv) of flash attention from the forward's inputs, output
     and lse and the output's gradient, in q's, k's and v's dtypes. CPU
     tensor: ``flash_attention_backward_plain``; CUDA tensor: the three
-    kernels of ``csrc/flash_attention_bwd.cu`` (bf16, D 64 or 128), or an
-    error. The prep kernel folds ``q_fold(D)`` into q and rounds to bf16
-    exactly as the forward kernel does, so the rebuilt P is the
-    forward's. The key blocks add into dq in their order, so dq, dk and dv
+    kernels of ``csrc/flash_attention_bwd.cu`` (bf16, D in BWD_HEAD_DIMS: 64
+    or 128), or an error naming the head dim. The prep kernel folds
+    ``q_fold(D)`` into q and rounds to bf16 exactly as the forward kernel
+    does, so the rebuilt P is the forward's. The key blocks add into dq in their order, so dq, dk and dv
     are bit-reproducible from run to run.
     ``flash_attention_backward.launches`` counts calls (three kernel
     launches each)."""
@@ -262,6 +276,9 @@ def flash_attention_backward(q, k, v, out, lse, dout):
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         lse = lse.float().contiguous()
     B, H, nq, dh = q.shape
+    if dh not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash attention backward kernel: head dim {dh} is not one of "
+                         f"{BWD_HEAD_DIMS}")
     nk = k.shape[2]
     dev = q.device
     dq = torch.empty((B, nq, H, dh), dtype=torch.bfloat16, device=dev).transpose(1, 2)
@@ -336,8 +353,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, H, Nq, D), and with ``with_lse`` also the (B, H, Nq) fp32 log2
     lse.
 
-    CPU tensor: the plain version. CUDA tensor: the kernel (bf16, D 64 or
-    128), or an error; its output is a (B, H, Nq, D) view of a (B, Nq, H, D)
+    CPU tensor: the plain version. CUDA tensor: the kernel (bf16, D 32, 64
+    or 128), or an error; its output is a (B, H, Nq, D) view of a (B, Nq, H, D)
     buffer. Differentiable in q, k and v: when one requires grad the
     forward runs with lse (``flash_attention_lse``) and the backward is K4
     (``flash_attention_backward``). ``flash_attention.launches`` counts the

@@ -34,7 +34,7 @@ from .flash_attention import (
 )
 
 LN_EPS = 1e-6
-KERNEL_HEAD_DIMS = (64,)
+KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_MAX_TOKENS = 4096
 
 
@@ -171,7 +171,7 @@ def qk_prep(qkv: torch.Tensor, *, num_heads: int, cos=None, sin=None, q_ln=None,
             nsplit: int = 2, fold: float = 1.0):
     """K1's prep alone: (q^, k^) as ``qk_prep_plain`` computes them. CPU
     tensor: the plain version. CUDA tensor: the prep kernel of
-    ``csrc/fused_attention.cu`` (bf16 qkv, contiguous, head dim 64), or an
+    ``csrc/fused_attention.cu`` (bf16 qkv, contiguous, head dim 32 or 64), or an
     error; q^ and k^ are fresh (B, N, C) bf16 buffers (k^ is the k slice of
     qkv without LayerNorm and RoPE). fp32 LayerNorm params and fp32 RoPE
     tables with a contiguous last dim are read in place; other dtypes or
@@ -274,7 +274,7 @@ def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, cos=None, sin=None
 
     CPU tensor: the plain version. CUDA tensor: the prep kernel and the
     attention kernel (only the latter without LayerNorm and RoPE; bf16, dh
-    64, N <= 4096, contiguous), or an error;
+    32 or 64, N <= 4096, contiguous), or an error;
     nothing else is launched when the inputs are in the kernels' types (fp32
     LayerNorm params and RoPE tables, a device-scalar ``static_max``; see
     ``qk_prep`` for what is converted). Differentiable in qkv and the
@@ -321,7 +321,7 @@ def flat_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel, in shared memory, as the reference does). Returns (B, Nq, C).
 
     CPU tensor: the plain version. CUDA tensor: the kernel (bf16 k/v, head
-    dim 64, rows 16-byte aligned; v may be a strided slice of the qkv
+    dim 32, 64 or 128, rows 16-byte aligned; v may be a strided slice of the qkv
     projection), or an error; differentiable in q, k and v, with the
     backward recomputed through the plain version.
     ``flat_flash_attention.launches`` counts kernel launches."""
