@@ -168,7 +168,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 and vitslam_tpu_torch.kv_merge_trained on the checkpoint
                 the learning_loop phase wrote (its exact row equal to the
                 demo's trained row); docs/ untouched.
+23. heads      — right after slice 5/1: tiny small_feature_aligned models
+                with heads of 8 and of 16 at 224 x 224, one chunk each of 5
+                frames (K1 at the head dim over 1,305 tokens), 16 frames
+                (K2 over 4,176 keys) and 16 frames with the KV merge at
+                pool 2 / stride 2 (K3 over 2,640 keys), on the card in bf16
+                against the same weights on the CPU in fp32.
+24. tail small — small_feature_aligned(mlp_tail="both") over one 5/1 chunk
+                at 224 x 224: K5 at C 384 (mlp site F 1,536, proj site with
+                its LayerNorm), against fp32 of the same math as the tail
+                phase holds the flagship.
 
+The kernel phase's shapes step holds every kernel at the head dims and
+widths outside the flagship's (K1 at 8 / 16 / 48 / 128, K2 and K3 with its
+lse at 8 / 16 / 48 / 96, K4 at 16 / 32 / 48, K5 at C 64, 128, 384 and
+4,096, the int8 product at M 1 and 16 and K 12) against its plain version;
+the cases at the heads and tail small phases' shapes are entries of their
+own in the kernels line (SHAPE_VARIANTS), the others join their kernel's
+cases.
 The kernel phase also holds K3's lse output and K4 against their plain
 versions at the global head's shapes (and K4's outputs from two runs to
 each other: bit-identical), K5 at the mlp and proj
@@ -231,6 +248,27 @@ VARIANTS = {
     "flat_flash_attention_p4s10": ("flat_flash_attention", "kv_merge bench p4s10",
                                    "merged 75/30 p4s10 B=1 Nq=30900 Nk=5641"),
 }
+# the shapes step's cases at the shapes of a path this script runs (the
+# heads and tail small phases), as entries of their own
+_K1_DH8 = "heads dh8 global B=1 N=1305 H=8 LN+RoPE bounded"
+_K1_DH16 = "heads dh16 global B=1 N=1305 H=8 LN+RoPE bounded"
+SHAPE_VARIANTS = {
+    "fused_qkv_attention_dh8": ("fused_qkv_attention", "heads dh8 5/1", _K1_DH8),
+    "qk_prep_dh8": ("qk_prep", "heads dh8 5/1", _K1_DH8),
+    "fused_qkv_attention_dh16": ("fused_qkv_attention", "heads dh16 5/1", _K1_DH16),
+    "qk_prep_dh16": ("qk_prep", "heads dh16 5/1", _K1_DH16),
+    "flat_flash_attention_dh8": ("flat_flash_attention", "heads dh8 16-frame",
+                                 "heads dh8 global B=1 Nq=Nk=4176 H=8"),
+    "flat_flash_attention_dh16": ("flat_flash_attention", "heads dh16 16-frame",
+                                  "heads dh16 global B=1 Nq=Nk=4176 H=8"),
+    "flash_attention_dh8": ("flash_attention", "heads dh8 16-frame merged p2s2",
+                            "heads dh8 merged p2s2 B=1 H=8 Nq=4176 Nk=2640 bounded"),
+    "flash_attention_dh16": ("flash_attention", "heads dh16 16-frame merged p2s2",
+                             "heads dh16 merged p2s2 B=1 H=8 Nq=4176 Nk=2640 bounded"),
+    "mlp_tail_c384_mlp": ("mlp_tail", "tail small 5/1", "mlp small 5/1 M=1305 F=1536 C=384 gelu"),
+    "mlp_tail_c384_proj": ("mlp_tail", "tail small 5/1", "proj small 5/1 M=1305 F=384 C=384 LN"),
+}
+VARIANTS.update(SHAPE_VARIANTS)
 # K4 is two TPU kernels, dq (:384) and dk/dv (:421); the port's one backward
 # kernel (with its prep and dq passes) replaces both
 ALSO_REPLACES = {"flash_attention_backward": "vitslam_tpu/ops/flash_attention.py:421"}
@@ -469,6 +507,25 @@ def _check(name: str, case: str, got, want, atol: float) -> tuple[float, float]:
     return err, rl2
 
 
+def _check_prep_bits(case: str, got, want) -> tuple[float, float]:
+    """qk_prep against its plain version: bf16 outputs equal or one ulp
+    apart (the LayerNorm sums run in another order), or within 1e-6 where
+    RoPE cancels O(1) operands; at least 99.9% bit-identical. Returns the
+    max error and the bit-identical share."""
+    import torch
+
+    torch.cuda.synchronize()
+    errs, same = [], []
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        same.append((a == b).float().mean().item())
+        if not ((a - b).abs() <= 1e-6 + 2.0 ** -7 * b.abs()).all() or same[-1] < 0.999:
+            raise AssertionError(f"qk_prep {case}: beyond one bf16 ulp of the plain version, "
+                                 f"or only {same[-1]:.5f} bit-identical")
+        errs.append((a - b).abs().max().item())
+    return max(errs), min(same)
+
+
 def _sdpa_ms(q, k, v) -> float:
     """torch's SDPA (flash backend) on the same (B, H, N, 64) q/k/v: the
     library yardstick; the port never calls it."""
@@ -627,28 +684,15 @@ def kernels_k1(results: dict, g, dev):
         if not prep:
             del qkv, got, want
             continue
-        # the prep kernel alone on the same inputs: bf16 outputs equal to
-        # the plain version's or one ulp from them (the LayerNorm sums run in
-        # another order), or within 1e-6 where RoPE cancels O(1) operands to
-        # near zero; at least 99.9% bit-identical
+        # the prep kernel alone on the same inputs (_check_prep_bits)
         pkw = {k_: v_ for k_, v_ in kw.items() if k_ not in ("static_max",)}
         pkw["fold"] = q_fold(dh)
         got_p = qk_prep(qkv, **pkw)
-        want_p = qk_prep_plain(qkv, **pkw)
-        torch.cuda.synchronize()
-        errs, same = [], []
-        for a, b in zip(got_p, want_p):
-            a, b = a.float(), b.float()
-            same.append((a == b).float().mean().item())
-            if not ((a - b).abs() <= 1e-6 + 2.0 ** -7 * b.abs()).all() or same[-1] < 0.999:
-                raise AssertionError(f"qk_prep {case}: beyond one bf16 ulp of the plain version, "
-                                     f"or only {same[-1]:.5f} bit-identical")
-            errs.append((a - b).abs().max().item())
+        perr, same = _check_prep_bits(case, got_p, qk_prep_plain(qkv, **pkw))
         nb = _nbytes(qkv[..., :2 * C], *got_p, *tables)
-        _report(results, "qk_prep", case, main, max(errs), 0.0, lambda: qk_prep(qkv, **pkw),
-                _time_ms(lambda: qk_prep_plain(qkv, **pkw)), None, 0.0, nb,
-                bit_identical=min(same))
-        del qkv, got, want, got_p, want_p
+        _report(results, "qk_prep", case, main, perr, 0.0, lambda: qk_prep(qkv, **pkw),
+                _time_ms(lambda: qk_prep_plain(qkv, **pkw)), None, 0.0, nb, bit_identical=same)
+        del qkv, got, want, got_p
         torch.cuda.empty_cache()
 
 
@@ -949,20 +993,12 @@ def kernels_dh32(results: dict, g, dev):
             4.0 * B * heads * N * N * dh, _nbytes(qkv, got, *tables), sdpa_ms=sdpa_ms)
     pkw = {k_: v_ for k_, v_ in kw.items() if k_ != "static_max"}
     pkw["fold"] = q_fold(dh)
-    got_p, want_p = qk_prep(qkv, **pkw), qk_prep_plain(qkv, **pkw)
-    torch.cuda.synchronize()
-    errs, same = [], []
-    for a, b in zip(got_p, want_p):
-        a, b = a.float(), b.float()
-        same.append((a == b).float().mean().item())
-        if not ((a - b).abs() <= 1e-6 + 2.0 ** -7 * b.abs()).all() or same[-1] < 0.999:
-            raise AssertionError(f"qk_prep dh32 {case}: beyond one bf16 ulp of the plain "
-                                 f"version, or only {same[-1]:.5f} bit-identical")
-        errs.append((a - b).abs().max().item())
-    _report(results, "qk_prep_dh32", case, True, max(errs), 0.0, lambda: qk_prep(qkv, **pkw),
+    got_p = qk_prep(qkv, **pkw)
+    perr, same = _check_prep_bits(f"dh32 {case}", got_p, qk_prep_plain(qkv, **pkw))
+    _report(results, "qk_prep_dh32", case, True, perr, 0.0, lambda: qk_prep(qkv, **pkw),
             _time_ms(lambda: qk_prep_plain(qkv, **pkw)), None, 0.0,
-            _nbytes(qkv[..., :2 * C], *got_p, *tables), bit_identical=min(same))
-    del qkv, got, got_p, want_p
+            _nbytes(qkv[..., :2 * C], *got_p, *tables), bit_identical=same)
+    del qkv, got, got_p
 
     smax = torch.tensor(24.0, device=dev)
     for case, B, nq, nk, heads, main in (
@@ -1000,6 +1036,221 @@ def kernels_dh32(results: dict, g, dev):
     torch.cuda.empty_cache()
 
 
+def _library_ms(name: str, fn, *args):
+    """A library yardstick's time (``fn(*args)``: one of the SDPA timers or
+    ``_time_ms``), or None where the library refuses the shape (torch's
+    flash backend has no kernel for every head dim)."""
+    try:
+        return fn(*args)
+    except RuntimeError as e:
+        print(f"[kernels] {name}: no library time ({str(e).splitlines()[0][:120]})")
+        return None
+
+
+def _shape_name(kernel: str, case: str) -> str:
+    """The kernels line's entry of a shapes case: its own (SHAPE_VARIANTS),
+    else its kernel's."""
+    return next((n for n, (k, _, c) in SHAPE_VARIANTS.items() if (k, c) == (kernel, case)),
+                kernel)
+
+
+def kernels_shapes(results: dict, g, dev):
+    """The shapes step: each kernel at head dims and widths outside the
+    flagship's, which its JAX kernel computes, against its plain version
+    with the flagship cases' tolerances. K1 (prep and attention, one call;
+    the prep alone too) at head dims 8, 16, 48 and 128; K2 and K3 with its
+    lse at 8, 16, 48 and 96; K4 at 16, 32 and 48; K5 at (C, F) (64, 256),
+    (128, 512), (384, 384) with the LayerNorm, (384, 1,536) with the gelu
+    and (4,096, 1,024) with the LayerNorm (a cluster of 16 CTAs); the int8
+    product (torch._int_mm, zero-padded) at M 1 and 16 and K 12 against the
+    CPU. A case at the shapes of the heads or tail small phase's path is an
+    entry of its own in the kernels line (SHAPE_VARIANTS); the others join
+    their kernel's cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitslam_tpu_torch.nn.layers import qk_shift_from
+    from vitslam_tpu_torch.nn.rope import patch_grid_positions, rope_cache_2d
+    from vitslam_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_backward,
+        flash_attention_backward_plain,
+        flash_attention_lse,
+        flash_attention_plain,
+        q_fold,
+    )
+    from vitslam_tpu_torch.ops.fused_attention import (
+        _heads,
+        flat_flash_attention,
+        flat_flash_attention_plain,
+        fused_qkv_attention,
+        fused_qkv_attention_plain,
+        qk_prep,
+        qk_prep_plain,
+    )
+    from vitslam_tpu_torch.ops.mlp_tail import mlp_tail, mlp_tail_plain
+    from vitslam_tpu_torch.ops.quant import int8_matmul, int_mm, quantize_cols, quantize_rows
+
+    t0 = time.perf_counter()
+    randn = lambda *shape, sc=1.0: (sc * torch.randn(shape, generator=g, device=dev)  # noqa: E731
+                                    ).to(torch.bfloat16)
+    # K1: the tiny models' global attention (5 frames of 5 + 16 x 16 tokens
+    # at 224 x 224, 8 heads), and heads of 48 and of 128
+    for case, heads, dh, B, N, grid in (
+            ("heads dh8 global B=1 N=1305 H=8 LN+RoPE bounded", 8, 8, 1, 1305, (16, 16)),
+            ("heads dh16 global B=1 N=1305 H=8 LN+RoPE bounded", 8, 16, 1, 1305, (16, 16)),
+            ("dh48 B=2 N=700 H=8 LN+RoPE bounded", 8, 48, 2, 700, (11, 37)),
+            ("dh128 global B=1 N=2060 H=8 LN+RoPE bounded", 8, 128, 1, 2060, (11, 37))):
+        C = heads * dh
+        qkv = randn(B, N, 3 * C)
+        ln = [(1 + 0.1 * torch.randn(dh, generator=g, device=dev),
+               0.1 * torch.randn(dh, generator=g, device=dev)) for _ in range(2)]
+        per_frame = 5 + grid[0] * grid[1]
+        pos = patch_grid_positions(B, *grid, 5, dev).repeat(1, -(-N // per_frame), 1)[:, :N]
+        cos, sin, nsplit = rope_cache_2d(pos, dh)
+        kw = dict(num_heads=heads, q_ln=ln[0], k_ln=ln[1], cos=cos, sin=sin, nsplit=nsplit,
+                  static_max=qk_shift_from(ln[0], ln[1], dh))
+        got = fused_qkv_attention(qkv, **kw)
+        err, rl2 = _check("K1", case, got, fused_qkv_attention_plain(qkv, **kw), ATOL)
+        q, k, v = (_heads(qkv[..., i * C:(i + 1) * C], heads) for i in range(3))
+        tables = [t for pair in ln for t in pair] + [cos, sin]
+        sdpa = _library_ms(case, _sdpa_ms, q, k, v)
+        _report(results, _shape_name("fused_qkv_attention", case), case, False, err, rl2,
+                lambda: fused_qkv_attention(qkv, **kw),
+                _time_ms(lambda: fused_qkv_attention_plain(qkv, **kw)),
+                _library_ms(case, _time_ms, _flat_prep_sdpa(qkv, heads, ln, cos, sin, nsplit)),
+                4.0 * B * heads * N * N * dh, _nbytes(qkv, got, *tables),
+                **({} if sdpa is None else {"sdpa_ms": sdpa}))
+        pkw = {k_: v_ for k_, v_ in kw.items() if k_ != "static_max"}
+        pkw["fold"] = q_fold(dh)
+        got_p = qk_prep(qkv, **pkw)
+        perr, same = _check_prep_bits(case, got_p, qk_prep_plain(qkv, **pkw))
+        _report(results, _shape_name("qk_prep", case), case, False, perr, 0.0,
+                lambda: qk_prep(qkv, **pkw), _time_ms(lambda: qk_prep_plain(qkv, **pkw)), None,
+                0.0, _nbytes(qkv[..., :2 * C], *got_p, *tables), bit_identical=same)
+        del qkv, got, got_p, q, k, v
+    smax = torch.tensor(24.0, device=dev)
+    # K2: the tiny models' 16-frame global attention (4,176 keys), and
+    # heads of 48 and 96 over just more keys than the fused window
+    for case, heads, dh, nq in (("heads dh8 global B=1 Nq=Nk=4176 H=8", 8, 8, 4176),
+                                ("heads dh16 global B=1 Nq=Nk=4176 H=8", 8, 16, 4176),
+                                ("dh48 B=1 Nq=Nk=4352 H=8", 8, 48, 4352),
+                                ("dh96 B=1 Nq=Nk=4352 H=8", 8, 96, 4352)):
+        C = heads * dh
+        q, k = randn(1, nq, C, sc=2.0), randn(1, nq, C)
+        v = randn(1, nq, 3 * C)[..., 2 * C:]
+        got = flat_flash_attention(q, k, v, num_heads=heads, static_max=smax)
+        qs = (q.float() * q_fold(dh)).to(torch.bfloat16)
+        err, rl2 = _check("K2", case, got, flat_flash_attention_plain(qs, k, v, num_heads=heads),
+                          ATOL)
+        _report(results, _shape_name("flat_flash_attention", case), case, False, err, rl2,
+                lambda: flat_flash_attention(q, k, v, num_heads=heads, static_max=smax),
+                _time_ms(lambda: flat_flash_attention_plain(qs, k, v, num_heads=heads)),
+                _library_ms(case, _sdpa_ms, _heads(q, heads), _heads(k, heads), _heads(v, heads)),
+                4.0 * heads * nq * nq * dh, _nbytes(q, k, v, got))
+        del q, k, v, qs, got
+    # K3 (and its lse): the tiny models' merged global attention, heads of
+    # 48 and 96 cross
+    for case, H, dh, nq, nk, bounded in (
+            ("heads dh8 merged p2s2 B=1 H=8 Nq=4176 Nk=2640 bounded", 8, 8, 4176, 2640, True),
+            ("heads dh16 merged p2s2 B=1 H=8 Nq=4176 Nk=2640 bounded", 8, 16, 4176, 2640, True),
+            ("dh48 B=1 H=8 Nq=2060 Nk=1474 online-max", 8, 48, 2060, 1474, False),
+            ("dh96 B=1 H=8 Nq=2060 Nk=1474 bounded", 8, 96, 2060, 1474, True)):
+        q, k, v = randn(1, H, nq, dh, sc=2.0), randn(1, H, nk, dh), randn(1, H, nk, dh)
+        sm = smax if bounded else None
+        got = flash_attention(q, k, v, static_max=sm)
+        err, rl2 = _check("K3", case, got, flash_attention_plain(q, k, v), ATOL)
+        _report(results, _shape_name("flash_attention", case), case, False, err, rl2,
+                lambda: flash_attention(q, k, v, static_max=sm),
+                _time_ms(lambda: flash_attention_plain(q, k, v)),
+                _library_ms(case, _sdpa_ms, q, k, v), 4.0 * H * nq * nk * dh,
+                _nbytes(q, k, v, got))
+        fold = q_fold(dh)
+        q_eff = (q.float() * fold).to(torch.bfloat16).float() / fold
+        out, lse = flash_attention_lse(q, k, v, static_max=sm)
+        want_out, want_lse = flash_attention_plain(q_eff, k, v, with_lse=True)
+        errs = [_check("K3-lse", case + " out", out, want_out, ATOL),
+                _check("K3-lse", case + " lse", lse, want_lse, ATOL)]
+        _report(results, "flash_attention_lse", case, False, max(e[0] for e in errs),
+                max(e[1] for e in errs), lambda: flash_attention_lse(q, k, v, static_max=sm),
+                _time_ms(lambda: flash_attention_plain(q_eff, k, v, with_lse=True)),
+                _library_ms(case, _sdpa_ms, q, k, v), 4.0 * H * nq * nk * dh,
+                _nbytes(q, k, v, out, lse))
+        del q, k, v, got, q_eff, out, lse, want_out, want_lse
+    # K4 at head dims its 64 instance pads: a global head's shape
+    for case, H, dh, n in (("D16 B=1 H=8 N=4176 bounded", 8, 16, 4176),
+                           ("D32 B=1 H=8 N=4176 bounded", 8, 32, 4176),
+                           ("D48 B=1 H=8 N=2060 bounded", 8, 48, 2060)):
+        q, k, v, dout = randn(1, H, n, dh, sc=2.0), randn(1, H, n, dh), randn(1, H, n, dh), \
+            randn(1, H, n, dh)
+        fold = q_fold(dh)
+        q_eff = (q.float() * fold).to(torch.bfloat16).float() / fold
+        out, lse = flash_attention_lse(q, k, v, static_max=smax)
+        got = flash_attention_backward(q, k, v, out, lse, dout)
+        want = flash_attention_backward_plain(q_eff, k, v, out, lse, dout)
+        errs = [_check("K4", f"{case} {name}", a, b, ATOL)
+                for a, b, name in zip(got, want, ("dq", "dk", "dv"))]
+        del want
+        rerun = _rerun_difference(case, got, flash_attention_backward(q, k, v, out, lse, dout))
+        _report(results, "flash_attention_backward", case, False, max(e[0] for e in errs),
+                max(e[1] for e in errs),
+                lambda: flash_attention_backward(q, k, v, out, lse, dout),
+                _time_ms(lambda: flash_attention_backward_plain(q_eff, k, v, out, lse, dout)),
+                _library_ms(case, _sdpa_bwd_ms, q, k, v, dout), 10.0 * H * n * n * dh,
+                _nbytes(q, k, v, out, lse, dout, *got), dq_rerun_max_abs=rerun)
+        del q, k, v, dout, q_eff, out, lse, got
+    # K5: widths that clip the last column tile or K slice; the small
+    # preset's two tail sites at 5 x 261 rows (1,536 = 4 x 384: the
+    # reference's kernel sums only its first 1,024); a LayerNorm over 16 CTAs
+    for case, M, C, Fd, gelu, ln in (
+            ("C=64 M=2060 F=256 gelu", 2060, 64, 256, True, False),
+            ("C=128 M=2060 F=512 LN", 2060, 128, 512, False, True),
+            ("proj small 5/1 M=1305 F=384 C=384 LN", 1305, 384, 384, False, True),
+            ("mlp small 5/1 M=1305 F=1536 C=384 gelu", 1305, 384, 1536, True, False),
+            ("C=4096 M=2060 F=1024 LN cluster 16", 2060, 4096, 1024, False, True)):
+        h, res = randn(M, Fd), randn(M, C)
+        w = (torch.randn((C, Fd), generator=g, device=dev) / Fd ** 0.5).to(torch.bfloat16)
+        b = 0.1 * torch.randn(C, generator=g, device=dev)
+        gamma, beta = 1 + 0.1 * torch.randn(C, generator=g, device=dev), \
+            0.1 * torch.randn(C, generator=g, device=dev)
+        args = (h, w, b, res) + ((gamma, beta) if ln else ())
+        kw = dict(gelu=gelu, ln=ln)
+        got = mlp_tail(*args, **kw)
+        want = mlp_tail_plain(*args, **kw)
+        got, want = (got, want) if ln else ((got,), (want,))
+        errs = [_check("K5", f"{case} {n}", a, c, ATOL) for a, c, n in zip(got, want, "xy")]
+
+        def unfused():
+            x = res + F.linear(F.gelu(h) if gelu else h, w, b.to(torch.bfloat16))
+            return (x, F.layer_norm(x, (C,), gamma.to(torch.bfloat16), beta.to(torch.bfloat16),
+                                    1e-6)) if ln else x
+        _report(results, _shape_name("mlp_tail", case), case, False, max(e[0] for e in errs),
+                max(e[1] for e in errs), lambda: mlp_tail(*args, **kw),
+                _time_ms(lambda: mlp_tail_plain(*args, **kw)), None, 2.0 * M * Fd * C,
+                _nbytes(*args, *got), unfused_ms=_time_ms(unfused),
+                gemm_ms=_time_ms(lambda: torch.mm(h, w.t())))
+        del h, res, w, got, want, args
+    # the int8 product at shapes torch._int_mm refuses: zero-padded, the
+    # card's integers equal to the CPU's
+    for M, K, N in ((1, 1024, 3072), (16, 1024, 1024), (2060, 12, 64)):
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn((N, K), generator=g, device=dev) / K ** 0.5
+        with torch.no_grad():
+            (xq, xs), (wq, ws) = quantize_rows(x), quantize_cols(w.t())
+            y = int_mm(xq, wq)
+            want = int_mm(xq.cpu(), wq.cpu())
+            out = int8_matmul(x, w.t())
+        torch.cuda.synchronize()
+        same = torch.equal(y.cpu(), want)
+        print(f"[kernels] int8 product M={M} K={K} N={N} (zero-padded for torch._int_mm): "
+              f"int32 product {'bit-identical to' if same else 'DIFFERS from'} the CPU's; "
+              f"output finite {bool(torch.isfinite(out).all())}")
+        if not same or not torch.isfinite(out).all():
+            raise AssertionError(f"int8 product M={M} K={K} N={N}: differs from the CPU")
+    torch.cuda.empty_cache()
+    print(f"[kernels] shapes step {time.perf_counter() - t0:.1f} s")
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -1012,6 +1263,7 @@ def phase_kernels() -> dict:
     kernels_k3(results, g, dev)
     kernels_k3_lse_k4(results, g, dev)
     kernels_k5(results, g, dev)
+    kernels_shapes(results, g, dev)
     return results
 
 
@@ -1780,6 +2032,131 @@ def phase_tail(smi: str, tails_off: dict, off_stats: dict):
     del pred, fp32
     _release()
     return model, {"tail 5/1 sequential": stats}
+
+
+# the heads phase's tiny models: width 64 or 128 over 8 heads (heads of 8
+# or 16; the AlignmentHead's 8 heads likewise, its decoder's of 4 or 8), no
+# depth or point head; 224 x 224 frames of 5 + 16 x 16 tokens
+HEADS_KW = dict(depth=2, num_heads=8, patch_embed_depth=1, intermediate_layers=(0, 1, 1, 1),
+                num_memory_tokens=4, enable_depth=False, enable_point=False)
+# (label, frames of the one chunk, merge pool, the kernel its global attention takes)
+HEADS_RUNS = (
+    ("5/1", 5, 0, "fused_qkv_attention"),       # 1,305 tokens
+    ("16-frame", 16, 0, "flat_flash_attention"),  # 4,176 keys
+    ("16-frame merged p2s2", 16, 2, "flash_attention"),  # 2,640 merged keys
+)
+
+
+def phase_heads(smi: str) -> dict:
+    """Tiny small_feature_aligned models with heads of 8 and of 16 at 224 x
+    224: one chunk of 5 frames (the global attention over 1,305 tokens
+    through K1 at the head dim), of 16 frames (4,176 keys: K2) and of 16
+    frames with the KV merge at pool 2 / stride 2 (2,640 keys: K3), each on
+    the card in bf16 against the same weights on the CPU in fp32 (plain
+    math), held as the reference phase holds the GPU: at most
+    REFERENCE_FACTOR times the CPU's own bf16 error, plus 1e-3. Returns
+    each run's stats under "heads dh<d> <label>"."""
+    import torch
+
+    from vitslam_tpu_torch.models import small_feature_aligned
+    from vitslam_tpu_torch.slam import ChunkedPipeline
+
+    t0 = time.perf_counter()
+    runs = {}
+    keys = ("pose_enc", "chunk_sim3_enc", "memory_tokens")
+    for dh in (8, 16):
+        width = 8 * dh
+        for label, frames, pool, kernel in HEADS_RUNS:
+            kw = dict(HEADS_KW, embed_dim=width, align_embed_dim=width, align_dec_dim=width // 2,
+                      global_merge_pool=pool, global_merge_stride=2 if pool else 1)
+            gpu = small_feature_aligned(device="cuda", seed=2, **kw)
+            batch = _synthetic_sequence(frames, 224, 224, seed=dh)
+            name = f"heads dh{dh} {label}"
+            pred, stats = _drive(gpu, batch, name, smi, frames, 1)
+            _check_outputs(name, {"sequential": pred}, {"pose_enc": (1, frames, 9)})
+            if stats["launches"][kernel] < HEADS_KW["depth"]:
+                raise AssertionError(f"{name}: {kernel} launched {stats['launches'][kernel]} "
+                                     f"times, not at every global block")
+            cpu = {}
+            for dt in (torch.bfloat16, torch.float32):
+                ref = small_feature_aligned(device="cpu", seed=2, dtype=dt, **kw)
+                ref.load_state_dict(gpu.state_dict())
+                cpu[dt], _ = ChunkedPipeline(ref).run_sequence(batch, chunk_width=frames,
+                                                               num_overlap=1)
+            e_gpu = output_errors(pred, cpu[torch.float32], keys)
+            e_cpu = output_errors(cpu[torch.bfloat16], cpu[torch.float32], keys)
+            rnd = lambda e: json.dumps({k: round(v, 5) for k, v in e.items()})  # noqa: E731
+            print(f"[heads] dh {dh} {label}: rel-L2 against CPU fp32: GPU bf16 {rnd(e_gpu)}, "
+                  f"CPU bf16 {rnd(e_cpu)} (tol {REFERENCE_FACTOR} x CPU bf16 + 1e-3)")
+            bad = {k: v for k, v in e_gpu.items() if not v <= REFERENCE_FACTOR * e_cpu[k] + 1e-3}
+            if bad:
+                raise AssertionError(f"heads dh{dh} {label}: GPU further from fp32 than bf16 "
+                                     f"allows: {bad}")
+            runs[name] = dict(stats, rel_l2_gpu=e_gpu, rel_l2_cpu_bf16=e_cpu)
+            del gpu, pred, cpu
+            _release()
+    print(f"[heads] phase {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def phase_tail_small(smi: str) -> dict:
+    """small_feature_aligned(mlp_tail="both"), the preset at its own width
+    (384, heads of 64, an mlp of 1,536), over one 5/1 chunk at 224 x 224:
+    every backbone block's two tails (5 x 261 = 1,305 rows or more) through
+    K5 at C 384, the mlp site at F 1,536 (where the reference's Pallas
+    kernel sums only the first 1,024 columns) and the proj site with its
+    LayerNorm over a cluster of 2 CTAs. Held as phase_tail holds the
+    flagship: the tails-on and the tails-off bf16 runs each against an fp32
+    run of its own math with the same weights (plain attention; the tails
+    through K5's plain version), the tails-on run no further than
+    REFERENCE_FACTOR times the tails-off run's error, plus 1e-3."""
+    import torch
+
+    import vitslam_tpu_torch.nn.layers as layers
+    from vitslam_tpu_torch.models import small_feature_aligned
+    from vitslam_tpu_torch.ops import mlp_tail_plain, plain_attention_routes
+    from vitslam_tpu_torch.slam import ChunkedPipeline
+
+    t0 = time.perf_counter()
+    batch = _synthetic_sequence(5, 224, 224, seed=3)
+    preds, runs = {}, {}
+    for tail in ("both", "off"):
+        model = small_feature_aligned(device="cuda", seed=0, mlp_tail=tail)
+        preds[tail], runs[tail] = _drive(model, batch, f"tail small 5/1 {tail}", smi, 5, 1)
+        del model
+    _check_outputs("tail small 5/1", preds, {"pose_enc": (1, 5, 9), "depth": (1, 5, 224, 224, 1),
+                                             "world_points": (1, 5, 224, 224, 3)})
+    if not runs["both"]["launches"]["mlp_tail"] or runs["off"]["launches"]["mlp_tail"]:
+        raise AssertionError(f"tail small 5/1: K5 launches {runs['both']['launches']} (on), "
+                             f"{runs['off']['launches']} (off)")
+    fp32 = {}
+    real = layers.mlp_tail
+    layers.mlp_tail = mlp_tail_plain  # fp32 CUDA tensors: K5's math without the kernel
+    try:
+        with plain_attention_routes():
+            for tail in ("off", "both"):
+                ref = small_feature_aligned(device="cuda", seed=0, dtype=torch.float32,
+                                            mlp_tail=tail)
+                fp32[tail], _ = ChunkedPipeline(ref).run_sequence(batch, chunk_width=5,
+                                                                  num_overlap=1)
+                del ref
+    finally:
+        layers.mlp_tail = real
+    e_on = output_errors(preds["both"], fp32["both"])
+    e_off = output_errors(preds["off"], fp32["off"])
+    rnd = lambda e: json.dumps({k: round(v, 5) for k, v in e.items()})  # noqa: E731
+    print(f"[tail small 5/1] rel-L2 against fp32 of the same math: tails on {rnd(e_on)}, tails "
+          f"off {rnd(e_off)} (tol {REFERENCE_FACTOR} x off + 1e-3); bf16 on vs off "
+          f"{rnd(output_errors(preds['both'], preds['off']))}; K5 launches "
+          f"{runs['both']['launches']['mlp_tail']}; phase {time.perf_counter() - t0:.1f} s")
+    bad = {k: v for k, v in e_on.items() if not v <= REFERENCE_FACTOR * e_off[k] + 1e-3}
+    if bad:
+        raise AssertionError(f"tail small 5/1: the K5 path is further from its fp32 math than "
+                             f"bf16 allows: {bad}")
+    del preds, fp32
+    _release()
+    return {"tail small 5/1": dict(runs["both"], rel_l2_on_vs_fp32=e_on,
+                                   rel_l2_off_vs_fp32=e_off)}
 
 
 def phase_tail_large(smi: str, off_stats: dict) -> dict:
@@ -3566,6 +3943,8 @@ def main() -> int:
     results = phase_kernels()
     phase_reference()
     runs, tails_off = phase_slice(smi)
+    runs.update(phase_heads(smi))
+    runs.update(phase_tail_small(smi))
     runs.update(phase_checkpoints(smi, tails_off))
     runs.update(phase_merge(smi))
     large_runs, point_seq = phase_large_chunk(smi)

@@ -4,6 +4,8 @@ card: K1's prep as its plain version computes it (``qk_prep_plain``) against
 the JAX package's own LayerNorm + RoPE, and the tensor-map geometry the
 kernels derive from a tensor view (``tma_geometry``) on the layouts the
 wrappers hand them."""
+import importlib
+
 import numpy as np
 import pytest
 
@@ -24,12 +26,14 @@ from vitslam_tpu_torch.ops.flash_attention import (  # noqa: E402
     tma_geometry,
     tma_swizzle,
 )
+fa = importlib.import_module("vitslam_tpu_torch.ops.flash_attention")
 from vitslam_tpu_torch.ops.fused_attention import (  # noqa: E402
     _heads,
     fused_qkv_attention_plain,
     qk_prep,
     qk_prep_plain,
 )
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 
@@ -222,8 +226,36 @@ def test_tma_geometry_at_head_dim_32():
                        box=(32, 128, 1, 1), swizzle=64)
     assert (tma_box_cols(32), tma_swizzle(32)) == (32, 64)
     assert [(tma_box_cols(d), tma_swizzle(d)) for d in (64, 128)] == [(64, 128), (64, 128)]
-    with pytest.raises(ValueError, match="D in"):  # head dim 16 (F3)
-        tma_geometry(_bf16(1, 2, 100, 16))
+    # head dim 16 runs in the 32 instance: its box, the true extent
+    assert tma_geometry(_bf16(1, 2, 100, 16))["box"] == (32, 128, 1, 1)
+
+
+@pytest.mark.parametrize("dh,fwd,bwd", [
+    (8, 32, 32), (16, 32, 32), (32, 32, 32), (48, 64, 64), (64, 64, 64), (72, 128, 128),
+    (96, 128, 128), (128, 128, 128),
+])
+def test_tma_geometry_at_any_head_dim(dh, fwd, bwd):
+    """A head dim that is a multiple of 8 runs in the next instance of 32,
+    64 and 128, the forward's and K4's (csrc: Smem<kD>, Bwd<kD>):
+    the map keeps the true head dim as its extent (TMA zero-fills the box
+    past it) and takes the instance's box and swizzle; K4's query tile
+    follows its instance. Other head dims are padded to the next multiple
+    of 8 (fa.pad_head_dim), and above 128 every wrapper raises naming the
+    head dim."""
+    heads, N = 4, 700
+    v = _heads(_bf16(2, N, 3 * heads * dh)[..., 2 * heads * dh:], heads)
+    geo = tma_geometry(v)
+    assert geo["dims"] == (dh, N, heads, 2)
+    assert geo["strides"] == (3 * heads * dh * 2, dh * 2, N * 3 * heads * dh * 2)
+    assert geo["box"] == (min(fwd, 64), 128, 1, 1) and geo["swizzle"] == 2 * min(fwd, 64)
+    assert fa.kernel_head_dim(dh) == fwd and fa.kernel_head_dim(dh, fa.BWD_HEAD_DIMS) == bwd
+    assert tma_geometry(v, fa.bwd_query_tile(dh), fa.BWD_HEAD_DIMS)["box"] == (
+        min(bwd, 64), 64 if bwd == 128 else 128, 1, 1)
+    odd = dh - 3  # a head dim that is not a multiple of 8: the next multiple of 8
+    assert fa.padded_head_dim(odd) == dh
+    assert fa.pad_head_dim(_bf16(1, 2, 5, odd), odd).shape == (1, 2, 5, dh)
+    with pytest.raises(ValueError, match="head dim 129"):
+        fa.kernel_head_dim(129)
 
 
 def test_tma_geometry_raises_on_what_tma_does_not_take():
@@ -233,7 +265,9 @@ def test_tma_geometry_raises_on_what_tma_does_not_take():
         tma_geometry(_heads(_bf16(1, 100, 1028)[..., :1024], 16))
     with pytest.raises(ValueError, match="contiguous head dim"):
         tma_geometry(_bf16(1, 2, 64, 100).transpose(-1, -2))
-    with pytest.raises(ValueError, match="D in"):  # head dim 96
-        tma_geometry(_bf16(1, 2, 100, 96))
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):  # head dim 12: padded first
+        tma_geometry(_bf16(1, 2, 100, 12))
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):  # head dim 136
+        tma_geometry(_bf16(1, 2, 100, 136))
     with pytest.raises(ValueError, match="multiples of 16"):  # an expanded (stride 0) head
         tma_geometry(_bf16(1, 1, 100, 64).expand(1, 4, 100, 64))

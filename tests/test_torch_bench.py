@@ -31,6 +31,7 @@ from vitslam_tpu_torch.models import presets
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import bench as jbench  # noqa: E402  (the JAX package's bench.py; no JAX at import)
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 SRC = open(os.path.join(ROOT, "bench.py")).read()
 EB_EXPR = re.search(r"default_eb = (.+)\n", SRC).group(1)

@@ -21,7 +21,7 @@ import flax.serialization as fs  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_weights import jax_variables, seeded  # noqa: E402
+from torch_weights import jax_variables, seeded, shared_jax_cache  # noqa: E402,F401
 from vitslam_tpu.io.checkpoint import save_checkpoint as jax_save  # noqa: E402
 from vitslam_tpu.io.torch_convert import export_torch_style as jax_export  # noqa: E402
 from vitslam_tpu.models import FeatureAlignedVGGT as JaxModel  # noqa: E402

@@ -32,7 +32,7 @@ from vitslam_tpu_torch.data import CommonConfig, DynamicDataset, VKittiDataset  
 from vitslam_tpu_torch.nn import layers as tl  # noqa: E402
 from vitslam_tpu_torch.train.trainer import Trainer  # noqa: E402
 
-from torch_weights import jax_variables  # noqa: E402
+from torch_weights import jax_variables, shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

@@ -110,13 +110,35 @@ def _check_k1(cuda, B, nq, with_ln, with_rope, bounded, heads, dh):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("B,nq,with_ln,with_rope,bounded,heads,dh", [
+    (2, 412, True, True, True, 8, 8),       # heads of 8: one lane a head row
+    (1, 4096, True, True, True, 8, 8),      # the largest fused window
+    (1, 1000, True, True, True, 4, 16),     # ragged, heads of 16
+    (2, 412, False, False, False, 4, 16),   # no prep: the core folds q itself
+    (1, 700, True, True, False, 2, 48),     # 48 in the 64 instance, online max
+    (1, 600, True, True, True, 2, 96),      # 96 in the 128 instance
+    (1, 1300, True, True, True, 2, 128),    # 128: the 16-byte-chunk prep, two boxes
+    (2, 412, False, False, True, 1, 128),
+    (1, 500, True, True, True, 4, 12),      # not a multiple of 8: a zero-padded copy
+    (1, 450, False, False, False, 3, 20),
+])
+def test_k1_kernel_matches_plain_at_any_head_dim(cuda, B, nq, with_ln, with_rope, bounded,
+                                                 heads, dh):
+    """K1 at the head dims the reference's kernel packs into its lanes and
+    the port's instances pad (the next of 32, 64, 128, TMA's zero fill past
+    dh; the general prep kernel below 32 and between the instances), as at
+    head dim 64."""
+    _check_k1(cuda, B, nq, with_ln, with_rope, bounded, heads, dh)
+
+
 def test_k1_rejects_what_it_does_not_take(cuda):
-    """On a CUDA tensor the wrapper launches or raises: no silent fallback."""
-    x = torch.zeros((1, 412, 3 * 128), device=cuda, dtype=torch.float32)
+    """On a CUDA tensor the wrapper launches or raises: no silent fallback.
+    A head dim above 128 raises, naming itself."""
+    x = torch.zeros((1, 412, 3 * 256), device=cuda, dtype=torch.float32)
     with pytest.raises(TypeError):
         fused_qkv_attention(x, num_heads=2)
-    with pytest.raises(ValueError, match="head dim"):  # head dim 16
-        fused_qkv_attention(x.to(torch.bfloat16), num_heads=8)
+    with pytest.raises(ValueError, match="head dim 256"):
+        fused_qkv_attention(x.to(torch.bfloat16), num_heads=1)
     with pytest.raises(ValueError):  # more than 4096 tokens
         fused_qkv_attention(torch.zeros((1, 4100, 3 * 128), device=cuda,
                                         dtype=torch.bfloat16), num_heads=2)
@@ -234,29 +256,76 @@ def test_k3_kernel_and_lse_match_plain_at_head_dim_32(cuda, B, H, nq, nk, bounde
     torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=0)
 
 
-def test_k4_refuses_head_dim_32(cuda):
-    """The backward kernel takes head dims 64 and 128 only: at 32 it raises,
-    naming the head dim."""
-    rng = np.random.default_rng(6)
-    q, k, v, dout = (_bf16(rng, (1, 2, 200, 32), cuda) for _ in range(4))
-    out, lse = flash_attention_lse(q, k, v)
-    with pytest.raises(ValueError, match="head dim 32"):
-        flash_attention_backward(q, k, v, out, lse, dout)
+@pytest.mark.parametrize("B,nq,nk,heads,dh", [
+    (1, 4352, 4352, 16, 8),
+    (2, 4200, 5000, 8, 16),
+    (1, 4352, 4352, 2, 48),
+    (1, 4250, 4250, 2, 96),
+    (1, 4200, 4200, 4, 12),   # not a multiple of 8: zero-padded copies
+])
+def test_k2_kernel_matches_plain_at_any_head_dim(cuda, B, nq, nk, heads, dh):
+    """K2 at head dims 8, 16, 48, 96 and 12 (v a strided slice of a packed
+    projection) against its plain version, as at head dim 64."""
+    rng = np.random.default_rng(4)
+    C = heads * dh
+    q = _bf16(rng, (B, nq, C), cuda)
+    k = _bf16(rng, (B, nk, C), cuda)
+    v = _bf16(rng, (B, nk, 3 * C), cuda)[..., 2 * C:]
+    before = flat_flash_attention.launches
+    got = flat_flash_attention(q, k, v, num_heads=heads, static_max=24.0)
+    torch.cuda.synchronize()
+    assert flat_flash_attention.launches == before + 1
+    qs = (q.float() * q_fold(dh)).to(torch.bfloat16)
+    want = flat_flash_attention_plain(qs, k, v, num_heads=heads)
+    assert got.shape == (B, nq, C) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("B,H,nq,nk,bounded,dh", [
+    (1, 8, 675, 495, False, 8),
+    (2, 4, 300, 337, True, 16),
+    (3, 2, 130, 4500, False, 48),
+    (1, 2, 1000, 1300, True, 96),
+    (1, 4, 700, 600, False, 20),   # not a multiple of 8
+])
+def test_k3_kernel_and_lse_match_plain_at_any_head_dim(cuda, B, H, nq, nk, bounded, dh):
+    """K3 and its lse output at head dims below and between the instances,
+    against the plain version on the kernel's own q, as at head dim 32."""
+    rng = np.random.default_rng(5)
+    q = _bf16(rng, (B, H, nq, dh), cuda, 2.0)
+    k = _bf16(rng, (B, H, nk, dh), cuda)
+    v = _bf16(rng, (B, H, nk, dh), cuda)
+    smax = 24.0 if bounded else None
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, static_max=smax)
+    out, lse = flash_attention_lse(q, k, v, static_max=smax)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.equal(got, out) and got.shape == (B, H, nq, dh)
+    fold = q_fold(dh)
+    q_eff = (q.float() * fold).to(torch.bfloat16).float() / fold
+    want_out, want_lse = flash_attention_plain(q_eff, k, v, with_lse=True)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+    assert _rel_l2(out, want_out) <= 1e-2
+    torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=0)
 
 
 def test_k2_k3_reject_what_they_do_not_take(cuda):
-    """On CUDA tensors the wrappers launch or raise: no silent fallback."""
+    """On CUDA tensors the wrappers launch or raise: no silent fallback. A
+    head dim above 128 raises, naming itself."""
     x = torch.zeros((1, 2, 600, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):  # fp32 keys
         flash_attention(x, x.float(), x)
-    with pytest.raises(ValueError):  # head dim 16
-        flash_attention(x[..., :16], x[..., :16], x[..., :16])
-    x96 = torch.zeros((1, 2, 600, 96), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # head dim 96: the kernels take 32, 64 and 128
-        flash_attention(x96, x96, x96)
-    flat = torch.zeros((1, 4100, 128), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # head dim 16
-        flat_flash_attention(flat, flat, flat, num_heads=8, static_max=24.0)
+    x136 = torch.zeros((1, 2, 600, 136), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 136"):
+        flash_attention(x136, x136, x136)
+    with pytest.raises(ValueError, match="head dim 136"):
+        flash_attention_backward(x136, x136, x136, x136, torch.zeros((1, 2, 600), device=cuda),
+                                 x136)
+    flat = torch.zeros((1, 4100, 272), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 136"):
+        flat_flash_attention(flat, flat, flat, num_heads=2, static_max=24.0)
 
 
 def test_presets_default_to_the_gpu(cuda):
@@ -436,19 +505,45 @@ def test_k5_gradients_through_the_wrapper(cuda):
         assert _rel_l2(g, ref) <= 1e-5
 
 
+@pytest.mark.parametrize("M,C,Fd,gelu,ln", [
+    (300, 64, 256, True, False),     # one clipped column tile
+    (300, 128, 512, False, True),
+    (1305, 384, 384, False, True),   # the small preset's proj site: a cluster of 2
+    (1305, 384, 1536, True, False),  # its mlp site (the reference's dropped F 1,536)
+    (256, 384, 1536, True, True),
+    (256, 4096, 1024, False, True),  # a cluster of 16 CTAs (non-portable)
+    (2060, 2304, 1024, False, True),
+    (100, 100, 200, True, True),     # not multiples of 8: zero-padded copies
+    (70, 1000, 72, False, True),     # F below one K slice
+])
+def test_k5_kernel_matches_plain_at_any_width(cuda, M, C, Fd, gelu, ln):
+    """K5 where the last column tile or K slice is clipped, and with the
+    LayerNorm over up to 16 CTAs, against the plain version as at C 1,024
+    (the plain version is held to mlp_tail_reference on the CPU)."""
+    rng = np.random.default_rng(11)
+    args = _tail_inputs(rng, M, Fd, C, cuda)
+    before = mlp_tail.launches
+    got = mlp_tail(*args, gelu=gelu, ln=ln)
+    torch.cuda.synchronize()
+    assert mlp_tail.launches == before + 1
+    want = mlp_tail_plain(*args, gelu=gelu, ln=ln)
+    got, want = (got, want) if ln else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == (M, C) and torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert _rel_l2(g, w) <= 1e-2
+
+
 def test_k5_rejects_what_it_does_not_take(cuda):
+    """Every width computes (above); what is left raises: a LayerNorm over
+    more than 16 CTAs of 256 columns, no rows, fp32 or strided operands."""
     rng = np.random.default_rng(13)
     h, w2, b2, res, g, b = _tail_inputs(rng, 64, 128, 256, cuda)
-    with pytest.raises(ValueError):  # F not a multiple of 64
-        mlp_tail(h[:, :96].contiguous(), w2[:, :96].contiguous(), b2, res, g, b)
-    with pytest.raises(ValueError):  # C not a multiple of 256 (a CTA's 256 columns)
-        mlp_tail(h, w2[:192].contiguous(), b2[:192], res[:, :192].contiguous(), g[:192], b[:192])
-    with pytest.raises(ValueError):  # a multiple of 128, not of 256
-        wide = _tail_inputs(rng, 8, 64, 384, cuda)
-        mlp_tail(*wide)
-    with pytest.raises(ValueError):  # LayerNorm rows wider than a cluster of 8 CTAs
-        big = _tail_inputs(rng, 8, 64, 2304, cuda)
+    with pytest.raises(ValueError, match="C 4104"):  # LayerNorm rows wider than 16 CTAs
+        big = _tail_inputs(rng, 8, 64, 4104, cuda)
         mlp_tail(*big)
+    with pytest.raises(ValueError, match="at least one row"):
+        mlp_tail(h[:0], w2, b2, res[:0], g, b)
     with pytest.raises(TypeError):  # fp32 h
         mlp_tail(h.float(), w2, b2, res, g, b)
     with pytest.raises(ValueError):  # a strided h
@@ -599,6 +694,25 @@ def test_k1_prep_kernel_matches_plain_at_head_dim_32(cuda, B, N, with_ln, with_r
     _check_prep(cuda, B, N, with_ln, with_rope, nsplit, 2, 32)
 
 
+@pytest.mark.parametrize("B,N,with_ln,with_rope,nsplit,heads,dh", [
+    (2, 412, True, True, 2, 8, 8),      # a head row inside one lane's 8 columns
+    (1, 675, True, True, 2, 4, 16),
+    (3, 300, True, True, 1, 4, 16),     # 1-D RoPE
+    (2, 130, True, False, 2, 2, 48),    # LayerNorm only, 48 columns
+    (2, 130, False, True, 2, 2, 48),    # RoPE only: halves of 12
+    (1, 500, True, True, 2, 2, 128),    # 16 lanes a head row
+    (1, 300, True, True, 1, 1, 128),
+    (1, 500, True, True, 2, 4, 12),     # not a multiple of 8: a zero-padded copy
+    (5, 412, False, False, 2, 8, 8),    # the fold only
+])
+def test_k1_prep_kernel_matches_plain_at_any_head_dim(cuda, B, N, with_ln, with_rope, nsplit,
+                                                      heads, dh):
+    """The prep kernel at head dims other than 32 and 64 (qk_prep_any_kernel
+    below 32 and between the instances, the 16-byte-chunk kernel at 128),
+    as at 64."""
+    _check_prep(cuda, B, N, with_ln, with_rope, nsplit, heads, dh)
+
+
 def _check_prep(cuda, B, N, with_ln, with_rope, nsplit, heads, dh):
     rng = np.random.default_rng(24)
     x = _bf16(rng, (B, N, 3 * heads * dh), cuda)
@@ -646,6 +760,14 @@ def _k4_inputs(rng, B, H, nq, nk, dh, dev):
     (1, 3, 129, 63, 64),     # ragged both ways
     (1, 16, 2060, 1474, 64),   # the KV-merged cross shape
     (1, 8, 2060, 1474, 128),
+    # the 32 instance (D 32, and 8, 16 and 12 zero-filled or padded to it),
+    # and head dims the 64 and 128 instances pad
+    (1, 2, 200, 200, 32),
+    (1, 8, 1100, 900, 16),
+    (1, 8, 675, 495, 8),
+    (1, 3, 129, 63, 12),
+    (2, 4, 300, 337, 48),
+    (1, 2, 500, 700, 96),
 ])
 def test_k4_ragged_strided_and_masked_rows(cuda, B, H, nq, nk, dh):
     """K4 against its plain version on the query the kernels see, with every
@@ -726,7 +848,7 @@ def test_k5_leaves_rows_past_m_untouched(cuda, M, ln):
     y = torch.full((M + 64, C), sentinel, dtype=torch.bfloat16, device=cuda)
     err = library("mlp_tail").vitslam_mlp_tail_bf16(
         h.data_ptr(), w2.data_ptr(), b2.data_ptr(), res.data_ptr(), g.data_ptr(), bt.data_ptr(),
-        x.data_ptr(), y.data_ptr(), M, 256, C, 1, int(ln), 1e-6,
+        x.data_ptr(), y.data_ptr(), M, 256, C, C, 1, int(ln), 1e-6,
         torch.cuda.current_stream(cuda).cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
@@ -781,7 +903,12 @@ def _bf16_ulps(a, b) -> int:
     return int((a.view(torch.int16).int() - b.view(torch.int16).int()).abs().max())
 
 
-@pytest.mark.parametrize("M,K,N", [(2060, 1024, 3072), (30900, 1024, 1024), (130, 64, 72)])
+@pytest.mark.parametrize("M,K,N", [
+    (2060, 1024, 3072), (30900, 1024, 1024), (130, 64, 72),
+    # shapes torch._int_mm refuses on the card (16 rows or fewer, K or N
+    # not a multiple of 8): int_mm runs them zero-padded
+    (16, 32, 64), (1, 1024, 3072), (16, 12, 20), (5, 64, 72),
+])
 def test_int8_projection_on_the_card_matches_the_cpu(cuda, M, K, N):
     """ops.quant on the card (torch._int_mm) against the same arithmetic on
     the CPU: the same integers and scales, the same int32 product, the bf16
@@ -803,14 +930,6 @@ def test_int8_projection_on_the_card_matches_the_cpu(cuda, M, K, N):
         assert torch.equal(gq.cpu(), wq) and torch.equal(gs.cpu(), ws)
     assert torch.equal(got_y.cpu(), want_y)
     assert _bf16_ulps(got_out.cpu(), want_out) <= 1
-
-
-def test_int8_projection_refuses_what_int_mm_does_not_take(cuda):
-    from vitslam_tpu_torch.ops.quant import int8_matmul
-
-    w = torch.randn(64, 32, device=cuda)
-    with torch.no_grad(), pytest.raises(ValueError, match="more than 16 rows"):
-        int8_matmul(torch.randn(16, 32, device=cuda), w.t())
 
 
 def test_track_head_fp32_on_the_card_matches_the_cpu(cuda):

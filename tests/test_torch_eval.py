@@ -21,6 +21,7 @@ from vitslam_tpu_torch import eval as teval  # noqa: E402
 from vitslam_tpu_torch.eval import orchestrator as torch_orch  # noqa: E402
 from vitslam_tpu_torch.eval import prepare as tprep  # noqa: E402
 from vitslam_tpu_torch.ops.knn import nn_search  # noqa: E402
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

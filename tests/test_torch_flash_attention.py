@@ -19,6 +19,7 @@ from vitslam_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
 )
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

@@ -26,6 +26,7 @@ from vitslam_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_plain,
     flash_attention_reference,
 )
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 # the module, not the function that vitslam_tpu.ops re-exports under its name
 jfa = importlib.import_module("vitslam_tpu.ops.flash_attention")

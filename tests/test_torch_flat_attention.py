@@ -18,6 +18,7 @@ from vitslam_tpu_torch.ops.fused_attention import (  # noqa: E402
     flat_flash_attention,
     flat_flash_attention_plain,
 )
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 H, DH = 2, 64

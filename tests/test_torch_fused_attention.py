@@ -21,6 +21,7 @@ from vitslam_tpu_torch.ops.fused_attention import (  # noqa: E402
     fused_qkv_attention,
     fused_qkv_attention_plain,
 )
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

@@ -9,6 +9,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from vitslam_tpu import geometry as jg  # noqa: E402
 from vitslam_tpu_torch import geometry as tg  # noqa: E402
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

@@ -22,6 +22,7 @@ from vitslam_tpu.viz import viser_viz as jviz  # noqa: E402
 from vitslam_tpu_torch.eval import Metrics  # noqa: E402
 from vitslam_tpu_torch.utils import debug, profiling  # noqa: E402
 from vitslam_tpu_torch.viz import viser_viz as tviz  # noqa: E402
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the point cloud is fp32 unprojection on both sides (K^-1 by another

@@ -28,6 +28,7 @@ from vitslam_tpu_torch import native  # noqa: E402
 from vitslam_tpu_torch.data import CommonConfig, KITTIOdometryDataset  # noqa: E402
 from vitslam_tpu_torch.data import png  # noqa: E402
 from vitslam_tpu_torch.data import preprocess as pp  # noqa: E402
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 ANY = cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH
 # native sizes (H, W): KITTI Odometry, VKITTI 2, Waymo front and side

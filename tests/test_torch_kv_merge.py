@@ -23,7 +23,7 @@ from vitslam_tpu_torch.nn import layers as tl  # noqa: E402
 from vitslam_tpu_torch.nn import rope as tr  # noqa: E402
 from vitslam_tpu_torch.ops import ROUTE_COUNTS  # noqa: E402
 
-from torch_weights import jax_variables, seeded  # noqa: E402
+from torch_weights import jax_variables, seeded, shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

@@ -28,7 +28,7 @@ from vitslam_tpu_torch import kv_merge_trained as kvt  # noqa: E402
 from vitslam_tpu_torch.models import presets  # noqa: E402
 from vitslam_tpu_torch.utils.fixtures import write_vkitti_fixture  # noqa: E402
 
-from torch_weights import jax_variables  # noqa: E402
+from torch_weights import jax_variables, shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

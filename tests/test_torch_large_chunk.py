@@ -24,7 +24,7 @@ from vitslam_tpu_torch import models as tm  # noqa: E402
 from vitslam_tpu_torch.io import load_jax_params  # noqa: E402
 from vitslam_tpu_torch.slam import ChunkedPipeline  # noqa: E402
 
-from torch_weights import jax_variables, seeded  # noqa: E402
+from torch_weights import jax_variables, seeded, shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

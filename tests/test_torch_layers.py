@@ -26,6 +26,7 @@ from vitslam_tpu_torch.ops.resize import (  # noqa: E402
     resize_bilinear_nchw,
     resize_matmul,
 )
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

@@ -19,6 +19,7 @@ from vitslam_tpu_torch import learning_loop_demo as demo  # noqa: E402
 from vitslam_tpu_torch.io.checkpoint import CheckpointManager  # noqa: E402
 from vitslam_tpu_torch.models import FeatureAlignedVGGT, PointAlignedVGGT  # noqa: E402
 from vitslam_tpu_torch.utils import fixtures  # noqa: E402
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(img_size=28, embed_dim=64, depth=2, num_heads=2, patch_embed_depth=1,

@@ -21,6 +21,7 @@ from vitslam_tpu.ops.mlp_tail import mlp_tail_reference  # noqa: E402
 from vitslam_tpu_torch.io import load_jax_params  # noqa: E402
 from vitslam_tpu_torch.nn import layers as tl  # noqa: E402
 from vitslam_tpu_torch.ops.mlp_tail import _MlpTail, mlp_tail, mlp_tail_plain  # noqa: E402
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 # vitslam_tpu_torch.ops re-exports the function under the module's name
 tail_mod = importlib.import_module("vitslam_tpu_torch.ops.mlp_tail")

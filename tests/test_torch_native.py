@@ -15,6 +15,7 @@ from vitslam_tpu import native as jnative
 from vitslam_tpu_torch import native
 from vitslam_tpu_torch.data import preprocess as tpp
 from vitslam_tpu_torch.data import waymo as twaymo
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 ATOL = 1e-5
 

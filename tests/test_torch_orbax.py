@@ -31,7 +31,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import test_torch_train_state as tts  # noqa: E402
-from torch_weights import jax_variables, seeded  # noqa: E402
+from torch_weights import jax_variables, seeded, shared_jax_cache  # noqa: E402,F401
 from vitslam_tpu import train as jtrain  # noqa: E402
 from vitslam_tpu.io import checkpoint as jckpt  # noqa: E402
 from vitslam_tpu.io import orbax_ckpt  # noqa: E402

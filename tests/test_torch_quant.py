@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_weights import jax_variables, seeded  # noqa: E402
+from torch_weights import jax_variables, seeded, shared_jax_cache  # noqa: E402,F401
 from vitslam_tpu import models as jm  # noqa: E402
 from vitslam_tpu.nn import layers as jl  # noqa: E402
 from vitslam_tpu.ops import quant as jq  # noqa: E402

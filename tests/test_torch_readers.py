@@ -25,6 +25,7 @@ from vitslam_tpu.utils.fixtures import (  # noqa: E402
 from vitslam_tpu_torch.data import CommonConfig, KITTIOdometryDataset, WaymoDataset  # noqa: E402
 from vitslam_tpu_torch.data.kitti_odometry import decompose_projection  # noqa: E402
 from vitslam_tpu_torch.data.waymo import lidar_to_depth  # noqa: E402
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 # poses and intrinsics: K from scipy's RQ against OpenCV's, in float64
 POSE_ATOL = 1e-6

@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from torch_weights import jax_variables, seeded  # noqa: E402
+from torch_weights import jax_variables, seeded, shared_jax_cache  # noqa: E402,F401
 from vitslam_tpu.models import FeatureAlignedVGGT as JaxModel  # noqa: E402
 from vitslam_tpu.slam import ChunkedPipeline as JaxPipeline  # noqa: E402
 from vitslam_tpu.slam import chunking as jchunk  # noqa: E402

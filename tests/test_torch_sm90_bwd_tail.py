@@ -61,18 +61,38 @@ def test_k5_schedule_rows(M, row_tiles):
 
 
 def test_k5_schedule_refusals():
-    with pytest.raises(ValueError, match="multiple of 64"):
-        k5_schedule(100, 96, 1024, False, False, H100_SMS)
-    with pytest.raises(ValueError, match="multiple of 256"):
-        k5_schedule(100, 64, 1152, False, False, H100_SMS)
-    with pytest.raises(ValueError, match="multiple of 256"):
-        k5_schedule(100, 64, 128, False, False, H100_SMS)
-    with pytest.raises(ValueError, match="C <= 2048"):
-        k5_schedule(100, 64, 2304, False, True, H100_SMS)
+    """What is left to refuse: a LayerNorm over more than 16 CTAs of 256
+    columns (C above 4,096), no rows, an empty width. The widths refused
+    before (F not a multiple of 64, C not of 256, C 2,304 with the
+    LayerNorm) are scheduled (test_k5_schedule_at_any_width)."""
+    with pytest.raises(ValueError, match="C <= 4096, got C 4104"):
+        k5_schedule(100, 64, 4104, False, True, H100_SMS)
     with pytest.raises(ValueError, match="at least one row"):
         k5_schedule(0, 64, 256, False, False, H100_SMS)
-    # no LayerNorm: no cluster
-    assert k5_schedule(100, 64, 2304, False, False, H100_SMS)["cluster"] == 1
+    with pytest.raises(ValueError, match="at least one row"):
+        k5_schedule(10, 0, 256, False, False, H100_SMS)
+    # no LayerNorm: no cluster, whatever the width
+    assert k5_schedule(100, 64, 8192, False, False, H100_SMS)["cluster"] == 1
+
+
+@pytest.mark.parametrize("M,F,C,ln,grid,cluster,k_slices,padded", [
+    (300, 256, 64, False, (5, 1), 1, 4, (256, 64)),          # one clipped column tile
+    (1305, 384, 384, True, (21, 2), 2, 6, (384, 384)),       # the small preset's proj site
+    (1305, 1536, 384, False, (21, 2), 1, 24, (1536, 384)),   # its mlp site: all 24 slices
+    (256, 1024, 4096, True, (4, 16), 16, 16, (1024, 4096)),  # a non-portable cluster of 16
+    (100, 200, 100, True, (2, 1), 1, 4, (200, 104)),         # C zero-padded to 104
+    (70, 12, 1000, True, (2, 4), 4, 1, (16, 1000)),          # F below one slice, padded
+])
+def test_k5_schedule_at_any_width(M, F, C, ln, grid, cluster, k_slices, padded):
+    """Widths that are not multiples of the tiles: the last column tile is
+    clipped at C, the last K slice zero-filled past F (so F 1,536 takes 24
+    slices, where the reference's kernel sums 16), widths that are not
+    multiples of 8 padded first, and with the LayerNorm one CTA of the
+    cluster per 256 columns."""
+    sched = k5_schedule(M, F, C, False, ln, H100_SMS)
+    assert (sched["grid"], sched["cluster"]) == (grid, cluster)
+    assert (sched["k_slices"], sched["padded"]) == (k_slices, padded)
+    assert sched["smem_bytes"] <= KERNEL_MAX_SMEM
 
 
 # ---- K4: tensor maps ----

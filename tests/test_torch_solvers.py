@@ -11,6 +11,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from vitslam_tpu import geometry as G  # noqa: E402
 from vitslam_tpu_torch.geometry import solvers as S  # noqa: E402
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 torch.set_num_threads(2)
 ATOL = 1e-4

@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_weights import jax_variables, seeded  # noqa: E402
+from torch_weights import jax_variables, seeded, shared_jax_cache  # noqa: E402,F401
 from vitslam_tpu import models as jm  # noqa: E402
 from vitslam_tpu.io.torch_convert import export_torch_style  # noqa: E402
 from vitslam_tpu.models import track_head as jt  # noqa: E402

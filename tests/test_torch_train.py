@@ -19,7 +19,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
-from torch_weights import jax_variables, seeded  # noqa: E402
+from torch_weights import jax_variables, seeded, shared_jax_cache  # noqa: E402,F401
 from vitslam_tpu import train as jtrain  # noqa: E402
 from vitslam_tpu.io.torch_convert import export_torch_style  # noqa: E402
 from vitslam_tpu.models import FeatureAlignedVGGT as JaxModel  # noqa: E402
@@ -293,9 +293,10 @@ def test_two_train_steps_match_jax(temporal, same_dropout):
     js2, jm2 = step_fn(js1, jchunks, jmerged, jax.random.PRNGKey(2))
     # the step-1 gradient, read back from Adam's first moment after step 1:
     # mu = (1 - b1) * g clipped to global norm 1 (the step jits its gradient
-    # inside; a second jax.grad trace would double the test's compile time)
+    # inside; a second jax.grad trace would double the test's compile time),
+    # in numpy: eager JAX would compile the two ops for every leaf's shape
     unclip = max(float(jm1["grad_norm"]), 1.0)
-    jgrads = jax.tree.map(lambda m: m / 0.1 * unclip, js1.opt_state[1][0].mu)
+    jgrads = jax.tree.map(lambda m: np.asarray(m) / 0.1 * unclip, js1.opt_state[1][0].mu)
 
     loss = ttrain.MultitaskLoss(**LOSS_CFG)
     trainable = ttrain.freeze_params(model, FREEZE)

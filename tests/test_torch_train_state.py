@@ -24,7 +24,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
-from torch_weights import jax_variables, seeded  # noqa: E402
+from torch_weights import jax_variables, seeded, shared_jax_cache  # noqa: E402,F401
 from vitslam_tpu import train as jtrain  # noqa: E402
 from vitslam_tpu.io import checkpoint as jckpt  # noqa: E402
 from vitslam_tpu.io.torch_convert import export_torch_style  # noqa: E402

@@ -18,6 +18,7 @@ yaml = pytest.importorskip("yaml")
 
 from vitslam_tpu.config import loader as jloader  # noqa: E402
 from vitslam_tpu_torch.config import yaml_lite  # noqa: E402
+from torch_weights import shared_jax_cache  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))

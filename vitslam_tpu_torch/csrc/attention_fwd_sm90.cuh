@@ -7,7 +7,11 @@
 // scale * log2(e) (folded here, once, on the Q tile in shared memory, or by
 // K1's prep kernel), the softmax shift is either fixed (qk-norm's logit
 // bound, read from a device scalar and multiplied by log2(e) here) or the
-// online row max; self or cross (Nq != Nk); head dim 32, 64 or 128;
+// online row max; self or cross (Nq != Nk); head dim any multiple of 8 up
+// to 128, computed by the instance of the next of 32, 64 and 128 (kD): the
+// tensor maps keep the true head dim as their inner extent, so TMA's zero
+// fill pads the head dim in shared memory (zero q and k columns add nothing
+// to Q K^T, zero v columns give output columns that are not stored);
 // optionally the fp32 log2 lse per query row that the backward (K4) reads.
 //
 // What bounds it on the H100: two Nq * Nk * D products per head against
@@ -75,6 +79,7 @@ struct FwdParams {
   const float* static_max;  // natural-log logit bound (device scalar), or null: online max
   float* lse;               // (B, H, nq) fp32, or null
   int nq, nk;
+  int dh;        // the operands' head dim (<= kD): output columns >= dh are not stored
   float q_fold;  // scale * log2(e), folded into the Q tile by the kFold instances
 };
 
@@ -330,6 +335,7 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
 #pragma unroll
       for (int j = 0; j < kNb; ++j) {
         const int col = c * S::kCols + j * 8;
+        if (col >= p.dh) continue;  // dh is a multiple of 8: a column block is in or out
         if (n0 < p.nq) {
           *reinterpret_cast<uint32_t*>(ob + n0 * p.o_sn + col) =
               pack_bf16(o[c][j][0] * inv0, o[c][j][1] * inv0);
@@ -349,19 +355,21 @@ __device__ __forceinline__ void attention_fwd(const FwdParams& p) {
 }
 
 // Encode the maps and launch `kernel` (a wrapper of attention_fwd<kD, ...>)
-// on `stream`: q (B, H, nq, kD), k and v (B, H, nk, kD) and o (B, H, nq,
-// kD), kD 32, 64 or 128, each through element strides of (batch, head, token) with a
-// contiguous head dim. Returns the launch's error (cudaErrorInvalidValue
-// when a map cannot be encoded).
+// on `stream`: q (B, H, nq, dh), k and v (B, H, nk, dh) and o (B, H, nq,
+// dh), dh = p.dh a multiple of 8 no larger than kD (32, 64 or 128), each
+// through element strides of (batch, head, token) with a contiguous head
+// dim; the maps' inner extent is dh, their boxes kD's. Returns the launch's
+// error (cudaErrorInvalidValue when a map cannot be encoded).
 template <int kD>
 cudaError_t launch_fwd(void (*kernel)(FwdParams), FwdParams p, const void* q, const void* k,
                        const void* v, int B, int H, const long long (&qs)[3],
                        const long long (&ks)[3], const long long (&vs)[3],
                        cudaStream_t stream) {
   constexpr int kCols = Smem<kD>::kCols;
-  if (!make_map(&p.q_map, q, kD, p.nq, H, B, qs[0], qs[1], qs[2], kBlockM, kCols) ||
-      !make_map(&p.k_map, k, kD, p.nk, H, B, ks[0], ks[1], ks[2], kBlockN, kCols) ||
-      !make_map(&p.v_map, v, kD, p.nk, H, B, vs[0], vs[1], vs[2], kBlockN, kCols)) {
+  if (p.dh < 8 || p.dh > kD || p.dh % 8 != 0 ||
+      !make_map(&p.q_map, q, p.dh, p.nq, H, B, qs[0], qs[1], qs[2], kBlockM, kCols) ||
+      !make_map(&p.k_map, k, p.dh, p.nk, H, B, ks[0], ks[1], ks[2], kBlockN, kCols) ||
+      !make_map(&p.v_map, v, p.dh, p.nk, H, B, vs[0], vs[1], vs[2], kBlockN, kCols)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = cudaFuncSetAttribute(

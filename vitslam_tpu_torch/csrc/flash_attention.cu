@@ -13,9 +13,12 @@
 // Both compute O = softmax(Q K^T) V per (batch, head) in the exp2 domain.
 // Q, K, V and O are addressed through (batch, head, token) strides, so K2's
 // flat layout (head h at column h * D, token stride C) and K3's (B, H, N, D)
-// layout are the same kernel; head dims 64 (the backbone), 128 (the
-// AlignmentHead) and 32 (the small backbones of the KV-merge quality
-// sweep, two heads of 32) are three instances of one template. The TPU kernels' TNS
+// layout are the same kernel; any head dim that is a multiple of 8 up to
+// 128 runs in the instance of the next of 32, 64 and 128 (64: the
+// backbone, 128: the AlignmentHead, 32: the KV-merge quality sweep's small
+// backbones; the others, e.g. 8, 16, 48, 96, zero-padded in shared memory
+// by TMA; the wrapper copies a head dim that is not a multiple of 8 into a
+// zero-padded one first, as _flash_forward pads D). The TPU kernels' TNS
 // variant, head groups, inner-K splits and single-K schedule are TPU layout
 // tuning and are not carried over; their zero-padded keys' mass
 // subtraction becomes a -inf mask of the ragged tail (the same numbers).
@@ -65,8 +68,9 @@ cudaError_t launch(const FwdParams& p, const void* q, const void* k, const void*
 }  // namespace
 
 // Plain C entry point (bound with ctypes). q: bf16 (B, H, Nq, dh) as it
-// comes (the kernel folds log2(e) / sqrt(dh) into it), k/v: bf16
-// (B, H, Nk, dh), o: bf16 (B, H, Nq, dh), dh 32, 64 or 128, each addressed
+// comes (the kernel folds q_fold into it: log2(e) / sqrt of the true head
+// dim, which a zero-padded dh does not change), k/v: bf16 (B, H, Nk, dh),
+// o: bf16 (B, H, Nq, dh), dh a multiple of 8 up to 128, each addressed
 // through the given element strides of (batch, head, token) with a
 // contiguous head dim; strides and bases 16-byte aligned (the TMA maps'
 // rule). static_max: fp32 device scalar holding the natural-log logit bound
@@ -77,10 +81,11 @@ cudaError_t launch(const FwdParams& p, const void* q, const void* k, const void*
 // layout it does not take).
 extern "C" int vitslam_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, const void* static_max, void* lse,
-    int B, int H, int nq, int nk, int dh, long long q_sb, long long q_sh, long long q_sn,
-    long long k_sb, long long k_sh, long long k_sn, long long v_sb, long long v_sh,
-    long long v_sn, long long o_sb, long long o_sh, long long o_sn, void* stream) {
-  if ((dh != 32 && dh != 64 && dh != 128) || B < 1 || H < 1 || nq < 1 || nk < 1 || B > 65535 ||
+    int B, int H, int nq, int nk, int dh, float q_fold, long long q_sb, long long q_sh,
+    long long q_sn, long long k_sb, long long k_sh, long long k_sn, long long v_sb,
+    long long v_sh, long long v_sn, long long o_sb, long long o_sh, long long o_sn,
+    void* stream) {
+  if (dh < 8 || dh > 128 || dh % 8 != 0 || B < 1 || H < 1 || nq < 1 || nk < 1 || B > 65535 ||
       H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -93,14 +98,14 @@ extern "C" int vitslam_flash_attention_bf16(
   p.lse = static_cast<float*>(lse);
   p.nq = nq;
   p.nk = nk;
-  // the double the wrapper computes (LOG2E / math.sqrt(dh)), rounded once
-  p.q_fold = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(dh)));
+  p.dh = dh;
+  p.q_fold = q_fold;  // the wrapper's double LOG2E / math.sqrt(dh), rounded once to fp32
   const long long qs[3] = {q_sb, q_sh, q_sn};
   const long long ks[3] = {k_sb, k_sh, k_sn};
   const long long vs[3] = {v_sb, v_sh, v_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dh == 32   ? launch<32>(p, q, k, v, B, H, qs, ks, vs, s)
-                          : dh == 64 ? launch<64>(p, q, k, v, B, H, qs, ks, vs, s)
+  const cudaError_t err = dh <= 32   ? launch<32>(p, q, k, v, B, H, qs, ks, vs, s)
+                          : dh <= 64 ? launch<64>(p, q, k, v, B, H, qs, ks, vs, s)
                                      : launch<128>(p, q, k, v, B, H, qs, ks, vs, s);
   return static_cast<int>(err);
 }

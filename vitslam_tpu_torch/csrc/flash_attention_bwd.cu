@@ -6,7 +6,18 @@
 //   ::_flash_bwd_dkv_kernel (:421), launched by _flash_backward (:462):
 //   the FA2 backward of softmax(Q K^T * scale) V from the saved output O
 //   and the log2-domain row logsumexp (K3's lse output), self or cross
-//   (Nq != Nk), head dim 64 or 128.
+//   (Nq != Nk), any head dim that is a multiple of 8 up to 128: the
+//   instances at 32, 64 and 128 (kD), any other head dim in the next of
+//   them. At 32 a box is the 32 columns, one 64-byte row of the 64-byte
+//   swizzle, as in the forward core: the k16 slices of S and dP sit 0 or
+//   32 bytes into the row, dv, dk and dq are m64n32k16 products (dq's with
+//   K as an MN-major B of one 32-column atom), and the dq accumulator's
+//   tiles are 64 x 32. The maps of k, v and dO keep the true head dim as their inner
+//   extent, so TMA zero-fills the rest of kD in shared memory, and the prep
+//   writes qs's pad columns as zeros: zero columns leave S, dP, Dvec and P
+//   unchanged and give zero columns of dq, dk and dv, which are not
+//   stored. (The wrapper copies a head dim that is not a multiple of 8 into
+//   a zero-padded one first, as _flash_backward pads D.)
 // Math, per (batch, head), with qs = q * scale * log2(e) rounded to bf16
 // (the forward's q, bit for bit) and Dvec = rowsum(dO * O) in fp32:
 //   P  = exp2(qs K^T - lse)            rebuilt per tile, no max tracking
@@ -81,20 +92,25 @@ using bf16 = __nv_bfloat16;
 constexpr int kKeys = 128;          // keys per CTA
 constexpr int kThreads = 3 * 128;   // two consumer warpgroups + the producer's (loads, dq writers)
 constexpr int kRowPad = 128;        // lse / Dvec / accumulator rows padded to a multiple of it
-constexpr int kAccTile = 64 * 64;   // floats of one accumulator tile
 constexpr int kPrepThreads = 256;
 
 template <int kD>
 struct Bwd {
-  static constexpr int kBoxes = kD / kBoxCols;         // 64-column boxes of a row
+  static_assert(kD == 32 || kD == 64 || kD == 128, "head dim 32, 64 or 128");
+  static constexpr int kCols = kD < kBoxCols ? kD : kBoxCols;  // head-dim columns per box
+  static constexpr int kRowBytes = 2 * kCols;          // one swizzle row: 128 bytes, 64 at D 32
+  static constexpr int kPer = kRowBytes / 32;          // k16 slices of a swizzle row
+  static constexpr int kBoxes = kD / kCols;            // boxes of a row
+  static constexpr int kNb = kCols / 8;                // n8 column blocks of a box
   static constexpr int kBq = kD == 128 ? 64 : 128;     // queries per streamed tile
   static constexpr int kQH = kBq / 64;                 // 64-query halves of a tile
   static constexpr int kStages = 2;
-  static constexpr int kKvBox = kKeys * 128;           // bytes of a 128-row box
+  static constexpr int kKvBox = kKeys * kRowBytes;     // bytes of a 128-row box
   static constexpr int kKvTile = kBoxes * kKvBox;
-  static constexpr int kQBox = kBq * 128;
+  static constexpr int kQBox = kBq * kRowBytes;
   static constexpr int kQTile = kBoxes * kQBox;
-  static constexpr int kRowBytes = kBq * 4;            // a tile's lse (or Dvec)
+  static constexpr int kLseBytes = kBq * 4;            // a tile's lse (or Dvec)
+  static constexpr int kAccTile = 64 * kCols;          // floats of one accumulator tile
   static constexpr int kDsBytes = kQH * kKeys * 128;   // dS^T: kQH blocks of [128 keys][64 queries]
   // shared memory, every tile 1024-byte aligned: K, V, qs stages, dO
   // stages, dS^T double buffer, dq staging per consumer, lse/Dvec rows,
@@ -106,7 +122,7 @@ struct Bwd {
   static constexpr int kDs = kDo + kStages * kQTile;
   static constexpr int kStaging = kDs + 2 * kDsBytes;
   static constexpr int kRows = kStaging + 2 * kAccTile * 4;
-  static constexpr int kBar = kRows + kStages * 2 * kRowBytes;
+  static constexpr int kBar = kRows + kStages * 2 * kLseBytes;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages + 4) + 1024;
 };
 
@@ -120,6 +136,7 @@ struct BwdParams {
   bf16* dv;
   long long dk_sb, dk_sh, dk_sn, dv_sb, dv_sh, dv_sn;
   int nq, nk, nq_pad, H;
+  int dh;  // the operands' head dim (<= kD): columns >= dh are not stored
 };
 
 // Wait until *lock == turn (acquire, GPU scope), then order the async
@@ -198,14 +215,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int pw = (threadIdx.x - 2 * 128) / 32;
     if ((pw == 1 || pw == 2) && threadIdx.x % 32 == 0) {
       const int w = pw - 1;
-      const uint32_t staging = base + S::kStaging + w * kAccTile * 4;
-      float* const acc_b = p.dq_acc + bh * acc_tiles * kAccTile;
+      const uint32_t staging = base + S::kStaging + w * S::kAccTile * 4;
+      float* const acc_b = p.dq_acc + bh * acc_tiles * S::kAccTile;
       int* const lock_b = p.dq_lock + bh * acc_tiles;
       for (int it = 0; it < n_tiles; ++it) {
         mbar_wait(staged + 8 * w, it & 1);
         const long long tile = acc_tile(it, w);
         wait_turn(lock_b + tile, blockIdx.x);  // the key blocks before this one have added
-        bulk_reduce_add_f32(acc_b + tile * kAccTile, staging, kAccTile * 4);
+        bulk_reduce_add_f32(acc_b + tile * S::kAccTile, staging, S::kAccTile * 4);
         bulk_commit();
         bulk_wait_read();
         mbar_arrive(freed + 8 * w);
@@ -217,8 +234,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(kv_full, 2 * S::kKvTile);
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c) {
-        tma_load_4d(k_s + c * S::kKvBox, &p.k_map, kv_full, c * kBoxCols, k0, h, b);
-        tma_load_4d(v_s + c * S::kKvBox, &p.v_map, kv_full, c * kBoxCols, k0, h, b);
+        tma_load_4d(k_s + c * S::kKvBox, &p.k_map, kv_full, c * S::kCols, k0, h, b);
+        tma_load_4d(v_s + c * S::kKvBox, &p.v_map, kv_full, c * S::kCols, k0, h, b);
       }
       const float* lse_b = p.lse + bh * p.nq_pad;
       const float* dvec_b = p.dvec + bh * p.nq_pad;
@@ -226,17 +243,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = it % kStages;
         mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);  // round 0 passes at once
         const uint32_t f = full + 8 * s;
-        mbar_expect_tx(f, 2 * S::kQTile + 2 * S::kRowBytes);
+        mbar_expect_tx(f, 2 * S::kQTile + 2 * S::kLseBytes);
 #pragma unroll
         for (int c = 0; c < kBoxes; ++c) {
-          tma_load_4d(base + S::kQ + s * S::kQTile + c * S::kQBox, &p.q_map, f, c * kBoxCols,
+          tma_load_4d(base + S::kQ + s * S::kQTile + c * S::kQBox, &p.q_map, f, c * S::kCols,
                       it * kBq, h, b);
-          tma_load_4d(base + S::kDo + s * S::kQTile + c * S::kQBox, &p.do_map, f, c * kBoxCols,
+          tma_load_4d(base + S::kDo + s * S::kQTile + c * S::kQBox, &p.do_map, f, c * S::kCols,
                       it * kBq, h, b);
         }
-        const uint32_t rows = base + S::kRows + s * 2 * S::kRowBytes;
-        bulk_load(rows, lse_b + it * kBq, S::kRowBytes, f);
-        bulk_load(rows + S::kRowBytes, dvec_b + it * kBq, S::kRowBytes, f);
+        const uint32_t rows = base + S::kRows + s * 2 * S::kLseBytes;
+        bulk_load(rows, lse_b + it * kBq, S::kLseBytes, f);
+        bulk_load(rows + S::kLseBytes, dvec_b + it * kBq, S::kLseBytes, f);
       }
     }
     return;
@@ -253,18 +270,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int r0 = wg * 64 + warp * 16 + g;  // the CTA's key rows of this thread: r0, r0 + 8
   const bool key0 = k0 + r0 < p.nk;
   const bool key1 = k0 + r0 + 8 < p.nk;
-  const uint32_t wg_rows = wg * 64 * 128;  // byte offset of this warpgroup's keys in a K/V box
-  // this warpgroup's dq block of every tile: a 64-query half (D 64) or a
-  // 64-column box (D 128)
+  constexpr int kRowBytes = S::kRowBytes;
+  constexpr int kPer = S::kPer;
+  constexpr int kNb = S::kNb;
+  // byte offset of this warpgroup's keys in a K/V box
+  const uint32_t wg_rows = wg * 64 * kRowBytes;
+  // this warpgroup's dq block of every tile: a 64-query half (D 32, 64) or
+  // a 64-column box (D 128)
   const int q_half = S::kQH == 2 ? wg : 0;
   const int c_box = S::kQH == 2 ? 0 : wg;
-  const uint32_t staging = base + S::kStaging + wg * kAccTile * 4;
+  const uint32_t staging = base + S::kStaging + wg * S::kAccTile * 4;
 
-  float dk[kBoxes][8][4], dv[kBoxes][8][4];
+  float dk[kBoxes][kNb][4], dv[kBoxes][kNb][4];
 #pragma unroll
   for (int c = 0; c < kBoxes; ++c) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kNb; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk[c][j][e] = dv[c][j][e] = 0.f;
     }
@@ -276,17 +297,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(full + 8 * s, (it / kStages) & 1);
     const uint32_t q_tile = base + S::kQ + s * S::kQTile;
     const uint32_t do_tile = base + S::kDo + s * S::kQTile;
-    const float* lse_s = reinterpret_cast<const float*>(gbase + S::kRows + s * 2 * S::kRowBytes);
+    const float* lse_s = reinterpret_cast<const float*>(gbase + S::kRows + s * 2 * S::kLseBytes);
     const float* dvec_s = lse_s + kBq;
 
     // S^T = K qs^T, dP^T = V dO^T: k16 slice kk of the head dim lies in box
-    // kk / 4 at byte 32 * (kk % 4)
+    // kk / kPer at byte 32 * (kk % kPer)
     float st[kBq / 8][4], dpt[kBq / 8][4];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
-      const uint64_t da = desc_sw128(k_s + (kk / 4) * S::kKvBox + wg_rows + (kk % 4) * 32);
-      const uint64_t db = desc_sw128(q_tile + (kk / 4) * S::kQBox + (kk % 4) * 32);
+      const uint64_t da =
+          desc_sw<kRowBytes>(k_s + (kk / kPer) * S::kKvBox + wg_rows + (kk % kPer) * 32);
+      const uint64_t db = desc_sw<kRowBytes>(q_tile + (kk / kPer) * S::kQBox + (kk % kPer) * 32);
       if constexpr (kBq == 64) {
         wgmma_ss_m64n64k16<0, 0>(st, da, db, kk > 0);
       } else {
@@ -296,8 +318,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
-      const uint64_t da = desc_sw128(v_s + (kk / 4) * S::kKvBox + wg_rows + (kk % 4) * 32);
-      const uint64_t db = desc_sw128(do_tile + (kk / 4) * S::kQBox + (kk % 4) * 32);
+      const uint64_t da =
+          desc_sw<kRowBytes>(v_s + (kk / kPer) * S::kKvBox + wg_rows + (kk % kPer) * 32);
+      const uint64_t db = desc_sw<kRowBytes>(do_tile + (kk / kPer) * S::kQBox + (kk % kPer) * 32);
       if constexpr (kBq == 64) {
         wgmma_ss_m64n64k16<0, 0>(dpt, da, db, kk > 0);
       } else {
@@ -366,14 +389,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int t16 = 0; t16 < kBq / 16; ++t16) {
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c) {
-        wgmma_rs_m64n64k16(dv[c], pa[t16], desc_sw128(do_tile + c * S::kQBox + t16 * 2048));
+        const uint64_t db = desc_sw<kRowBytes>(do_tile + c * S::kQBox + t16 * 16 * kRowBytes);
+        if constexpr (kNb == 8) {
+          wgmma_rs_m64n64k16(dv[c], pa[t16], db);
+        } else {
+          wgmma_rs_m64n32k16(dv[c], pa[t16], db);
+        }
       }
     }
 #pragma unroll
     for (int t16 = 0; t16 < kBq / 16; ++t16) {
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c) {
-        wgmma_rs_m64n64k16(dk[c], dsa[t16], desc_sw128(q_tile + c * S::kQBox + t16 * 2048));
+        const uint64_t db = desc_sw<kRowBytes>(q_tile + c * S::kQBox + t16 * 16 * kRowBytes);
+        if constexpr (kNb == 8) {
+          wgmma_rs_m64n64k16(dk[c], dsa[t16], db);
+        } else {
+          wgmma_rs_m64n32k16(dk[c], dsa[t16], db);
+        }
       }
     }
     wgmma_commit();
@@ -381,13 +414,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     // dq block = dS K over the CTA's 128 keys: both warpgroups' dS^T are
     // in shared memory past this barrier
     named_sync(1, 2 * 128);
-    float dq[8][4];
+    float dq[kNb][4];
     wgmma_fence();
 #pragma unroll
     for (int k16 = 0; k16 < kKeys / 16; ++k16) {
-      wgmma_ss_m64n64k16<1, 1>(
-          dq, desc_sw128(smem_u32(ds) + q_half * kKeys * 128 + k16 * 2048),
-          desc_sw128(k_s + c_box * S::kKvBox + k16 * 2048), k16 > 0);
+      const uint64_t da = desc_sw128(smem_u32(ds) + q_half * kKeys * 128 + k16 * 2048);
+      const uint64_t db = desc_sw<kRowBytes>(k_s + c_box * S::kKvBox + k16 * 16 * kRowBytes);
+      if constexpr (kNb == 8) {
+        wgmma_ss_m64n64k16<1, 1>(dq, da, db, k16 > 0);
+      } else {
+        wgmma_ss_m64n32k16<1, 1>(dq, da, db, k16 > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -406,7 +443,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (it > 0) mbar_wait(freed + 8 * wg, (it - 1) & 1);
     float4* const st4 = reinterpret_cast<float4*>(gbase + (staging - base));
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kNb; ++j) {
       st4[j * 128 + t] = make_float4(dq[j][0], dq[j][1], dq[j][2], dq[j][3]);
     }
     fence_async_smem();
@@ -423,8 +460,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int c = 0; c < kBoxes; ++c) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = c * kBoxCols + j * 8;
+      for (int j = 0; j < kNb; ++j) {
+        const int col = c * S::kCols + j * 8;
+        if (col >= p.dh) continue;  // dh is a multiple of 8: a column block is in or out
         *reinterpret_cast<uint32_t*>(dkr + col) = pack_bf16(
             dk[c][j][2 * half] * (1.0f / kLog2e), dk[c][j][2 * half + 1] * (1.0f / kLog2e));
         *reinterpret_cast<uint32_t*>(dvr + col) =
@@ -439,30 +477,37 @@ struct PrepParams {
   const bf16* out;
   const bf16* dout;
   const float* lse;  // (B, H, nq) contiguous
-  bf16* qs;          // (B, H, nq, D) contiguous
+  bf16* qs;          // (B, H, nq, kD) contiguous
   float* lse_pad;
   float* dvec_pad;
   float* dq_acc;
   int* dq_lock;
   long long q_sb, q_sh, q_sn, o_sb, o_sh, o_sn, do_sb, do_sh, do_sn;
   long long rows;  // B * H * nq_pad
-  int H, nq, nq_pad;
+  int H, nq, nq_pad, dh;
   float fold;
 };
 
 // One warp per padded query row: zero its share of the accumulator (and,
 // on the first row of a 64-row block, the block's tile counters), and for
-// a real row fold q, take Dvec = rowsum(dO * O) and copy the lse.
+// a real row fold q, take Dvec = rowsum(dO * O) and copy the lse. A lane
+// whose columns lie past dh (all of them or none: dh is a multiple of 8)
+// writes zeros to qs and adds nothing to Dvec.
 template <int kD>
 __global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(const PrepParams p) {
-  constexpr int kPer = kD / 32;  // columns per lane: 2 or 4
+  // columns per lane: 2 or 4 (at D 32 16 lanes of 2 columns)
+  constexpr int kPer = kD < 64 ? 2 : kD / 32;
+  constexpr int kBoxes = Bwd<kD>::kBoxes;
   const long long row = (static_cast<long long>(blockIdx.x) * kPrepThreads + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= p.rows) return;
-  float* acc = p.dq_acc + row * kD + lane * kPer;
+  const bool active = lane * kPer < kD;
+  if (active) {
+    float* acc = p.dq_acc + row * kD + lane * kPer;
 #pragma unroll
-  for (int e = 0; e < kPer; ++e) acc[e] = 0.f;
-  if (row % 64 == 0 && lane < kD / 64) p.dq_lock[row / 64 * (kD / 64) + lane] = 0;
+    for (int e = 0; e < kPer; ++e) acc[e] = 0.f;
+  }
+  if (row % 64 == 0 && lane < kBoxes) p.dq_lock[row / 64 * kBoxes + lane] = 0;
   const long long bh = row / p.nq_pad;
   const int n = static_cast<int>(row % p.nq_pad);
   if (n >= p.nq) {
@@ -475,19 +520,25 @@ __global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(const Prep
   const int b = static_cast<int>(bh / p.H);
   const int h = static_cast<int>(bh % p.H);
   const int col = lane * kPer;
-  const bf16* q = p.q + b * p.q_sb + h * p.q_sh + n * p.q_sn + col;
-  const bf16* o = p.out + b * p.o_sb + h * p.o_sh + n * p.o_sn + col;
-  const bf16* d = p.dout + b * p.do_sb + h * p.do_sh + n * p.do_sn + col;
   bf16* qs = p.qs + (bh * p.nq + n) * kD + col;
   float sum = 0.f;
+  if (!active) {
+  } else if (col < p.dh) {
+    const bf16* q = p.q + b * p.q_sb + h * p.q_sh + n * p.q_sn + col;
+    const bf16* o = p.out + b * p.o_sb + h * p.o_sh + n * p.o_sn + col;
+    const bf16* d = p.dout + b * p.do_sb + h * p.do_sh + n * p.do_sn + col;
 #pragma unroll
-  for (int e = 0; e < kPer; e += 2) {
-    const float2 qv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q + e));
-    const float2 ov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + e));
-    const float2 dv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d + e));
-    sum += dv.x * ov.x + dv.y * ov.y;
-    *reinterpret_cast<uint32_t*>(qs + e) =
-        pack_bf16(__fmul_rn(qv.x, p.fold), __fmul_rn(qv.y, p.fold));
+    for (int e = 0; e < kPer; e += 2) {
+      const float2 qv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q + e));
+      const float2 ov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + e));
+      const float2 dv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d + e));
+      sum += dv.x * ov.x + dv.y * ov.y;
+      *reinterpret_cast<uint32_t*>(qs + e) =
+          pack_bf16(__fmul_rn(qv.x, p.fold), __fmul_rn(qv.y, p.fold));
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kPer; e += 2) *reinterpret_cast<uint32_t*>(qs + e) = 0u;
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
@@ -501,8 +552,8 @@ struct DqParams {
   const float* dq_acc;
   bf16* dq;
   long long dq_sb, dq_sh, dq_sn;
-  long long pairs;  // B * H * nq * D / 2
-  int H, nq, nq_pad;
+  long long pairs;  // B * H * nq * dh / 2
+  int H, nq, nq_pad, dh;
   float scale;
 };
 
@@ -512,18 +563,19 @@ template <int kD>
 __global__ void __launch_bounds__(kPrepThreads) flash_bwd_dq_kernel(const DqParams p) {
   const long long i = static_cast<long long>(blockIdx.x) * kPrepThreads + threadIdx.x;
   if (i >= p.pairs) return;
-  const int col = static_cast<int>(i % (kD / 2)) * 2;
-  const long long rn = i / (kD / 2);
+  const int col = static_cast<int>(i % (p.dh / 2)) * 2;
+  const long long rn = i / (p.dh / 2);
   const int n = static_cast<int>(rn % p.nq);
   const long long bh = rn / p.nq;
   const int b = static_cast<int>(bh / p.H);
   const int h = static_cast<int>(bh % p.H);
+  using S = Bwd<kD>;
   const int r = n % 64;
-  const int cc = col % 64;
+  const int cc = col % S::kCols;
   const int tid = (r / 16) * 32 + (r % 8) * 4 + (cc % 8) / 2;  // the writer's thread
-  const long long tile = (bh * (p.nq_pad / 64) + n / 64) * (kD / 64) + col / 64;
+  const long long tile = (bh * (p.nq_pad / 64) + n / 64) * S::kBoxes + col / S::kCols;
   const float2 v = *reinterpret_cast<const float2*>(
-      p.dq_acc + tile * kAccTile + ((cc / 8) * 128 + tid) * 4 + ((r % 16) / 8) * 2);
+      p.dq_acc + tile * S::kAccTile + ((cc / 8) * 128 + tid) * 4 + ((r % 16) / 8) * 2);
   *reinterpret_cast<uint32_t*>(p.dq + b * p.dq_sb + h * p.dq_sh + n * p.dq_sn + col) =
       pack_bf16(v.x * p.scale, v.y * p.scale);
 }
@@ -534,10 +586,12 @@ cudaError_t launch(const PrepParams& pp, BwdParams bp, const DqParams& dp, const
                    const long long (&vs)[3], const long long (&dos)[3], cudaStream_t stream) {
   using S = Bwd<kD>;
   const long long qs_sn = kD, qs_sh = static_cast<long long>(pp.nq) * kD, qs_sb = qs_sh * H;
-  if (!make_map(&bp.q_map, pp.qs, kD, pp.nq, H, B, qs_sb, qs_sh, qs_sn, S::kBq) ||
-      !make_map(&bp.do_map, pp.dout, kD, pp.nq, H, B, dos[0], dos[1], dos[2], S::kBq) ||
-      !make_map(&bp.k_map, k, kD, nk, H, B, ks[0], ks[1], ks[2]) ||
-      !make_map(&bp.v_map, v, kD, nk, H, B, vs[0], vs[1], vs[2])) {
+  const int dh = pp.dh;
+  if (!make_map(&bp.q_map, pp.qs, kD, pp.nq, H, B, qs_sb, qs_sh, qs_sn, S::kBq, S::kCols) ||
+      !make_map(&bp.do_map, pp.dout, dh, pp.nq, H, B, dos[0], dos[1], dos[2], S::kBq,
+                S::kCols) ||
+      !make_map(&bp.k_map, k, dh, nk, H, B, ks[0], ks[1], ks[2], kKeys, S::kCols) ||
+      !make_map(&bp.v_map, v, dh, nk, H, B, vs[0], vs[1], vs[2], kKeys, S::kCols)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<kD>,
@@ -559,13 +613,14 @@ cudaError_t launch(const PrepParams& pp, BwdParams bp, const DqParams& dp, const
 }  // namespace
 
 // Plain C entry point (bound with ctypes). q, out, dout, dq: bf16 (B, H,
-// Nq, dh); k, v, dk, dv: bf16 (B, H, Nk, dh); dh 64 or 128; each addressed
-// through the given element strides of (batch, head, token) with a
-// contiguous head dim, rows and base 16-byte aligned. lse: fp32 (B, H, Nq)
-// contiguous, log2 domain. Scratch the caller allocates: qs bf16 (B, H, Nq,
-// dh) contiguous; lse_pad and dvec_pad fp32 (B, H, nq_pad), dq_acc fp32
-// (B, H, nq_pad, dh) and dq_lock int32 (B, H, nq_pad / 64, dh / 64), nq_pad
-// = Nq rounded up to a multiple of 128.
+// Nq, dh); k, v, dk, dv: bf16 (B, H, Nk, dh); dh a multiple of 8 up to
+// 128, kD the next of 32, 64 and 128; each addressed through the given
+// element strides of (batch, head, token) with a contiguous head dim, rows
+// and base 16-byte aligned. lse: fp32 (B, H, Nq) contiguous, log2 domain.
+// Scratch the caller allocates: qs bf16 (B, H, Nq, kD) contiguous;
+// lse_pad and dvec_pad fp32 (B, H, nq_pad), dq_acc fp32 (B, H, nq_pad, kD)
+// and dq_lock int32 (B, H, nq_pad / 64, max(1, kD / 64)), nq_pad = Nq rounded up
+// to a multiple of 128.
 // fold = scale * log2(e) as the forward kernel takes it. Launches the prep,
 // main and dq kernels on `stream`; allocates nothing; returns the first
 // non-zero cudaGetLastError() (cudaErrorInvalidValue for a shape it does
@@ -579,7 +634,7 @@ extern "C" int vitslam_flash_attention_bwd_bf16(
     long long o_sn, long long do_sb, long long do_sh, long long do_sn, long long dq_sb,
     long long dq_sh, long long dq_sn, long long dk_sb, long long dk_sh, long long dk_sn,
     long long dv_sb, long long dv_sh, long long dv_sn, void* stream) {
-  if ((dh != 64 && dh != 128) || B < 1 || H < 1 || nq < 1 || nk < 1 || B > 65535 ||
+  if (dh < 8 || dh > 128 || dh % 8 != 0 || B < 1 || H < 1 || nq < 1 || nk < 1 || B > 65535 ||
       H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -590,7 +645,7 @@ extern "C" int vitslam_flash_attention_bwd_bf16(
                       static_cast<bf16*>(qs), static_cast<float*>(lse_pad),
                       static_cast<float*>(dvec_pad), static_cast<float*>(dq_acc),
                       static_cast<int*>(dq_lock), q_sb, q_sh, q_sn, o_sb, o_sh, o_sn, do_sb, do_sh, do_sn,
-                      rows, H, nq, nq_pad, fold};
+                      rows, H, nq, nq_pad, dh, fold};
   BwdParams bp{};
   bp.lse = static_cast<const float*>(lse_pad);
   bp.dvec = static_cast<const float*>(dvec_pad);
@@ -608,13 +663,16 @@ extern "C" int vitslam_flash_attention_bwd_bf16(
   bp.nk = nk;
   bp.nq_pad = nq_pad;
   bp.H = H;
+  bp.dh = dh;
   const DqParams dp{static_cast<const float*>(dq_acc), static_cast<bf16*>(dq), dq_sb, dq_sh,
-                    dq_sn, static_cast<long long>(B) * H * nq * (dh / 2), H, nq, nq_pad, scale};
+                    dq_sn, static_cast<long long>(B) * H * nq * (dh / 2), H, nq, nq_pad, dh,
+                    scale};
   const long long ks[3] = {k_sb, k_sh, k_sn};
   const long long vs[3] = {v_sb, v_sh, v_sn};
   const long long dos[3] = {do_sb, do_sh, do_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dh == 64 ? launch<64>(pp, bp, dp, k, v, B, H, nk, ks, vs, dos, s)
-                                   : launch<128>(pp, bp, dp, k, v, B, H, nk, ks, vs, dos, s);
+  const cudaError_t err = dh <= 32   ? launch<32>(pp, bp, dp, k, v, B, H, nk, ks, vs, dos, s)
+                          : dh <= 64 ? launch<64>(pp, bp, dp, k, v, B, H, nk, ks, vs, dos, s)
+                                     : launch<128>(pp, bp, dp, k, v, B, H, nk, ks, vs, dos, s);
   return static_cast<int>(err);
 }

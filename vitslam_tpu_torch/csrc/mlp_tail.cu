@@ -13,9 +13,15 @@
 // rsqrt(var + eps) * gamma + beta in bf16.
 //
 // Layout: h is (M, F) and W the port's (C, F) torch weight, so both
-// operands are K-major; res, x' and y are (M, C); all contiguous. F must be
-// a multiple of 64 and C of 256 (at most 2,048 with the LayerNorm). Rows
-// past M are zero-filled by TMA, never read from res and never stored.
+// operands are K-major; res, x' and y are (M, C); all contiguous. F and C
+// are any multiples of 8 (the TMA maps' 16-byte row rule; the wrapper
+// zero-pads other widths), C at most 4,096 with the LayerNorm. The last K
+// slice past F, rows past M and W rows past C (the last CTA's columns past
+// C) are zero-filled by TMA; columns past C are never read from b or res
+// and never stored, and the LayerNorm's statistics take the true width
+// c_ln (= C unless the wrapper padded C). The JAX kernel sums only F //
+// 1024 blocks of 1,024 at F above 1,024 (so at F 1,536 it drops a third of
+// the reduction); this kernel sums all of F.
 //
 // What bounds it on the H100: 2 M F C FLOP against (M F + C F + 3 M C) x 2
 // bytes. At the flagship's C 1,024 the mlp site (F 4,096) does 17.3 GFLOP at
@@ -49,8 +55,11 @@
 //   through the read-only path and restrict pointers, so a column group's
 //   loads are issued ahead of its stores (a possible alias of res and x
 //   otherwise keeps them one after another).
-// - The LayerNorm runs on the accumulator registers: a cluster of C / 256
-//   CTAs along C holds whole rows; each CTA reduces its 256 columns per row
+// - The LayerNorm runs on the accumulator registers: a cluster of
+//   ceil(C / 256) CTAs along C holds whole rows, up to 16 at C 4,096
+//   (above 8 the H100's non-portable cluster size: 16 CTAs of one SM each
+//   fit in one GPC; a wider tile would halve the CTAs the small rows of
+//   the common widths get). Each CTA reduces its 256 columns per row
 //   (the four lanes of a fragment quad), and the partial sums go through
 //   distributed shared memory in two rounds, the mean, then the centered
 //   sum of squares, so every CTA of the cluster normalises with the same
@@ -75,7 +84,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBK = 64;   // K slice per stage: one 128-byte swizzle row
 constexpr int kBN = 256;  // output columns per CTA
-constexpr int kMaxCluster = 8;
+constexpr int kMaxCluster = 16;  // non-portable above 8
 
 template <int kWG, bool kGelu>
 struct Tail {
@@ -113,6 +122,7 @@ struct TailParams {
   bf16* x;
   bf16* y;
   int M, F, C;
+  int c_ln;  // the LayerNorm's width: columns >= c_ln are padding
   float eps;
 };
 
@@ -147,7 +157,12 @@ __device__ __forceinline__ void gelu_slice(unsigned char* slice, int t) {
   }
 }
 
-template <int kWG, bool kGelu, bool kLn>
+// kClip: C is not a multiple of kBN (the last column tile is clipped) or
+// the LayerNorm's width c_ln is below C. Without it the epilogue has no
+// column guard, so a column group's loads go out ahead of its stores (the
+// guards cost the LayerNorm sites a quarter to a half of their time at C
+// 1,024).
+template <int kWG, bool kGelu, bool kLn, bool kClip>
 __global__ void __launch_bounds__(Tail<kWG, kGelu>::kThreads, 1)
     mlp_tail_kernel(const __grid_constant__ TailParams p) {
   using T = Tail<kWG, kGelu>;
@@ -173,7 +188,7 @@ __global__ void __launch_bounds__(Tail<kWG, kGelu>::kThreads, 1)
 
   const int m0 = blockIdx.x * T::kBM;
   const int n0 = blockIdx.y * kBN;
-  const int nk = p.F / kBK;
+  const int nk = (p.F + kBK - 1) / kBK;  // the last slice zero-filled past F
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -260,6 +275,9 @@ __global__ void __launch_bounds__(Tail<kWG, kGelu>::kThreads, 1)
   const bool in1 = row0 + 8 < p.M;
   const size_t off0 = static_cast<size_t>(row0) * p.C + n0 + c2;
   const size_t off1 = off0 + 8 * static_cast<size_t>(p.C);
+  // columns of this CTA inside C: C is a multiple of 8, so an n8 block is
+  // in or out; the accumulator of a block past C stays 0
+  const int c_in = p.C - n0;
 #pragma unroll
   for (int j0 = 0; j0 < 32; j0 += 4) {
     uint32_t r[4][2];
@@ -267,13 +285,16 @@ __global__ void __launch_bounds__(Tail<kWG, kGelu>::kThreads, 1)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = (j0 + j) * 8;
-      bias[j] = __ldg(reinterpret_cast<const float2*>(bias_p + n0 + c2 + col));
-      r[j][0] = in0 ? __ldg(reinterpret_cast<const unsigned int*>(res_p + off0 + col)) : 0u;
-      r[j][1] = in1 ? __ldg(reinterpret_cast<const unsigned int*>(res_p + off1 + col)) : 0u;
+      const bool cin = !kClip || col < c_in;
+      bias[j] = cin ? __ldg(reinterpret_cast<const float2*>(bias_p + n0 + c2 + col))
+                    : make_float2(0.f, 0.f);
+      r[j][0] = in0 && cin ? __ldg(reinterpret_cast<const unsigned int*>(res_p + off0 + col)) : 0u;
+      r[j][1] = in1 && cin ? __ldg(reinterpret_cast<const unsigned int*>(res_p + off1 + col)) : 0u;
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = (j0 + j) * 8;
+      if (kClip && col >= c_in) continue;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const float2 rv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r[j][half]));
@@ -294,7 +315,8 @@ __global__ void __launch_bounds__(Tail<kWG, kGelu>::kThreads, 1)
     // lanes of its fragment quad
     float* const red = reinterpret_cast<float*>(gbase + T::kRed);  // [sums kBM][squares kBM]
     const int nc = gridDim.y;  // the cluster spans C
-    const float inv_c = 1.0f / static_cast<float>(p.C);
+    const float inv_c = 1.0f / static_cast<float>(p.c_ln);
+    const int ln_in = p.c_ln - n0 - c2;  // this thread's columns j * 8 + e (e < 2) below it
     float s[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
@@ -319,7 +341,8 @@ __global__ void __launch_bounds__(Tail<kWG, kGelu>::kThreads, 1)
     for (int j = 0; j < 32; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float d = acc[j][e] - mean[e / 2];
+        const float d =
+            !kClip || j * 8 + (e & 1) < ln_in ? acc[j][e] - mean[e / 2] : 0.f;
         q[e / 2] += d * d;
       }
     }
@@ -343,6 +366,7 @@ __global__ void __launch_bounds__(Tail<kWG, kGelu>::kThreads, 1)
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = j * 8;
+      if (kClip && col >= c_in) continue;
       const float2 gm = __ldg(reinterpret_cast<const float2*>(gamma_p + n0 + c2 + col));
       const float2 bt = __ldg(reinterpret_cast<const float2*>(beta_p + n0 + c2 + col));
 #pragma unroll
@@ -358,25 +382,30 @@ __global__ void __launch_bounds__(Tail<kWG, kGelu>::kThreads, 1)
   }
 }
 
-template <int kWG, bool kGelu, bool kLn>
+template <int kWG, bool kGelu, bool kLn, bool kClip>
 cudaError_t launch(TailParams p, const void* h, const void* w, cudaStream_t stream) {
   using T = Tail<kWG, kGelu>;
   if (!make_map_2d(&p.h_map, h, p.F, p.M, T::kBM) || !make_map_2d(&p.w_map, w, p.F, p.C, kBN)) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = mlp_tail_kernel<kWG, kGelu, kLn>;
-  const cudaError_t err =
+  auto kernel = mlp_tail_kernel<kWG, kGelu, kLn, kClip>;
+  cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
   if (err != cudaSuccess) return err;
+  const int col_tiles = (p.C + kBN - 1) / kBN;
+  if (kLn && col_tiles > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p.M + T::kBM - 1) / T::kBM, p.C / kBN, 1);
+  cfg.gridDim = dim3((p.M + T::kBM - 1) / T::kBM, col_tiles, 1);
   cfg.blockDim = dim3(T::kThreads, 1, 1);
   cfg.dynamicSmemBytes = T::kBytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = kLn ? p.C / kBN : 1;
+  attr[0].val.clusterDim.y = kLn ? col_tiles : 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = kLn ? 1 : 0;
@@ -384,30 +413,45 @@ cudaError_t launch(TailParams p, const void* h, const void* w, cudaStream_t stre
   return launched != cudaSuccess ? launched : cudaGetLastError();
 }
 
+template <int kWG, bool kClip>
+cudaError_t dispatch_epilogue(const TailParams& p, const void* h, const void* w, bool gelu,
+                              bool ln, cudaStream_t s) {
+  if (gelu) {
+    return ln ? launch<kWG, true, true, kClip>(p, h, w, s)
+              : launch<kWG, true, false, kClip>(p, h, w, s);
+  }
+  return ln ? launch<kWG, false, true, kClip>(p, h, w, s)
+            : launch<kWG, false, false, kClip>(p, h, w, s);
+}
+
 template <int kWG>
 cudaError_t dispatch(const TailParams& p, const void* h, const void* w, bool gelu, bool ln,
                      cudaStream_t s) {
-  if (gelu) return ln ? launch<kWG, true, true>(p, h, w, s) : launch<kWG, true, false>(p, h, w, s);
-  return ln ? launch<kWG, false, true>(p, h, w, s) : launch<kWG, false, false>(p, h, w, s);
+  const bool clip = p.C % kBN != 0 || (ln && p.c_ln != p.C);
+  return clip ? dispatch_epilogue<kWG, true>(p, h, w, gelu, ln, s)
+              : dispatch_epilogue<kWG, false>(p, h, w, gelu, ln, s);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). h: bf16 (M, F); w: bf16 (C, F);
 // b: fp32 (C,); res, x: bf16 (M, C); with ln, gamma/beta fp32 (C,) and y
-// bf16 (M, C), else they may be null. All contiguous and 16-byte aligned.
-// Launches one kernel on `stream` (a cluster of C / 256 CTAs along C with
-// ln), allocates nothing, and returns the launch's error
-// (cudaErrorInvalidValue for a shape it does not take: F not a multiple of
-// 64, C not a multiple of 256, or with ln C above 2,048).
+// bf16 (M, C), else they may be null. All contiguous and 16-byte aligned;
+// F and C multiples of 8. c_ln: the LayerNorm's width, C, or fewer when
+// columns c_ln .. C - 1 are zero padding (zero W rows, b and res there).
+// Launches one kernel on `stream` (a cluster of ceil(C / 256) CTAs along C
+// with ln), allocates nothing, and returns the launch's error
+// (cudaErrorInvalidValue for a shape it does not take: F or C not a
+// positive multiple of 8, or with ln C above 4,096).
 extern "C" int vitslam_mlp_tail_bf16(const void* h, const void* w, const void* b,
                                      const void* res, const void* gamma, const void* beta,
-                                     void* x, void* y, int M, int F, int C, int gelu, int ln,
-                                     float eps, void* stream) {
-  if (M < 1 || F < kBK || F % kBK != 0 || C < kBN || C % kBN != 0) {
+                                     void* x, void* y, int M, int F, int C, int c_ln, int gelu,
+                                     int ln, float eps, void* stream) {
+  if (M < 1 || F < 8 || F % 8 != 0 || C < 8 || C % 8 != 0 || c_ln < 1 || c_ln > C) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (ln && (gamma == nullptr || beta == nullptr || y == nullptr || C / kBN > kMaxCluster)) {
+  if (ln && (gamma == nullptr || beta == nullptr || y == nullptr ||
+             (C + kBN - 1) / kBN > kMaxCluster)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   TailParams p{};
@@ -420,13 +464,14 @@ extern "C" int vitslam_mlp_tail_bf16(const void* h, const void* w, const void* b
   p.M = M;
   p.F = F;
   p.C = C;
+  p.c_ln = c_ln;
   p.eps = eps;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   // 64-row tiles while they fill at most two waves, else 128-row tiles
-  const long long tiles64 = static_cast<long long>((M + 63) / 64) * (C / kBN);
+  const long long tiles64 = static_cast<long long>((M + 63) / 64) * ((C + kBN - 1) / kBN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = tiles64 <= 2LL * sms ? dispatch<1>(p, h, w, gelu != 0, ln != 0, s)
                              : dispatch<2>(p, h, w, gelu != 0, ln != 0, s);

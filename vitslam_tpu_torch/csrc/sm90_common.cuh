@@ -13,8 +13,9 @@
 //   reduce-add, named and cluster barriers with distributed shared memory,
 //   the wgmma descriptor of a 128- or 64-byte-swizzled operand, and the
 //   wgmma shapes the kernels use:
-//     SS m64n64k16 (either operand K- or MN-major), m64n128k16 and
-//     m64n256k16 (both K-major); RS m64n64k16 and m64n32k16 (B MN-major).
+//     SS m64n64k16 and m64n32k16 (either operand K- or MN-major),
+//     m64n128k16 and m64n256k16 (both K-major); RS m64n64k16 and m64n32k16
+//     (B MN-major).
 //   An RS product keeps its A registers until the wgmma has completed: the
 //   caller waits on the group and then pins them (fence_regs).
 #pragma once
@@ -303,6 +304,24 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[8][4], uint64_t da
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 32) = or += A (64 x 16, smem) B (16 x 32, smem), each K-major or,
+// with its transpose bit, MN-major
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[4][4], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 

@@ -30,17 +30,17 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # source stem -> {C entry point: argtypes}
 ENTRY_POINTS = {
     "fused_attention": {
-        "vitslam_qk_prep_bf16": [_P] * 5 + [_LL] * 2 + [_P] * 4 + [_I] * 5 + [_F, _P],
-        "vitslam_fused_qkv_attention_bf16": [_P] * 6 + [_LL] * 2 + [_P] * 5 + [_I] * 5
+        "vitslam_qk_prep_bf16": [_P] * 5 + [_LL] * 2 + [_P] * 4 + [_I] * 6 + [_F, _P],
+        "vitslam_fused_qkv_attention_bf16": [_P] * 6 + [_LL] * 2 + [_P] * 5 + [_I] * 6
                                             + [_F, _P],
     },
     "flash_attention": {
-        "vitslam_flash_attention_bf16": [_P] * 6 + [_I] * 5 + [_LL] * 12 + [_P],
+        "vitslam_flash_attention_bf16": [_P] * 6 + [_I] * 5 + [_F] + [_LL] * 12 + [_P],
     },
     "flash_attention_bwd": {
         "vitslam_flash_attention_bwd_bf16": [_P] * 14 + [_I] * 5 + [_F] * 2 + [_LL] * 24 + [_P],
     },
-    "mlp_tail": {"vitslam_mlp_tail_bf16": [_P] * 8 + [_I] * 5 + [_F, _P]},
+    "mlp_tail": {"vitslam_mlp_tail_bf16": [_P] * 8 + [_I] * 6 + [_F, _P]},
 }
 
 _lock = threading.Lock()

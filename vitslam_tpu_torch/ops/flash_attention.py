@@ -21,16 +21,52 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 LOG2E = 1.4426950408889634  # log2(e): folded into q so the softmax is exp2
-# head dims the forward kernels take (K2, K3 and K1's core); the backward
-# (K4) takes BWD_HEAD_DIMS
+# The kernels' instances: a head dim runs in the next of KERNEL_HEAD_DIMS
+# (forward: K1's core, K2, K3) or BWD_HEAD_DIMS (K4), with TMA zero-filling
+# the columns past it in shared memory. The tensor maps need 16-byte rows,
+# so a head dim that is not a multiple of HEAD_DIM_MULTIPLE goes through a
+# zero-padded copy (``pad_head_dim``); above KERNEL_MAX_HEAD_DIM the
+# wrappers raise.
 KERNEL_HEAD_DIMS = (32, 64, 128)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (32, 64, 128)
+KERNEL_MAX_HEAD_DIM = 128
+HEAD_DIM_MULTIPLE = 8
 # the plain versions compute their fp32 logits this many elements at a time
 # (a block of query rows against all keys), so the 30,900-token global
 # attention of the large-chunk slice fits the card
 PLAIN_MAX_LOGITS = 1 << 28
+
+
+def check_head_dim(dh: int, kernel: str) -> None:
+    """Raise ValueError naming ``dh`` when it is outside the kernels' range,
+    1 .. KERNEL_MAX_HEAD_DIM."""
+    if not 1 <= dh <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"{kernel} kernel: head dim {dh} is outside 1..{KERNEL_MAX_HEAD_DIM}")
+
+
+def kernel_head_dim(dh: int, instances=KERNEL_HEAD_DIMS) -> int:
+    """The instance a head dim runs in: the smallest of ``instances`` not
+    below it."""
+    check_head_dim(dh, "attention")
+    return next(d for d in instances if d >= dh)
+
+
+def padded_head_dim(dh: int) -> int:
+    """dh rounded up to a multiple of HEAD_DIM_MULTIPLE: the head dim the
+    kernels are handed (a zero-padded copy when it differs from dh)."""
+    return -(-dh // HEAD_DIM_MULTIPLE) * HEAD_DIM_MULTIPLE
+
+
+def pad_head_dim(t: torch.Tensor, dh: int) -> torch.Tensor:
+    """t (..., dh) zero-padded to (..., padded_head_dim(dh)); t itself when
+    dh is a multiple of 8. Zero columns leave q k^T and rowsum(dO * O)
+    unchanged and give zero output and gradient columns, which the wrappers
+    slice off (the reference pads D the same way, ``_flash_forward``)."""
+    ds = padded_head_dim(dh)
+    return t if ds == dh else F.pad(t, (0, ds - dh))
 
 
 def q_fold(dh: int) -> float:
@@ -113,32 +149,40 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, scale: float | None 
 TMA_BOX_ROWS = 128  # tokens per box: the kernels' Q and K/V tiles
 
 
-def tma_box_cols(dh: int) -> int:
-    """Head-dim columns per TMA box (``Smem<kD>::kCols`` in
-    ``csrc/attention_fwd_sm90.cuh``): 64, one 128-byte row of the 128-byte
-    swizzle (D 128 is two boxes), or at D 32 the whole 32, one 64-byte row
-    of the 64-byte swizzle."""
-    return min(dh, 64)
+def tma_box_cols(dh: int, instances=KERNEL_HEAD_DIMS) -> int:
+    """Head-dim columns per TMA box of the instance dh runs in
+    (``Smem<kD>::kCols`` in ``csrc/attention_fwd_sm90.cuh``, K4's
+    ``Bwd<kD>::kCols`` with ``instances=BWD_HEAD_DIMS``): 64, one 128-byte
+    row of the 128-byte swizzle (the 128 instance is two boxes), or in the
+    32 instance the whole 32, one 64-byte row of the 64-byte swizzle. A
+    head dim below the box width is zero-filled past it."""
+    return min(kernel_head_dim(dh, instances), 64)
 
 
-def tma_swizzle(dh: int) -> int:
-    """The swizzle of the maps in bytes: one box row, 128 or 64 at D 32."""
-    return 2 * tma_box_cols(dh)
+def tma_swizzle(dh: int, instances=KERNEL_HEAD_DIMS) -> int:
+    """The swizzle of the maps in bytes: one box row, 128 or 64 in the 32
+    instance."""
+    return 2 * tma_box_cols(dh, instances)
 
 
-def tma_geometry(t: torch.Tensor, box_rows: int = TMA_BOX_ROWS) -> dict:
+def tma_geometry(t: torch.Tensor, box_rows: int = TMA_BOX_ROWS,
+                 instances=KERNEL_HEAD_DIMS) -> dict:
     """The tensor map the attention kernels encode for a (B, H, N, D) bf16
     view (``csrc/sm90_common.cuh::make_map``): dims (D, N, H, B) innermost
-    first, byte strides of the token, head and batch dims (an extent-1 head
-    or batch dim takes the token stride, since it is never stepped), boxes
-    of ``tma_box_cols(D)`` columns by ``box_rows`` rows (128; K4's query
-    tiles ``bwd_query_tile(D)``), a ``tma_swizzle(D)``-byte swizzle, zero
-    fill out of bounds. Raises ValueError on what TMA does not take: a head
-    dim other than 32, 64 or 128, a strided head dim, byte strides or a
-    base address not 16-byte aligned, strides of 2^40 bytes or more."""
-    if t.dim() != 4 or t.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"TMA view must be (B, H, N, D) with D in {KERNEL_HEAD_DIMS}, "
-                         f"got {tuple(t.shape)}")
+    first (D the view's own head dim, which TMA zero-fills up to the
+    instance's), byte strides of the token, head and batch dims (an
+    extent-1 head or batch dim takes the token stride, since it is never
+    stepped), boxes of ``tma_box_cols(D, instances)`` columns by
+    ``box_rows`` rows (128; K4's query tiles ``bwd_query_tile(D)``), a
+    ``tma_swizzle(D, instances)``-byte swizzle, zero fill out of bounds.
+    Raises ValueError on what TMA does not take: a head dim that is not a
+    multiple of 8 up to 128 (the wrappers pad other head dims first), a
+    strided head dim, byte strides or a base address not 16-byte aligned,
+    strides of 2^40 bytes or more."""
+    if (t.dim() != 4 or t.shape[-1] % HEAD_DIM_MULTIPLE
+            or not 1 <= t.shape[-1] <= KERNEL_MAX_HEAD_DIM):
+        raise ValueError(f"TMA view must be (B, H, N, D) with D a multiple of "
+                         f"{HEAD_DIM_MULTIPLE} up to {KERNEL_MAX_HEAD_DIM}, got {tuple(t.shape)}")
     B, H, N, D = t.shape
     sb, sh, sn, sd = t.stride()
     es = t.element_size()
@@ -151,8 +195,9 @@ def tma_geometry(t: torch.Tensor, box_rows: int = TMA_BOX_ROWS) -> dict:
                          f"got {strides} (element strides {t.stride()})")
     if t.data_ptr() % 16:
         raise ValueError(f"TMA base address must be 16-byte aligned, got {t.data_ptr():#x}")
-    return dict(dims=(D, N, H, B), strides=strides, box=(tma_box_cols(D), box_rows, 1, 1),
-                swizzle=tma_swizzle(D))
+    return dict(dims=(D, N, H, B), strides=strides,
+                box=(tma_box_cols(D, instances), box_rows, 1, 1),
+                swizzle=tma_swizzle(D, instances))
 
 
 # K4 (csrc/flash_attention_bwd.cu): a CTA owns 128 keys and streams tiles of
@@ -162,10 +207,11 @@ BWD_ROW_PAD = 128
 
 
 def bwd_query_tile(dh: int) -> int:
-    """Queries per tile of K4's main kernel: 64 at D 128, 128 at D 64 (the
-    two consumer warpgroups' S and dP fragments then take 32 or 64
-    registers each beside the dk and dv accumulators)."""
-    return 64 if dh == 128 else 128
+    """Queries per tile of K4's main kernel: 64 in the 128 instance (D 72
+    to 128), 128 in the 32 and 64 instances (the two consumer warpgroups'
+    S and dP fragments then take 32 or 64 registers each beside the dk and
+    dv accumulators)."""
+    return 64 if kernel_head_dim(dh, BWD_HEAD_DIMS) == 128 else 128
 
 
 def bwd_padded_rows(nq: int) -> int:
@@ -174,8 +220,8 @@ def bwd_padded_rows(nq: int) -> int:
 
 def _check_kernel_operands(kernel: str, ref: torch.Tensor, **tensors) -> None:
     """Raise on what the kernels do not take: bf16 (B, H, N, D) tensors on
-    ref's device with D in KERNEL_HEAD_DIMS, a contiguous head dim and
-    16-byte aligned rows and base (the TMA maps' and the 16-byte loads'
+    ref's device with D a multiple of 8 up to 128, a contiguous head dim
+    and 16-byte aligned rows and base (the TMA maps' and the 16-byte loads'
     rule, ``tma_geometry``)."""
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != ref.device:
@@ -192,10 +238,12 @@ def _strides(*tensors) -> list[int]:
     return [s for t in tensors for s in t.stride()[:3]]
 
 
-def launch_streaming(q, k, v, out, static_max, lse=None) -> None:
+def launch_streaming(q, k, v, out, static_max, lse=None, fold_dh=None) -> None:
     """Launch ``csrc/flash_attention.cu`` on (B, H, N, D) bf16 views q, k, v
-    and out, D 32, 64 or 128, addressed through their strides; the kernel folds
-    ``q_fold(D)`` into q itself. ``static_max`` is a device scalar from
+    and out, D a multiple of 8 up to 128, addressed through their strides;
+    the kernel folds ``q_fold(fold_dh)`` into q itself (``fold_dh``: the
+    true head dim of a zero-padded D, default D). ``static_max`` is a
+    device scalar from
     ``static_max_operand`` (the natural-log bound) or None for an online
     row max; ``lse``, if given, an fp32 (B, H, Nq) contiguous buffer for the
     log2-domain row logsumexp. Raises on what the kernel does not take."""
@@ -216,7 +264,7 @@ def launch_streaming(q, k, v, out, static_max, lse=None) -> None:
         err = library("flash_attention").vitslam_flash_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if static_max is None else static_max.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, H, nq, nk, dh,
+            None if lse is None else lse.data_ptr(), B, H, nq, nk, dh, q_fold(fold_dh or dh),
             *_strides(q, k, v, out), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
@@ -225,21 +273,25 @@ def launch_streaming(q, k, v, out, static_max, lse=None) -> None:
 def _forward_kernel(q, k, v, static_max, lse):
     """The CUDA forward on q as it comes (the kernel folds scale * log2(e)
     into it); the output is a (B, H, Nq, D) view of a (B, Nq, H, D) buffer,
-    so the caller's merge of the heads back to (B, Nq, H*D) is free."""
+    so the caller's merge of the heads back to (B, Nq, H*D) is free. A head
+    dim that is not a multiple of 8 runs on zero-padded copies, and the
+    output is the view of its first D columns."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     B, H, nq, dh = q.shape
-    out = torch.empty((B, nq, H, dh), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    check_head_dim(dh, "flash attention")
+    ds = padded_head_dim(dh)
+    out = torch.empty((B, nq, H, ds), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
     smax = None if static_max is None else static_max_operand(static_max, q.device)
-    launch_streaming(q, k, v, out, smax, lse)
-    return out
+    launch_streaming(*(pad_head_dim(t, dh) for t in (q, k, v)), out, smax, lse, fold_dh=dh)
+    return out if ds == dh else out[..., :dh]
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         static_max=None):
     """K3 with its lse output: (out (B, H, Nq, D), lse (B, H, Nq) fp32, log2
     domain), the residuals of the backward. CPU tensor: the plain version;
-    CUDA tensor: the kernel (bf16, D 32, 64 or 128), or an error. No autograd of
+    CUDA tensor: the kernel (bf16, D up to 128), or an error. No autograd of
     its own. ``flash_attention_lse.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, with_lse=True)
@@ -253,15 +305,18 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_lse.launches = 0
 
 
-def flash_attention_backward(q, k, v, out, lse, dout):
+def flash_attention_backward(q, k, v, out, lse, dout, *, fold_dh=None):
     """K4: (dq, dk, dv) of flash attention from the forward's inputs, output
     and lse and the output's gradient, in q's, k's and v's dtypes. CPU
     tensor: ``flash_attention_backward_plain``; CUDA tensor: the three
-    kernels of ``csrc/flash_attention_bwd.cu`` (bf16, D in BWD_HEAD_DIMS: 64
-    or 128), or an error naming the head dim. The prep kernel folds
+    kernels of ``csrc/flash_attention_bwd.cu`` (bf16, D up to 128 in the
+    next of its 32, 64 and 128 instances; a D that is not a multiple of 8
+    on zero-padded copies, dq, dk and dv sliced back), or an error naming
+    the head dim. The prep kernel folds
     ``q_fold(D)`` into q and rounds to bf16 exactly as the forward kernel
-    does, so the rebuilt P is the forward's. The key blocks add into dq in their order, so dq, dk and dv
-    are bit-reproducible from run to run.
+    does, so the rebuilt P is the forward's (``fold_dh``: the true head dim
+    of zero-padded operands). The key blocks add into dq in their order, so
+    dq, dk and dv are bit-reproducible from run to run.
     ``flash_attention_backward.launches`` counts calls (three kernel
     launches each)."""
     if q.device.type == "cpu":
@@ -276,9 +331,14 @@ def flash_attention_backward(q, k, v, out, lse, dout):
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         lse = lse.float().contiguous()
     B, H, nq, dh = q.shape
-    if dh not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash attention backward kernel: head dim {dh} is not one of "
-                         f"{BWD_HEAD_DIMS}")
+    check_head_dim(dh, "flash attention backward")
+    ds = padded_head_dim(dh)
+    if ds != dh:  # zero columns: the same dq, dk, dv in the first dh columns
+        grads = flash_attention_backward(*(pad_head_dim(t, dh) for t in (q, k, v, out)), lse,
+                                         pad_head_dim(dout, dh), fold_dh=dh)
+        return tuple(g[..., :dh] for g in grads)
+    kd = kernel_head_dim(dh, BWD_HEAD_DIMS)
+    fold_dh = fold_dh or dh
     nk = k.shape[2]
     dev = q.device
     dq = torch.empty((B, nq, H, dh), dtype=torch.bfloat16, device=dev).transpose(1, 2)
@@ -292,19 +352,20 @@ def flash_attention_backward(q, k, v, out, lse, dout):
         raise ValueError(f"flash attention backward kernel: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} out {tuple(out.shape)} dout "
                          f"{tuple(dout.shape)} lse {tuple(lse.shape)}")
-    # scratch: the folded q, the padded lse and Dvec, the fp32 dq accumulator
-    # and its 64 x 64 tiles' counters
+    # scratch at the instance's head dim kd: the folded q (zeros past dh),
+    # the padded lse and Dvec, the fp32 dq accumulator and the counters of
+    # its tiles (64 queries by one box of min(kd, 64) columns)
     nq_pad = bwd_padded_rows(nq)
-    qs = torch.empty((B, H, nq, dh), dtype=torch.bfloat16, device=dev)
+    qs = torch.empty((B, H, nq, kd), dtype=torch.bfloat16, device=dev)
     rows = torch.empty((2, B, H, nq_pad), dtype=torch.float32, device=dev)
-    acc = torch.empty((B, H, nq_pad, dh), dtype=torch.float32, device=dev)
-    locks = torch.empty((B, H, nq_pad // 64, dh // 64), dtype=torch.int32, device=dev)
+    acc = torch.empty((B, H, nq_pad, kd), dtype=torch.float32, device=dev)
+    locks = torch.empty((B, H, nq_pad // 64, max(1, kd // 64)), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = library("flash_attention_bwd").vitslam_flash_attention_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), qs.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
             acc.data_ptr(), locks.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, nq, nk, dh,
-            q_fold(dh), 1.0 / math.sqrt(dh), *_strides(q, k, v, out, dout, dq, dk, dv),
+            q_fold(fold_dh), 1.0 / math.sqrt(fold_dh), *_strides(q, k, v, out, dout, dq, dk, dv),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: CUDA error {err}")
@@ -353,8 +414,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, H, Nq, D), and with ``with_lse`` also the (B, H, Nq) fp32 log2
     lse.
 
-    CPU tensor: the plain version. CUDA tensor: the kernel (bf16, D 32, 64
-    or 128), or an error; its output is a (B, H, Nq, D) view of a (B, Nq, H, D)
+    CPU tensor: the plain version. CUDA tensor: the kernel (bf16, D up to
+    128), or an error; its output is a (B, H, Nq, D) view of a (B, Nq, H, D)
     buffer. Differentiable in q, k and v: when one requires grad the
     forward runs with lse (``flash_attention_lse``) and the backward is K4
     (``flash_attention_backward``). ``flash_attention.launches`` counts the

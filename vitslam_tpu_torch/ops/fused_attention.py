@@ -17,6 +17,10 @@ already LayerNormed and rotated in the flat (B, N, C) layout, for more than
 4096 keys; on CUDA it launches ``csrc/flash_attention.cu`` on strided views
 of the flat tensors (no head relayout, the scale folded in the kernel), on
 the CPU it runs ``flat_flash_attention_plain``.
+
+Both take any head dim up to 128 on the card; one that is not a multiple
+of 8 runs on a copy with each head zero-padded to the next multiple of 8
+(``flash_attention.pad_head_dim``), the output sliced back.
 """
 from __future__ import annotations
 
@@ -27,14 +31,16 @@ import torch
 from .flash_attention import (
     LOG2E,
     _needs_grad,
+    check_head_dim,
     flash_attention_plain,
     launch_streaming,
+    pad_head_dim,
+    padded_head_dim,
     q_fold,
     static_max_operand,
 )
 
 LN_EPS = 1e-6
-KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_MAX_TOKENS = 4096
 
 
@@ -42,6 +48,24 @@ def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B, N, C) -> a (B, H, N, C // H) view."""
     B, N, C = x.shape
     return x.reshape(B, N, num_heads, C // num_heads).transpose(1, 2)
+
+
+def _pad_heads(x: torch.Tensor, num_heads: int, parts: int = 1) -> torch.Tensor:
+    """(B, N, parts * H * dh) with each head zero-padded to
+    ``padded_head_dim(dh)`` columns: x itself when dh is a multiple of 8."""
+    B, N, W = x.shape
+    dh = W // parts // num_heads
+    if padded_head_dim(dh) == dh:
+        return x
+    return pad_head_dim(x.reshape(B, N, parts, num_heads, dh), dh).reshape(B, N, -1)
+
+
+def _unpad_heads(x: torch.Tensor, num_heads: int, dh: int) -> torch.Tensor:
+    """The inverse of ``_pad_heads`` (parts=1): (B, N, H * ds) -> (B, N, H * dh)."""
+    B, N, W = x.shape
+    if W == num_heads * dh:
+        return x
+    return x.reshape(B, N, num_heads, W // num_heads)[..., :dh].reshape(B, N, num_heads * dh)
 
 
 def qk_prep_plain(qkv, *, num_heads, cos=None, sin=None, q_ln=None, k_ln=None,
@@ -144,10 +168,9 @@ def _prep_operands(qkv, num_heads, cos, sin, q_ln, k_ln, nsplit):
         raise TypeError(f"the K1 kernels take bf16 qkv, got {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("the K1 kernels take a contiguous, 16-byte aligned qkv")
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the K1 kernels support head dim {KERNEL_HEAD_DIMS}, got {dh}")
-    if nsplit not in (1, 2):
-        raise ValueError(f"RoPE nsplit must be 1 or 2, got {nsplit}")
+    check_head_dim(dh, "K1")
+    if nsplit not in (1, 2) or (cos is not None and dh % nsplit):
+        raise ValueError(f"RoPE nsplit must be 1 or 2 and divide head dim {dh}, got {nsplit}")
     if (cos is None) != (sin is None) or (q_ln is None) != (k_ln is None):
         raise ValueError("cos/sin and q_ln/k_ln come in pairs")
     dev = qkv.device
@@ -171,9 +194,10 @@ def qk_prep(qkv: torch.Tensor, *, num_heads: int, cos=None, sin=None, q_ln=None,
             nsplit: int = 2, fold: float = 1.0):
     """K1's prep alone: (q^, k^) as ``qk_prep_plain`` computes them. CPU
     tensor: the plain version. CUDA tensor: the prep kernel of
-    ``csrc/fused_attention.cu`` (bf16 qkv, contiguous, head dim 32 or 64), or an
+    ``csrc/fused_attention.cu`` (bf16 qkv, contiguous, head dim up to 128), or an
     error; q^ and k^ are fresh (B, N, C) bf16 buffers (k^ is the k slice of
-    qkv without LayerNorm and RoPE). fp32 LayerNorm params and fp32 RoPE
+    qkv without LayerNorm and RoPE; a head dim that is not a multiple of 8
+    runs on a zero-padded copy of qkv). fp32 LayerNorm params and fp32 RoPE
     tables with a contiguous last dim are read in place; other dtypes or
     layouts are converted first. ``qk_prep.launches`` counts its launches,
     here and inside ``fused_qkv_attention``."""
@@ -185,17 +209,21 @@ def qk_prep(qkv: torch.Tensor, *, num_heads: int, cos=None, sin=None, q_ln=None,
     args, _keep, prepped = _prep_operands(qkv, num_heads, cos, sin, q_ln, k_ln, nsplit)
     B, N, C3 = qkv.shape
     C = C3 // 3
-    q_hat = torch.empty((B, N, C), dtype=torch.bfloat16, device=qkv.device)
-    k_hat = torch.empty_like(q_hat) if prepped else qkv[..., C:2 * C]
+    dh = C // num_heads
+    qkv_s = _pad_heads(qkv, num_heads, 3)
+    Cs = qkv_s.shape[-1] // 3
+    q_hat = torch.empty((B, N, Cs), dtype=torch.bfloat16, device=qkv.device)
+    k_hat = torch.empty_like(q_hat) if prepped else None
     with torch.cuda.device(qkv.device):
         err = library("fused_attention").vitslam_qk_prep_bf16(
-            qkv.data_ptr(), q_hat.data_ptr(), k_hat.data_ptr() if prepped else None, *args,
-            B, N, num_heads, C // num_heads, nsplit, float(fold),
+            qkv_s.data_ptr(), q_hat.data_ptr(), k_hat.data_ptr() if prepped else None, *args,
+            B, N, num_heads, dh, Cs // num_heads, nsplit, float(fold),
             torch.cuda.current_stream(qkv.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"qk_prep kernel launch failed: CUDA error {err}")
     qk_prep.launches += 1
-    return q_hat, k_hat
+    k_hat = _unpad_heads(k_hat, num_heads, dh) if prepped else qkv[..., C:2 * C]
+    return _unpad_heads(q_hat, num_heads, dh), k_hat
 
 
 qk_prep.launches = 0
@@ -235,7 +263,8 @@ def _launch(qkv, *, num_heads, cos, sin, q_ln=None, k_ln=None, scale, static_max
     place at row stride 3C); without LayerNorm and RoPE only the attention
     kernel, on the q, k and v slices of qkv, folding the scale itself. The
     layouts are fixed by construction (qkv is checked contiguous and
-    aligned, the scratch is fresh)."""
+    aligned, the scratch is fresh). A head dim that is not a multiple of 8
+    runs on a copy of qkv with zero-padded heads, the output sliced back."""
     from .cuda_build import library
 
     B, N, C3 = qkv.shape
@@ -244,22 +273,25 @@ def _launch(qkv, *, num_heads, cos, sin, q_ln=None, k_ln=None, scale, static_max
                          f"tokens, got {N}")
     args, _keep, prepped = _prep_operands(qkv, num_heads, cos, sin, q_ln, k_ln, nsplit)
     C = C3 // 3
+    dh = C // num_heads
     dev = qkv.device
-    out = torch.empty((B, N, C), dtype=torch.bfloat16, device=dev)
+    qkv_s = _pad_heads(qkv, num_heads, 3)
+    Cs = qkv_s.shape[-1] // 3
+    out = torch.empty((B, N, Cs), dtype=torch.bfloat16, device=dev)
     q_hat = torch.empty_like(out) if prepped else None
     k_hat = torch.empty_like(out) if prepped else None
     smax = None if static_max is None else static_max_operand(static_max, dev)
     with torch.cuda.device(dev):
         err = library("fused_attention").vitslam_fused_qkv_attention_bf16(
-            qkv.data_ptr(), *(None if t is None else t.data_ptr() for t in (q_hat, k_hat)),
+            qkv_s.data_ptr(), *(None if t is None else t.data_ptr() for t in (q_hat, k_hat)),
             out.data_ptr(), *args, None if smax is None else smax.data_ptr(),
-            B, N, num_heads, C // num_heads, nsplit, float(scale * LOG2E),
+            B, N, num_heads, dh, Cs // num_heads, nsplit, float(scale * LOG2E),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_qkv_attention kernel launch failed: CUDA error {err}")
     qk_prep.launches += prepped
     fused_qkv_attention.launches += 1
-    return out
+    return _unpad_heads(out, num_heads, dh)
 
 
 def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, cos=None, sin=None,
@@ -274,7 +306,7 @@ def fused_qkv_attention(qkv: torch.Tensor, *, num_heads: int, cos=None, sin=None
 
     CPU tensor: the plain version. CUDA tensor: the prep kernel and the
     attention kernel (only the latter without LayerNorm and RoPE; bf16, dh
-    32 or 64, N <= 4096, contiguous), or an error;
+    up to 128, N <= 4096, contiguous), or an error;
     nothing else is launched when the inputs are in the kernels' types (fp32
     LayerNorm params and RoPE tables, a device-scalar ``static_max``; see
     ``qk_prep`` for what is converted). Differentiable in qkv and the
@@ -321,7 +353,7 @@ def flat_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel, in shared memory, as the reference does). Returns (B, Nq, C).
 
     CPU tensor: the plain version. CUDA tensor: the kernel (bf16 k/v, head
-    dim 32, 64 or 128, rows 16-byte aligned; v may be a strided slice of the qkv
+    dim up to 128, rows 16-byte aligned; v may be a strided slice of the qkv
     projection), or an error; differentiable in q, k and v, with the
     backward recomputed through the plain version.
     ``flat_flash_attention.launches`` counts kernel launches."""
@@ -342,11 +374,15 @@ flat_flash_attention.launches = 0
 
 def _launch_flat(q, k, v, static_max, num_heads):
     B, nq, C = q.shape
-    out = torch.empty((B, nq, C), dtype=torch.bfloat16, device=q.device)
+    dh = C // num_heads
+    check_head_dim(dh, "flat flash attention")
+    q, k, v = (_pad_heads(t, num_heads) for t in (q, k, v))
+    out = torch.empty((B, nq, q.shape[-1]), dtype=torch.bfloat16, device=q.device)
     launch_streaming(_heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads),
-                     _heads(out, num_heads), static_max_operand(static_max, q.device))
+                     _heads(out, num_heads), static_max_operand(static_max, q.device),
+                     fold_dh=dh)
     flat_flash_attention.launches += 1
-    return out
+    return _unpad_heads(out, num_heads, dh)
 
 
 class _FlatFlash(torch.autograd.Function):

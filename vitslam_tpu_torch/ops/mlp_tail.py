@@ -13,6 +13,15 @@ use it (``nn.layers.dense_tail``):
 
 LayerScale is folded into W and b by the caller. W is the port's (C, F)
 torch weight (the reference takes (F, C)).
+
+The kernel takes any F and C that are multiples of 8 (C up to 4,096 with
+the LayerNorm); the wrapper zero-pads other widths (zero h columns and W
+columns along F; zero W rows, b, res, gamma and beta along C, the outputs
+sliced back, the LayerNorm told the true width). Unlike the reference's
+Pallas kernel, which sums only the first F // 1024 blocks of 1,024 when F
+is above 1,024 and not a multiple of it (F 1,536: a third of the
+reduction dropped), it sums all of F: the port computes
+``mlp_tail_reference``'s function, not that fault.
 """
 from __future__ import annotations
 
@@ -22,37 +31,45 @@ import torch.nn.functional as F
 from .flash_attention import _needs_grad
 
 LN_EPS = 1e-6
-KERNEL_K_TILE = 64      # F must be a multiple of it
-KERNEL_N_TILE = 256     # C must be a multiple of it: one CTA's output columns
-KERNEL_MAX_CLUSTER = 8  # with the LayerNorm a cluster of C / 256 CTAs spans C
+KERNEL_K_TILE = 64       # F per K slice; the last slice is zero-filled past F
+KERNEL_N_TILE = 256      # one CTA's output columns; the last tile is clipped at C
+KERNEL_MAX_CLUSTER = 16  # with the LayerNorm a cluster of ceil(C / 256) CTAs spans C
 KERNEL_MAX_SMEM = 232448
+WIDTH_MULTIPLE = 8       # the TMA maps' 16-byte rows: other F and C are zero-padded
+
+
+def padded_width(n: int) -> int:
+    """n rounded up to a multiple of WIDTH_MULTIPLE: the width the kernel
+    is handed (zero-padded by the wrapper when it differs)."""
+    return -(-n // WIDTH_MULTIPLE) * WIDTH_MULTIPLE
 
 
 def check_k5_shape(M: int, F: int, C: int, ln: bool) -> None:
-    """Raise ValueError on a shape ``csrc/mlp_tail.cu`` does not take: no
-    rows, F not a multiple of 64, C not a multiple of 256, or with the
-    LayerNorm a cluster along C wider than 8 CTAs."""
-    if M < 1:
-        raise ValueError("mlp_tail kernel takes at least one row")
-    if F < KERNEL_K_TILE or F % KERNEL_K_TILE or C < KERNEL_N_TILE or C % KERNEL_N_TILE:
-        raise ValueError(f"mlp_tail kernel takes F a multiple of {KERNEL_K_TILE} and C a "
-                         f"multiple of {KERNEL_N_TILE}, got F {F}, C {C}")
-    if ln and C // KERNEL_N_TILE > KERNEL_MAX_CLUSTER:
+    """Raise ValueError on a shape ``mlp_tail`` does not take on the card,
+    naming it: no rows, an empty F or C, or with the LayerNorm C above
+    4,096 (a cluster along C of more than 16 CTAs)."""
+    if M < 1 or F < 1 or C < 1:
+        raise ValueError(f"mlp_tail kernel takes at least one row, F and C, got M {M}, F {F}, "
+                         f"C {C}")
+    if ln and -(-padded_width(C) // KERNEL_N_TILE) > KERNEL_MAX_CLUSTER:
         raise ValueError(f"mlp_tail kernel's LayerNorm takes C <= "
-                         f"{KERNEL_MAX_CLUSTER * KERNEL_N_TILE}, got {C}")
+                         f"{KERNEL_MAX_CLUSTER * KERNEL_N_TILE}, got C {C}")
 
 
 def k5_schedule(M: int, F: int, C: int, gelu: bool, ln: bool, sms: int) -> dict:
     """The launch ``csrc/mlp_tail.cu`` makes for an (M, F) x (F, C) tail on
     a card of ``sms`` SMs (the kernel reads the count from the card; the
-    H100 has 132): 64 x 256 output tiles (one consumer warpgroup) while
-    they need at most two waves, else 128 x 256 (two); one producer
-    warpgroup, and with the gelu and one consumer warpgroup a gelu
-    warpgroup; a ring of 5 or 4 stages of 64-wide K slices; with the
-    LayerNorm a cluster of C / 256 CTAs along C. Raises ValueError on a
-    shape the kernel does not take (``check_k5_shape``)."""
+    H100 has 132) at F and C padded to multiples of 8 (``padded``): 64 x
+    256 output tiles (one consumer warpgroup) while they need at most two
+    waves, else 128 x 256 (two), the last column tile clipped at C; one
+    producer warpgroup, and with the gelu and one consumer warpgroup a gelu
+    warpgroup; a ring of 5 or 4 stages of 64-wide K slices (``k_slices``,
+    the last zero-filled past F); with the LayerNorm a cluster of
+    ceil(C / 256) CTAs along C (non-portable above 8). Raises ValueError on
+    a shape the wrapper does not take (``check_k5_shape``)."""
     check_k5_shape(M, F, C, ln)
-    col_tiles = C // KERNEL_N_TILE
+    Fs, Cs = padded_width(F), padded_width(C)
+    col_tiles = -(-Cs // KERNEL_N_TILE)
     warpgroups = 1 if -(-M // 64) * col_tiles <= 2 * sms else 2
     tile_m = 64 * warpgroups
     stages = 5 if warpgroups == 1 else 4
@@ -62,7 +79,8 @@ def k5_schedule(M: int, F: int, C: int, gelu: bool, ln: bool, sms: int) -> dict:
     gelu_warpgroup = int(gelu and warpgroups == 1)
     return dict(tile=(tile_m, KERNEL_N_TILE), grid=(-(-M // tile_m), col_tiles), ctas=ctas,
                 threads=128 * (warpgroups + 1 + gelu_warpgroup), stages=stages,
-                smem_bytes=smem, cluster=col_tiles if ln else 1, waves=-(-ctas // sms))
+                smem_bytes=smem, cluster=col_tiles if ln else 1, waves=-(-ctas // sms),
+                padded=(Fs, Cs), k_slices=-(-Fs // KERNEL_K_TILE))
 
 
 def mlp_tail_plain(h, w2, b2, res, gamma=None, beta=None, *, eps: float = LN_EPS,
@@ -101,22 +119,33 @@ def _launch(h, w2, b2, res, gamma, beta, eps, gelu, ln):
             raise ValueError(f"mlp_tail kernel takes a contiguous, 16-byte aligned {name}")
     check_k5_shape(M, Fd, C, ln)
     dev = h.device
-    vec = lambda t: t.detach().to(device=dev, dtype=torch.float32).reshape(C).contiguous()  # noqa: E731
+    Fs, Cs = padded_width(Fd), padded_width(C)
+    if Fs != Fd:  # zero h and W columns add nothing (gelu(0) = 0)
+        h, w2 = F.pad(h, (0, Fs - Fd)), F.pad(w2, (0, Fs - Fd))
+    if Cs != C:  # zero W rows, b and res: x' is 0 there, outside the LayerNorm's C
+        w2, res = F.pad(w2, (0, 0, 0, Cs - C)), F.pad(res, (0, Cs - C))
+
+    def vec(t):
+        t = t.detach().to(device=dev, dtype=torch.float32).reshape(C)
+        return (F.pad(t, (0, Cs - C)) if Cs != C else t).contiguous()
+
     b = vec(b2)
-    x = torch.empty((M, C), dtype=torch.bfloat16, device=dev)
+    x = torch.empty((M, Cs), dtype=torch.bfloat16, device=dev)
     g = bt = y = None
     if ln:
         g, bt = vec(gamma), vec(beta)
-        y = torch.empty((M, C), dtype=torch.bfloat16, device=dev)
+        y = torch.empty((M, Cs), dtype=torch.bfloat16, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         err = library("mlp_tail").vitslam_mlp_tail_bf16(
             h.data_ptr(), w2.data_ptr(), b.data_ptr(), res.data_ptr(), ptr(g), ptr(bt),
-            x.data_ptr(), ptr(y), M, Fd, C, int(gelu), int(ln), float(eps),
+            x.data_ptr(), ptr(y), M, Fs, Cs, C, int(gelu), int(ln), float(eps),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mlp_tail kernel launch failed: CUDA error {err}")
     mlp_tail.launches += 1
+    if Cs != C:
+        x, y = x[:, :C], None if y is None else y[:, :C]
     return (x, y) if ln else x
 
 
@@ -154,8 +183,9 @@ def mlp_tail(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, res: torch.Ten
     with ``ln``, else x'.
 
     CPU tensor: the plain version. CUDA tensor: the kernel (bf16 h, w2 and
-    res, contiguous; F a multiple of 64, C of 256, C <= 2048 with ``ln``),
-    or an error; differentiable in every tensor argument, with the backward
+    res, contiguous; any F and C, C <= 4096 with ``ln``; widths that are not
+    multiples of 8 on zero-padded copies), or an error; differentiable in
+    every tensor argument, with the backward
     recomputed through the plain version. ``mlp_tail.launches`` counts
     kernel launches."""
     if ln and (gamma is None or beta is None):

@@ -9,7 +9,10 @@ XLA compiles a division by a constant into that product, so this is what
 the reference computes as it runs (under jit); it is also what torch
 computes for ``/ 127`` on the card but not on the CPU, so the port writes
 the product on both and gives the same integers on both. The int8
-product accumulates in int32 (``torch._int_mm``: cuBLASLt on the card) and
+product accumulates in int32 (``torch._int_mm``: cuBLASLt on the card; a
+shape it refuses there, fewer than 17 rows or K or N not a multiple of 8,
+is zero-padded up to one it takes and the product sliced back, which is
+exact in int32) and
 is rescaled in fp32 as (y * x_scale) * w_scale, then the fp32 bias is added
 and the result cast to the compute dtype. The model switches it on for the
 backbone's blocks (``nn.layers.set_int8``); the default path stays bf16.
@@ -54,17 +57,44 @@ def quantize_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def check_int_mm_shape(M: int, K: int, N: int) -> None:
     """Raise ValueError on an (M, K) x (K, N) product ``torch._int_mm``
-    does not take on the card."""
+    does not take on the card (``int_mm`` pads such a product first)."""
     if M < CUDA_MIN_ROWS or K % CUDA_MULTIPLE or N % CUDA_MULTIPLE:
         raise ValueError(f"int8 projection on the card takes more than {CUDA_MIN_ROWS - 1} "
                          f"rows and K, N multiples of {CUDA_MULTIPLE}, got M {M}, K {K}, N {N}")
 
 
+def int_mm_padding(M: int, K: int, N: int) -> tuple[int, int, int]:
+    """The (M, K, N) that ``int_mm`` hands ``torch._int_mm`` on the card:
+    at least 17 rows, K and N rounded up to multiples of 8."""
+    up = lambda n: -(-n // CUDA_MULTIPLE) * CUDA_MULTIPLE  # noqa: E731
+    return max(M, CUDA_MIN_ROWS), up(K), up(N)
+
+
 def int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 x (K, N) int8 -> (M, N) int32, exact."""
+    """(M, K) int8 x (K, N) int8 -> (M, N) int32, exact. On the card a
+    shape ``torch._int_mm`` refuses runs zero-padded to
+    ``int_mm_padding``'s and is sliced back: zero rows and columns add 0 to
+    every int32 sum, so the result is the unpadded product bit for bit."""
+    M, K = xq.shape
+    N = wq.shape[1]
     if xq.is_cuda:
-        check_int_mm_shape(xq.shape[0], xq.shape[1], wq.shape[1])
+        padded = int_mm_padding(M, K, N)
+        if padded != (M, K, N):
+            return int_mm_padded(xq, wq, *padded)
     return torch._int_mm(xq, wq)
+
+
+def int_mm_padded(xq: torch.Tensor, wq: torch.Tensor, Mp: int, Kp: int, Np: int) -> torch.Tensor:
+    """``torch._int_mm`` of xq and wq zero-padded to (Mp, Kp) and (Kp, Np)
+    (the padded weight column-major, as the caller's), sliced back to
+    (M, N)."""
+    M, K = xq.shape
+    N = wq.shape[1]
+    xp = xq.new_zeros((Mp, Kp))
+    xp[:M, :K] = xq
+    wp = wq.new_zeros((Np, Kp)).t()
+    wp[:K, :N] = wq
+    return torch._int_mm(xp, wp)[:M, :N]
 
 
 def _through_scale(t: torch.Tensor, d_scale: torch.Tensor, dim: int) -> torch.Tensor:

@@ -32,7 +32,7 @@ import torch
 
 FAMILIES = [  # (family, regex on the kernel name), first match wins
     ("K5 mlp_tail", r"mlp_tail_kernel"),
-    ("K1 qk_prep", r"qk_prep_kernel"),
+    ("K1 qk_prep", r"qk_prep_(any_)?kernel"),
     ("K1 fused_qkv_attention", r"fused_qkv_attention_kernel"),
     ("K4 flash backward (prep, main, dq)", r"flash_bwd_(prep_|dq_)?kernel"),
     # K2 and K3 are one CUDA kernel; slice 2's main path launches only K2,
