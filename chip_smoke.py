@@ -37,6 +37,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 loaded by load_model_params into a flagship seeded otherwise:
                 every parameter and the 5/1 sequential run bit-equal to
                 phase 5's.
+   vggt_ckpt   — a public VGGT-1B checkpoint through the port's converter:
+                the seeded flagship and a seeded track head written in the
+                upstream layout (vggt_state_dict, the inverse of
+                io/from_vggt.py's rules) as an fp32 model.safetensors
+                (4.97 GB), converted by ``python -m
+                vitslam_tpu_torch.convert_vggt_checkpoint``'s main in a child with
+                jax, flax, safetensors and vitslam_tpu blocked, loaded as
+                from_pretrained (strict) into a track-enabled flagship
+                seeded otherwise (every parameter bit-equal, the
+                AlignmentHead the converter's CPU init), and under phase
+                5's AlignmentHead as model_checkpoint_path into a flagship
+                seeded otherwise, whose 5/1 sequential run (K1 on all 72
+                attentions a chunk) is bit-equal to phase 5's. Prints the
+                file's bytes, the seconds to write, convert and load, and
+                the converter's largest RSS, sampled every 10 ms.
 6. merge 5/1  — the same with the KV merge at pool 2 / stride 2: the global
                 attention goes to K3 (1,474 keys), never K1.
 7. slice 75/30— the flagship point-aligned and pose-aligned models over a
@@ -1705,6 +1720,235 @@ def phase_checkpoints(smi: str, seeded_run: dict) -> dict:
     _release()
     stats.update(write_s=write_s, load_s=load_s, file_bytes=list(sizes))
     return {"checkpoints 5/1 sequential": stats}
+
+
+# The public VGGT-1B checkpoint's names and layouts, written here because the
+# port has no exporter: port parameter name -> upstream key (the inverse of
+# io/from_vggt.py's rules). A DPT head's sub-names go through _TO_VGGT_DPT.
+_TO_VGGT = [
+    (r"^core\.aggregator\.patch_embed\.proj\.(.*)$", r"aggregator.patch_embed.patch_embed.proj.\1"),
+    (r"^core\.aggregator\.patch_embed\.(.*)$", r"aggregator.patch_embed.\1"),
+    (r"^core\.aggregator\.layers\.(\d+)\.(frame|global)_block\.(.*)$",
+     r"aggregator.\2_blocks.\1.\3"),
+    (r"^core\.aggregator\.(camera_token|register_token)$", r"aggregator.\1"),
+    (r"^core\.camera_head\.trunk_(\d+)\.(.*)$", r"camera_head.trunk.\1.\2"),
+    (r"^core\.camera_head\.modulation\.(.*)$", r"camera_head.poseLN_modulation.1.\1"),
+    (r"^core\.camera_head\.(.*)$", r"camera_head.\1"),
+    (r"^core\.track_head\.tracker\.(.*)$", r"track_head.tracker.\1"),
+    (r"^alignment_head\.(.*)$", r"alignment_head.\1"),
+]
+_TO_VGGT_DPT = [
+    (r"^project_(\d)\.(.*)$", lambda m: f"projects.{m[1]}.{m[2]}"),
+    (r"^resize_layer_(\d)\.(.*)$", lambda m: f"resize_layers.{m[1]}.{m[2]}"),
+    (r"^scratch_(\d)\.(.*)$", lambda m: f"scratch.layer{int(m[1]) + 1}_rn.{m[2]}"),
+    (r"^fusion_(\d)\.rcu([12])\.(.*)$",
+     lambda m: f"scratch.refinenet{int(m[1]) + 1}.resConfUnit{m[2]}.{m[3]}"),
+    (r"^fusion_(\d)\.out_conv\.(.*)$",
+     lambda m: f"scratch.refinenet{int(m[1]) + 1}.out_conv.{m[2]}"),
+    (r"^head_conv1\.(.*)$", lambda m: f"scratch.output_conv1.{m[1]}"),
+    (r"^head_conv2\.(.*)$", lambda m: f"scratch.output_conv2.0.{m[1]}"),
+    (r"^head_out\.(.*)$", lambda m: f"scratch.output_conv2.2.{m[1]}"),
+]
+_DPT_HEAD = re.compile(r"^core\.(depth_head|point_head|track_head\.feature_extractor)\.(.*)$")
+
+
+def vggt_key(name: str) -> str:
+    """The upstream VGGT-1B key of a port parameter name."""
+    m = _DPT_HEAD.match(name)
+    if m:
+        for pat, fn in _TO_VGGT_DPT:
+            sub = re.match(pat, m[2])
+            if sub:
+                return f"{m[1]}.{fn(sub)}"
+        raise KeyError(name)
+    for pat, repl in _TO_VGGT:
+        if re.match(pat, name):
+            return re.sub(pat, repl, name)
+    raise KeyError(name)
+
+
+def vggt_state_dict(named_parameters, alignment_head: bool = False) -> dict:
+    """Port parameters (``(name, parameter)`` pairs of a whole model's
+    names) as the upstream checkpoint stores them (CPU tensors): the
+    aggregator's tokens with their leading 1, every DPT head's
+    ``resize_layers.0/1`` as ConvTranspose2d (in, out, k, k) weights.
+    VGGT-1B has no AlignmentHead; a FeatureAlignedVGGT checkpoint
+    (``alignment_head``) has one."""
+    out = {}
+    for name, p in named_parameters:
+        if name.startswith("alignment_head.") and not alignment_head:
+            continue
+        key = vggt_key(name)
+        v = p.detach().cpu()
+        if re.match(r"^aggregator\.(camera_token|register_token)$", key):
+            v = v[None]
+        elif re.match(r"^.*\.resize_layers\.[01]\.weight$", key):
+            v = v.transpose(0, 1).contiguous()
+        out[key] = v
+    return out
+
+
+def write_safetensors(path: str, tensors: dict, metadata: dict | None = None) -> int:
+    """Write CPU tensors as a safetensors file (the header, with
+    ``metadata`` as ``__metadata__``, padded to 8 bytes, the data in the
+    header's order); returns the file's size."""
+    import torch
+
+    from vitslam_tpu_torch.io.safetensors import DTYPES
+
+    tags = {dtype: tag for tag, dtype in DTYPES.items()}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": tags[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    if metadata is not None:
+        header["__metadata__"] = metadata
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy().data)
+        return f.tell()
+
+
+# kept from the converter's process: none may import in the vggt_ckpt phase
+VGGT_BLOCKED = ("jax", "flax", "safetensors", "vitslam_tpu")
+# the converter's command line (what ``python -m`` runs) with the modules of
+# argv[1] blocked and argv[2] (JSON) as its preset overrides
+CONVERT_ENTRY = ("import json, sys\n"
+                 "sys.modules.update({m: None for m in sys.argv[1].split(',')})\n"
+                 "from vitslam_tpu_torch.convert_vggt_checkpoint import main\n"
+                 "sys.exit(main(sys.argv[3:], json.loads(sys.argv[2])))\n")
+
+
+def run_converter(src: str, out: str, *args: str,
+                  overrides: dict | None = None) -> tuple[dict, float, list]:
+    """The converter's ``main`` (``python -m
+    vitslam_tpu_torch.convert_vggt_checkpoint``) in a child with
+    ``VGGT_BLOCKED`` blocked in ``sys.modules``; ``overrides`` are preset
+    keywords (a small model in tests). Returns (its last line's summary,
+    the child's wall seconds, its printed lines)."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CONVERT_ENTRY, ",".join(VGGT_BLOCKED),
+                           json.dumps(overrides), "--torch-ckpt", src, "--out", out, *args],
+                          cwd=str(ROOT), capture_output=True, text=True)
+    secs = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"convert_vggt_checkpoint exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    return json.loads(lines[-1]), secs, lines
+
+
+def phase_vggt_ckpt(smi: str, seeded_run: dict) -> dict:
+    """A public VGGT-1B checkpoint through the port's converter: the seeded
+    flagship (seed 0) and a seeded track head written as an upstream fp32
+    ``model.safetensors``, converted by ``python -m
+    vitslam_tpu_torch.convert_vggt_checkpoint``'s main in a child with jax, flax
+    and safetensors blocked, then loaded as ``checkpoint.from_pretrained``
+    into a track-enabled flagship seeded 1 (every core and track parameter
+    bit-equal to the written ones, the AlignmentHead the converter's CPU
+    init at seed 0), and with phase 5's AlignmentHead as
+    ``model_checkpoint_path`` over it into a flagship seeded 1, whose 5/1
+    sequential run is bit-equal to phase 5's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vitslam_tpu_torch.io.checkpoint import load_model_params, save_checkpoint
+    from vitslam_tpu_torch.models import flagship
+    from vitslam_tpu_torch.nn.layers import init_weights
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_vggt_"))
+    src, out, head = str(tmp / "model.safetensors"), str(tmp / "vggt1b_port.ckpt"), \
+        str(tmp / "head.ckpt")
+    try:
+        base = flagship(device="cuda", seed=0)
+        track = flagship(device="cuda", seed=0, enable_track=True).core.track_head
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sd = vggt_state_dict(base.named_parameters())
+        sd.update(vggt_state_dict(track.named_parameters(prefix="core.track_head")))
+        file_bytes = write_safetensors(src, sd)
+        write_s = time.perf_counter() - t
+        del sd
+        summary, convert_s, _ = run_converter(src, out)
+        Path(src).unlink()
+        print(f"[vggt_ckpt] upstream model.safetensors {file_bytes} bytes written in "
+              f"{write_s:.1f} s (card -> host, then the file); "
+              f"python -m vitslam_tpu_torch.convert_vggt_checkpoint's main "
+              f"({', '.join(VGGT_BLOCKED)} blocked) in {convert_s:.1f} s of wall "
+              f"({summary['seconds']:.1f} s inside), largest RSS sampled every 10 ms "
+              f"{summary['rss_sampled_max_bytes'] / 2**30:.2f} GiB ("
+              f"{summary['rss_start_bytes'] / 2**30:.2f} GiB when it started, torch imported), "
+              f"output {summary['bytes']} bytes; "
+              f"{summary['source_keys']} source keys, {summary['dropped']} dropped, "
+              f"{summary['unmatched']} unmatched, {summary['left_at_init']} parameters left "
+              f"at init; on {smi}")
+        if summary["unmatched"] or summary["dropped"]:
+            raise AssertionError(f"vggt_ckpt: {summary}")
+        # from_pretrained alone, into a flagship with the track head
+        target = flagship(device="cuda", seed=1, enable_track=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        load_model_params(out, target)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        ref_head = flagship(device="meta").alignment_head.to_empty(device="cpu")
+        init_weights(ref_head, torch.Generator().manual_seed(0))
+        want = {n: p for n, p in base.named_parameters() if not n.startswith("alignment_head.")}
+        want.update(("core.track_head." + n, p) for n, p in track.named_parameters())
+        want.update(("alignment_head." + n, p) for n, p in ref_head.named_parameters())
+        got = dict(target.named_parameters())
+        differ = [n for n in got
+                  if n not in want or not _same_tensor(got[n].to(want[n].device), want[n])]
+        n_track = sum(n.startswith("core.track_head.") for n in got)
+        print(f"[vggt_ckpt] from_pretrained (strict) into flagship(enable_track=True, seed=1) "
+              f"in {load_s:.1f} s: {len(got) - len(differ)} of {len(got)} parameters "
+              f"({n_track} of the track head) bit-equal to the written ones and the "
+              f"converter's CPU AlignmentHead init")
+        if differ or set(want) != set(got):
+            raise AssertionError(f"vggt_ckpt: differing {differ[:5]} ({len(differ)})")
+        del target, got, want, ref_head, track
+        _release()
+        # a trained head (model_checkpoint_path) over the converted backbone
+        save_checkpoint(head, {"alignment_head." + n: p
+                               for n, p in base.alignment_head.named_parameters()})
+        target = flagship(device="cuda", seed=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        missing = load_model_params(head, target, fallback_path=out)
+        torch.cuda.synchronize()
+        head_load_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = dict(base.named_parameters())
+    differ = [n for n, p in target.named_parameters() if not _same_tensor(p, want[n])]
+    print(f"[vggt_ckpt] model_checkpoint_path (phase 5's AlignmentHead) over from_pretrained "
+          f"(the converted file) in {head_load_s:.1f} s: {len(want) - len(differ)} of "
+          f"{len(want)} parameters bit-equal to the seeded flagship, unfilled {missing}")
+    if missing or differ:
+        raise AssertionError(f"vggt_ckpt: unfilled {missing[:5]}, differing {differ[:5]}")
+    del base, want
+    _release()
+    pred, stats = _drive(target, _synthetic_sequence(17, 154, 518, seed=0),
+                         "vggt_ckpt 5/1 sequential", smi, 5, 1)
+    equal = {k: _same_tensor(pred[k], seeded_run[k]) for k in seeded_run}
+    print(f"[vggt_ckpt] 5/1 sequential run of the converted flagship vs phase 5's seeded one: "
+          f"bit-equal {equal}")
+    if not all(equal.values()) or set(pred) != set(seeded_run):
+        raise AssertionError(f"vggt_ckpt: the converted model's run differs: {equal}")
+    _expect("vggt_ckpt 5/1 sequential", stats["launches"],
+            {"fused_qkv_attention": 72 * 4, "qk_prep": 48 * 4})
+    del target, pred
+    _release()
+    stats.update(write_s=write_s, convert_s=convert_s, load_s=load_s, head_load_s=head_load_s,
+                 file_bytes=file_bytes, converter=summary)
+    return {"vggt_ckpt 5/1 sequential": stats}
 
 
 def phase_merge(smi: str) -> dict:
@@ -3946,6 +4190,7 @@ def main() -> int:
     runs.update(phase_heads(smi))
     runs.update(phase_tail_small(smi))
     runs.update(phase_checkpoints(smi, tails_off))
+    runs.update(phase_vggt_ckpt(smi, tails_off))
     runs.update(phase_merge(smi))
     large_runs, point_seq = phase_large_chunk(smi)
     runs.update(large_runs)

@@ -1,7 +1,8 @@
 """Hygiene of the port package: it never imports JAX, flax, orbax,
-tensorstore, zstandard or the JAX package (vitslam_tpu), every module
-imports on its own (and without OpenCV, PyYAML, matplotlib or msgpack,
-which the port does not need), and the weight loader is strict.
+tensorstore, zstandard, safetensors or the JAX package (vitslam_tpu),
+every module imports on its own (and without OpenCV, PyYAML, matplotlib
+or msgpack, which the port does not need), and the weight loader is
+strict.
 
 Each module is imported alone in a child forked from one interpreter that
 has imported numpy and torch and nothing of the port (a fresh interpreter
@@ -55,10 +56,11 @@ MODULES = [
     "vitslam_tpu_torch.io.ocdbt", "vitslam_tpu_torch.io.orbax_format",
     "vitslam_tpu_torch.utils.fixtures", "vitslam_tpu_torch.learning_loop_demo",
     "vitslam_tpu_torch.kv_merge_quality", "vitslam_tpu_torch.kv_merge_trained",
-    "chip_smoke",
+    "vitslam_tpu_torch.io.safetensors", "vitslam_tpu_torch.io.from_vggt",
+    "vitslam_tpu_torch.convert_vggt_checkpoint", "chip_smoke",
 ]
 # the packages no module of the port may import
-FORBIDDEN = ("jax", "flax", "orbax", "tensorstore", "zstandard", "vitslam_tpu")
+FORBIDDEN = ("jax", "flax", "orbax", "tensorstore", "zstandard", "safetensors", "vitslam_tpu")
 # installed here and not needed by the port: the package must import
 # without them (configs are read by config/yaml_lite.py and PNGs by
 # data/png.py; cv2 is imported only to read a JPEG and matplotlib where a

@@ -18,7 +18,7 @@ preset is called; explicit keyword overrides win over it.
 
 Every preset builds the model on ``device`` (the GPU unless the caller asks
 for the CPU) with weights drawn from a ``torch.Generator`` seeded with
-``seed``.
+``seed``; on the ``meta`` device it holds shapes and dtypes alone.
 """
 from __future__ import annotations
 
@@ -67,7 +67,8 @@ def _build(cls, base: dict, overrides: dict, device, seed: int):
     kw = dict(base)
     kw.update(overrides)
     model = cls(**kw, device=device)
-    init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    if torch.device(device).type != "meta":
+        init_weights(model, torch.Generator(device=device).manual_seed(seed))
     return model.eval()
 
 
