@@ -151,7 +151,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
                 BENCH_BUDGET_S; every scenario must return its metric, and
                 the inference ones must launch K1 (and K2 past 4,096
                 global tokens, K3 at 518x518) in their timed window.
-                Prints each value beside the card's name and power limit.
+                Then feature_5_1 twice more, each in its own process as
+                the suite's: under VITSLAM_MLP_TAIL=1 (K1 and its prep as
+                in the default run, K5 2 x 72 times an encode of 16
+                chunks, no int8 projection) and under VITSLAM_INT8=1 with
+                the tails asked for too (K1 and its prep as in the default,
+                no K5: int8 takes no tail, 4 x 72 int8 projections an
+                encode); each line must name the switches its model ran.
+                Prints each value beside the card's name and power limit,
+                the switched rates beside the default's.
 19. cli        — with cv2 and PyYAML blocked: a 17-frame KITTI Odometry
                 sequence of PNGs at 1241 x 376 (written by write_png),
                 decoded bit-equal by data/png.py, the reader's host time
@@ -3779,6 +3787,20 @@ def phase_cli(smi: str) -> dict:
 # the bench phase: vitslam_tpu_torch.bench's SUITE in subprocesses, every
 # scenario at its own timed chunks (none cut), the whole run under a budget
 BENCH_BUDGET_S = 420.0
+# then feature_5_1 under the model switches, one process each (the int8 run
+# asks for the tails too: int8 takes none), with the (mlp_tail, int8) its
+# line must name
+BENCH_SWITCHED = [
+    ("feature_5_1 VITSLAM_MLP_TAIL=1", {"VITSLAM_MLP_TAIL": "1", "VITSLAM_INT8": "0"},
+     ("both", False)),
+    ("feature_5_1 VITSLAM_INT8=1", {"VITSLAM_MLP_TAIL": "1", "VITSLAM_INT8": "1"}, ("off", True)),
+]
+BENCH_SWITCHED_TIMEOUT_S = 240.0
+# one feature_5_1 encode (16 chunks stacked along B) runs the 72
+# patch-embed, frame and global blocks once: 2 fused tail sites (K5) or 4
+# int8 projections each
+K5_PER_ENCODE = 2 * 72
+INT8_PER_ENCODE = 4 * 72
 
 
 def phase_bench(smi: str) -> dict:
@@ -3820,6 +3842,44 @@ def phase_bench(smi: str) -> dict:
             raise AssertionError(f"bench {e['scenario']}: kernels {sorted(want)} not all "
                                  f"launched in the timed window: {e['launches']}")
         runs[f"bench {e['scenario']}"] = dict(e, seconds=e["timed_s"])
+    runs.update(_bench_switched(smi, next(e for e in entries if e["scenario"] == "feature_5_1")))
+    return runs
+
+
+def _bench_switched(smi: str, default: dict) -> dict:
+    """feature_5_1 under each of BENCH_SWITCHED, in its own process as the
+    suite runs it: its line must name the switches, its timed window launch
+    K1 and the prep as often as the default run's, and K5 and the int8
+    projections as the switches say. Each rate is printed beside the
+    default's of this call."""
+    from vitslam_tpu_torch import bench
+
+    if (default["mlp_tail"], default["int8"], default["token_merge"]) != ("off", False, "off"):
+        raise AssertionError(f"bench feature_5_1 ran switched: {default}")
+    feature = dict(bench.SUITE)["feature_5_1"]
+    runs = {}
+    for tag, env, (tail, int8) in BENCH_SWITCHED:
+        t0 = time.perf_counter()
+        line, rc, err = bench.run_scenario_subprocess(tag, dict(feature, **env), "cuda",
+                                                      BENCH_SWITCHED_TIMEOUT_S)
+        if line is None or "metric" not in line:
+            raise AssertionError(f"bench {tag}: no metric line (rc={rc}):\n{err}")
+        got, groups = line["launches"], line["timed_chunks"] // line["encode_batch"]
+        want = {k: default["launches"][k] for k in ("fused_qkv_attention", "qk_prep")}
+        want.update(mlp_tail=0 if int8 else K5_PER_ENCODE * groups,
+                    int8_matmul=INT8_PER_ENCODE * groups if int8 else 0)
+        print(f"[bench] {tag}: {line['metric']} = {line['value']} {line['unit']} beside the "
+              f"default feature_5_1's {default['value']} in this call (x"
+              f"{line['value'] / default['value']:.3f}) on {smi}; model mlp_tail "
+              f"{line['mlp_tail']!r}, int8 {line['int8']}; timed_chunks {line['timed_chunks']}, "
+              f"timed_s {line['timed_s']}, wall {time.perf_counter() - t0:.1f} s; launches {got}")
+        if (line["mlp_tail"], line["int8"], line["token_merge"]) != (tail, int8, "off"):
+            raise AssertionError(f"bench {tag}: the line names {line['mlp_tail']!r} / "
+                                 f"{line['int8']} / {line['token_merge']!r}, not {tail!r} / {int8}")
+        if line["timed_chunks"] != default["timed_chunks"] or not line["value"] > 0:
+            raise AssertionError(f"bench {tag}: {line}")
+        _expect(f"bench {tag}", got, want)
+        runs[f"bench {tag}"] = dict(line, seconds=line["timed_s"], default_fps=default["value"])
     return runs
 
 

@@ -9,6 +9,9 @@ the JAX package's bench.py, on the CPU:
 * a ``BENCH_SMALL=1 --device cpu`` run with 2 timed chunks, and a small
   ``train_bench --device cpu`` run, print their JSON lines with the right
   keys (the small preset at test widths, ``tiny_small_preset``);
+* the model switches VITSLAM_MLP_TAIL / VITSLAM_INT8 reach the bench's and
+  train_bench's models, and the bench line names what the built model ran
+  (tails and int8 projections counted in the timed window);
 * the suite prints the cumulative line after every scenario, records a
   failure, a timeout and the scenarios a budget cuts or skips, exits 0 when
   one scenario ran and 2 when none did;
@@ -26,7 +29,9 @@ import torch
 
 from vitslam_tpu.data.preprocess import get_target_shape as jax_target_shape
 from vitslam_tpu_torch import bench, train_bench
+from vitslam_tpu_torch import train as port_train
 from vitslam_tpu_torch.models import presets
+from vitslam_tpu_torch.nn import layers as tl
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -85,6 +90,8 @@ def test_small_cpu_scenario_prints_its_line(monkeypatch, capsys, tiny_small_pres
     assert line["vs_baseline"] == round(line["value"] / 19.0, 3)
     assert line["timed_chunks"] == 2 and line["encode_batch"] == 2
     assert line["build_s"] == 0.0 and line["device"] == "cpu"
+    assert (line["mlp_tail"], line["int8"], line["token_merge"]) == ("off", False, "off")
+    assert line["launches"]["int8_matmul"] == 0
 
 
 def test_small_cpu_train_bench_prints_its_lines(capsys, tiny_small_preset):
@@ -92,10 +99,84 @@ def test_small_cpu_train_bench_prints_its_lines(capsys, tiny_small_preset):
                              "--descent-steps", "1"]) == 0
     rows = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
     assert set(rows[0]) == {"bucket", "sec_per_step", "steps_per_sec", "frames_per_step",
-                            "frames_per_sec", "compile_s", "build_s", "objective"}
+                            "frames_per_sec", "compile_s", "build_s", "objective", "mlp_tail",
+                            "int8", "token_merge"}
+    assert (rows[0]["mlp_tail"], rows[0]["int8"], rows[0]["token_merge"]) == ("off", False, "off")
     assert rows[0]["bucket"] == "w3_o1" and rows[0]["frames_per_step"] == 5
     assert len(rows[1]["descent_objectives"]) == 2
     assert all(v == v and abs(v) < 1e9 for v in rows[1]["descent_objectives"])
+
+
+# the tiny small preset's fused-tail blocks: 1 patch-embed + 2 frame/global pairs
+TINY_BLOCKS = 1 + 2 * 2
+
+
+@pytest.mark.parametrize("env,switches,k5,int8", [
+    ({"VITSLAM_MLP_TAIL": "1"}, ("both", False), 2 * TINY_BLOCKS, 0),
+    ({"VITSLAM_MLP_TAIL": "1", "VITSLAM_INT8": "1"}, ("off", True), 0, 4 * TINY_BLOCKS),
+], ids=["tails", "int8"])
+def test_small_cpu_scenario_names_its_switches(monkeypatch, capsys, tiny_small_preset, env,
+                                               switches, k5, int8):
+    """Under the switches the small scenario's line names what its model
+    ran, read from the model (int8 beats the tails), and its timed window
+    (one encode of 3 chunks: 1,275 rows a block, past the 1,024-row gate)
+    counts 2 tail sites a block, or 4 int8 projections a block and no tail.
+    The CPU runs the tail's plain version, so its calls are counted here
+    where the card's wrapper counts its launches."""
+    for k, v in dict(BENCH_SMALL="1", BENCH_CHUNKS="3", BENCH_ENCODE_BATCH="3", **env).items():
+        monkeypatch.setenv(k, v)
+    real = tl.mlp_tail
+
+    def counted(*a, **k):
+        real.launches += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(tl, "mlp_tail", counted)
+    assert bench.main(["--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (line["mlp_tail"], line["int8"], line["token_merge"]) == (*switches, "off")
+    assert line["timed_chunks"] == 3 and line["value"] > 0
+    assert line["launches"]["mlp_tail"] == k5 and line["launches"]["int8_matmul"] == int8
+
+
+@pytest.mark.parametrize("variant", ["feature", "point", "pose", "pose_only", "small"])
+@pytest.mark.parametrize("env,want", [({"VITSLAM_MLP_TAIL": "proj"}, ("proj", False)),
+                                      ({"VITSLAM_INT8": "1"}, ("off", True))],
+                         ids=["proj", "int8"])
+def test_bench_models_follow_the_switches(monkeypatch, variant, env, want):
+    """bench._model builds every scenario's preset (at its own widths, on
+    meta here) under the switches."""
+    knobs = {"BENCH_SMALL": "1"} if variant == "small" else {"BENCH_MODEL": variant}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    got = presets.model_switches(bench._model(bench.settings(knobs), "meta"))
+    assert (got["mlp_tail"], got["int8"], got["token_merge"]) == (*want, "off")
+
+
+class _Built(Exception):
+    pass
+
+
+def test_train_bench_model_follows_the_switches(monkeypatch, tiny_small_preset):
+    """train_bench's model is built under both switches: its blocks carry
+    the mlp tail site and run their projections int8 (stopped before its
+    first step; test_small_cpu_train_bench_prints_its_lines holds the
+    line's keys)."""
+    monkeypatch.setenv("VITSLAM_MLP_TAIL", "mlp")
+    monkeypatch.setenv("VITSLAM_INT8", "1")
+    built = []
+
+    def stop(model, patterns):
+        built.append(model)
+        raise _Built
+
+    monkeypatch.setattr(port_train, "freeze_params", stop)
+    with pytest.raises(_Built):
+        train_bench.main(["--device", "cpu", "--small"])
+    blocks = [m for m in built[0].modules() if isinstance(m, tl.Block)
+              and m.tail_sites == {"mlp"}]
+    assert len(blocks) == TINY_BLOCKS and all(b.attn.qkv.int8 for b in blocks)
+    assert presets.model_switches(built[0]) == dict(mlp_tail="off", int8=True, token_merge="off")
 
 
 def _runner(script: dict):

@@ -2,7 +2,9 @@
 blocks that route through it (nn/layers.py Block(mlp_tail=...)): the same
 numpy inputs and weights through the JAX function or module (the Pallas
 kernel in interpret mode, as tests/test_fused_attention.py runs it) and the
-port on the CPU, in fp32."""
+port on the CPU, in fp32; and the tail sites and int8 projections every
+preset takes under VITSLAM_MLP_TAIL / VITSLAM_INT8, block by block against
+the JAX presets' blocks."""
 import importlib
 
 import numpy as np
@@ -12,13 +14,17 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from flax import linen as fnn  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from vitslam_tpu.io.torch_convert import export_torch_style  # noqa: E402
+from vitslam_tpu.models import presets as jp  # noqa: E402
 from vitslam_tpu.nn import layers as jl  # noqa: E402
+from vitslam_tpu.ops.quant import int8_enabled  # noqa: E402
 from vitslam_tpu.ops.mlp_tail import mlp_tail as jax_mlp_tail  # noqa: E402
 from vitslam_tpu.ops.mlp_tail import mlp_tail_reference  # noqa: E402
 from vitslam_tpu_torch.io import load_jax_params  # noqa: E402
+from vitslam_tpu_torch.models import presets as tp  # noqa: E402
 from vitslam_tpu_torch.nn import layers as tl  # noqa: E402
 from vitslam_tpu_torch.ops.mlp_tail import _MlpTail, mlp_tail, mlp_tail_plain  # noqa: E402
 from torch_weights import shared_jax_cache  # noqa: E402,F401
@@ -188,3 +194,98 @@ def test_wrapper_rejects_what_it_cannot_run():
         mlp_tail(h, w2, b2, res)
     with pytest.raises(ValueError):  # neither cpu nor cuda
         mlp_tail(h.to("meta"), w2, b2, res, g, b)
+
+
+PRESETS = ("flagship", "flagship_point_aligned", "flagship_pose_aligned", "flagship_pose_only",
+           "small_feature_aligned")
+# the presets' switch grid runs at these widths: which blocks a preset
+# builds with fused_tail / quant does not depend on them (the JAX stacks are
+# scanned, one module a stack); test_full_width_presets_fuse_every_backbone_block
+# holds the presets' own widths
+TINY = dict(img_size=28, embed_dim=32, depth=2, num_heads=4, patch_embed_depth=1,
+            intermediate_layers=(0, 1, 1, 1))
+_JAX_BLOCKS = {}
+PROJECTIONS = ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")
+
+
+def jax_blocks(preset: str) -> dict:
+    """The JAX preset's blocks at ``TINY``, {path: (fused_tail, quant)}, read
+    from the modules its init builds (path with a scanned stack's ``block``
+    dropped; each block hands its input back unrun, so an init traces in
+    ~1 s; the flagship and the small preset are one model at ``TINY``)."""
+    model = getattr(jp, preset)(**TINY)
+    if repr(model) not in _JAX_BLOCKS:
+        seen = {}
+
+        def record(f, args, kwargs, ctx):
+            m = ctx.module
+            if ctx.method_name == "__call__" and isinstance(m, (jl.Block, jl.CrossAttentionBlock)):
+                path = m.scope.path[:-1] if m.scope.path[-2:] == ("blocks", "block") \
+                    else m.scope.path
+                seen[path] = (getattr(m, "fused_tail", False), getattr(m, "quant", False))
+                return args[0]
+            return f(*args, **kwargs)
+
+        with fnn.intercept_methods(record):
+            jax.eval_shape(lambda r: model.init(r, jnp.zeros((1, 2, 3, 28, 28)), 1),
+                           jax.random.PRNGKey(0))
+        _JAX_BLOCKS[repr(model)] = seen
+    return _JAX_BLOCKS[repr(model)]
+
+
+def _environ(monkeypatch, tail, int8):
+    for var, val in (("VITSLAM_MLP_TAIL", tail), ("VITSLAM_INT8", int8)):
+        if val is None:
+            monkeypatch.delenv(var, raising=False)
+        else:
+            monkeypatch.setenv(var, val)
+
+
+def _stack(name: str) -> tuple:
+    return tuple(p for p in name.split(".") if not p.isdigit())
+
+
+@pytest.mark.parametrize("int8_env", [None, "1", "true"])
+@pytest.mark.parametrize("tail_env", [None, "1", "mlp", "proj", "xla", "junk"])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_presets_take_the_jax_switches_block_by_block(monkeypatch, preset, tail_env, int8_env):
+    """Each preset built on meta under the environ: every block takes the
+    tail sites the JAX Block takes from 1,024 rows
+    (vitslam_tpu/nn/layers.py:570-572 with _tail_sites() and
+    int8_enabled()), none below, and exactly the projections of the JAX
+    preset's quant blocks run int8 while int8_enabled(). The port's blocks
+    are the JAX preset's, path for path (a stack's index dropped)."""
+    _environ(monkeypatch, tail_env, int8_env)
+    blocks = jax_blocks(preset)
+    model = getattr(tp, preset)(device="meta", **TINY)
+    int8 = int8_enabled()
+    got, want, want_int8 = {}, {}, set()
+    for name, m in model.named_modules():
+        if not isinstance(m, (tl.Block, tl.CrossAttentionBlock)):
+            continue
+        fused, quant = blocks[_stack(name)]
+        got[name] = m.fused_sites(jl._TAIL_MIN_ROWS) if isinstance(m, tl.Block) else frozenset()
+        want[name] = jl._tail_sites() if fused and not (quant and int8) else frozenset()
+        assert not isinstance(m, tl.Block) or m.fused_sites(jl._TAIL_MIN_ROWS - 1) == frozenset()
+        if quant and int8:
+            want_int8.update(f"{name}.{p}" for p in PROJECTIONS)
+    assert got == want
+    assert {n for n, m in model.named_modules() if isinstance(m, tl.Dense) and m.int8} == want_int8
+    assert {_stack(n) for n in got} == set(blocks)
+    assert sum(blocks[_stack(n)][0] for n in got) == 1 + 2 * 2  # patch embed + frame/global
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_full_width_presets_fuse_every_backbone_block(monkeypatch, preset):
+    """At the presets' own widths and depths (on meta): VITSLAM_MLP_TAIL=1
+    fuses both sites of every patch-embed, frame and global block (2 x 72
+    K5 calls an encode in the flagships, 2 x 16 in the small preset), and
+    with VITSLAM_INT8=1 too none, with those blocks' 4 projections int8."""
+    base = tp.SMALL if preset == "small_feature_aligned" else tp.FLAGSHIP
+    n_blocks = base["patch_embed_depth"] + 2 * base["depth"]
+    for int8, sites, n_int8 in ((None, 2 * n_blocks, 0), ("1", 0, 4 * n_blocks)):
+        _environ(monkeypatch, "1", int8)
+        model = getattr(tp, preset)(device="meta")
+        assert sum(len(m.fused_sites(jl._TAIL_MIN_ROWS)) for m in model.modules()
+                   if isinstance(m, tl.Block)) == sites
+        assert sum(m.int8 for m in model.modules() if isinstance(m, tl.Dense)) == n_int8

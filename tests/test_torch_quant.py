@@ -3,7 +3,11 @@ activations per row and weights per column, the int8 product with its fp32
 rescale and its gradient), one int8 Block and the tiny feature-aligned model with int8 on,
 each against the JAX package with VITSLAM_INT8=1 on the same numpy inputs
 in fp32. JAX reads the switch when it traces, so it is set before the
-first trace of a fresh function."""
+first trace of a fresh function; the port reads it when the model is built:
+explicit keywords win over it in the presets and in the CLI's
+build_from_config, which follows it otherwise."""
+import os
+
 import numpy as np
 import pytest
 
@@ -18,6 +22,8 @@ from vitslam_tpu.nn import layers as jl  # noqa: E402
 from vitslam_tpu.ops import quant as jq  # noqa: E402
 from vitslam_tpu_torch import cli  # noqa: E402
 from vitslam_tpu_torch import models as tm  # noqa: E402
+from vitslam_tpu_torch.config.loader import compose  # noqa: E402
+from vitslam_tpu_torch.models import presets  # noqa: E402
 from vitslam_tpu_torch.nn import layers as tl  # noqa: E402
 from vitslam_tpu_torch.ops import quant as tq  # noqa: E402
 
@@ -240,3 +246,50 @@ def test_cli_reads_the_int8_switch():
     assert cli.int8_from_env({"VITSLAM_INT8": "1"})
     assert not cli.int8_from_env({"VITSLAM_INT8": "true"})
     assert not cli.int8_from_env({})
+    assert cli.int8_from_env is presets.int8_from_env
+    assert cli.mlp_tail_from_env is presets.mlp_tail_from_env
+
+
+TINY = dict(img_size=28, embed_dim=32, depth=2, num_heads=4, patch_embed_depth=1,
+            intermediate_layers=(0, 1, 1, 1))
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+
+
+@pytest.mark.parametrize("preset", ["flagship", "flagship_point_aligned",
+                                    "flagship_pose_aligned", "flagship_pose_only",
+                                    "small_feature_aligned"])
+def test_explicit_switch_keywords_win_over_the_env(monkeypatch, preset):
+    """Under VITSLAM_MLP_TAIL=1 and VITSLAM_INT8=1 a preset given
+    mlp_tail / int8 builds what the keywords say (on meta)."""
+    monkeypatch.setenv("VITSLAM_MLP_TAIL", "1")
+    _int8_on(monkeypatch)
+    build = getattr(presets, preset)
+    switched = lambda **kw: presets.model_switches(build(device="meta", **TINY, **kw))  # noqa: E731
+    assert switched() == dict(mlp_tail="off", int8=True, token_merge="off")
+    assert switched(int8=False) == dict(mlp_tail="both", int8=False, token_merge="off")
+    assert switched(int8=False, mlp_tail="proj") == dict(mlp_tail="proj", int8=False,
+                                                         token_merge="off")
+    assert switched(mlp_tail="off", int8=True) == dict(mlp_tail="off", int8=True,
+                                                       token_merge="off")
+
+
+@pytest.mark.parametrize("env,kw,want", [
+    ({}, {}, ("off", False)),
+    ({"VITSLAM_MLP_TAIL": "mlp"}, {}, ("mlp", False)),
+    ({"VITSLAM_INT8": "1", "VITSLAM_MLP_TAIL": "1"}, {}, ("off", True)),
+    ({"VITSLAM_INT8": "1", "VITSLAM_MLP_TAIL": "1"}, {"int8": False}, ("both", False)),
+    ({"VITSLAM_MLP_TAIL": "1"}, {"mlp_tail": "off", "int8": True}, ("off", True)),
+], ids=["unset", "tail_mlp", "both_on", "int8_keyword", "both_keywords"])
+def test_build_from_config_follows_the_switches(monkeypatch, env, kw, want):
+    """cli.build_from_config (which makes the CLI's and the learning-loop
+    demo's models) takes the switches from the environ unless given: the shipped
+    test config's flagship-width model, built on meta without its data."""
+    for var in ("VITSLAM_MLP_TAIL", "VITSLAM_INT8"):
+        monkeypatch.delenv(var, raising=False)
+    for var, val in env.items():
+        monkeypatch.setenv(var, val)
+    cfg = compose("test_featureAlignedVGGT_vkitti", CONFIGS)
+    model = cli.build_from_config({"model": cfg["model"], "loss": cfg["loss"]}, device="meta",
+                                  init=False, **kw)[0]
+    got = presets.model_switches(model)
+    assert (got["mlp_tail"], got["int8"]) == want

@@ -15,17 +15,23 @@ chunk. With an encode batch above 1 it runs the two-stage path: the models'
 ``torch.Generator``, weights random from seed 0. Every step is fenced with
 ``torch.cuda.synchronize()``; the kernels' nvcc build (``build_s``) and the
 warm-up run before the timed window, and the line carries each kernel's
-launches in the timed window (``launches``).
+launches in the timed window (``launches``, with the int8 projections'
+calls under ``int8_matmul``) and what the built model runs (``mlp_tail``,
+``int8``, ``token_merge``: ``presets.model_switches``), as the train line
+does.
 
 Env knobs (as ``bench.py``): BENCH_MODEL (feature | point | pose |
 pose_only), BENCH_WIDTH / BENCH_OVERLAP (5 / 1), BENCH_CHUNKS (timed chunks,
 24), BENCH_ASPECT (0.3), BENCH_SMALL=1 (the small model at width 224),
 BENCH_ENCODE_BATCH (default ``max(1, (16 if H <= 300 else 8) * 5 //
 width)``), BENCH_TRAIN=1 (the train scenario, ``vitslam_tpu_torch.train_bench``
-at bucket 20:5) and BENCH_TRAIN_STEPS (3). VITSLAM_TOKEN_MERGE
-("<pool>,<stride>", read by the flagship presets) puts the KV merge on the
-flagship models' global attention, as the JAX bench's token-merge sweep
-does (``scripts/tpu_batch_r4.sh``).
+at bucket 20:5) and BENCH_TRAIN_STEPS (3). The model switches, read by
+the presets when the model is built, in every scenario and the train one:
+VITSLAM_TOKEN_MERGE ("<pool>,<stride>", the flagship models only) puts
+the KV merge on the global attention, as the JAX bench's token-merge
+sweep does (``scripts/tpu_batch_r4.sh``); VITSLAM_MLP_TAIL (1 | mlp |
+proj) routes the backbone blocks' residual tails through K5;
+VITSLAM_INT8=1 runs their projections int8 (and then no tail is fused).
 Setting any of BENCH_MODEL, BENCH_ASPECT, BENCH_WIDTH, BENCH_OVERLAP,
 BENCH_SMALL or BENCH_TRAIN runs that one scenario and prints one JSON line
 ``{"metric", "value", "unit", "vs_baseline", ...}``; with none set the SUITE runs, each scenario in a
@@ -146,6 +152,7 @@ def run_inference(device, env=os.environ) -> dict:
     """Time one inference scenario; returns its metric line."""
     import torch
 
+    from .models import presets
     from .slam import ChunkedPipeline
 
     s = settings(env)
@@ -216,17 +223,20 @@ def run_inference(device, env=os.environ) -> dict:
             "chunks_per_s": round(n_timed / elapsed, 4), "timed_chunks": n_timed,
             "encode_batch": eb, "build_s": round(build_s, 2), "init_s": round(init_s, 2),
             "warmup_s": round(warmup_s, 2), "timed_s": round(elapsed, 3), "launches": launches,
+            **presets.model_switches(model),
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
 
 
 def launch_counters() -> dict:
-    """The kernels' wrappers by name; each counts its launches in ``.launches``."""
+    """The kernels' wrappers and the int8 projection by name; each counts
+    its launches in ``.launches``."""
     from .ops.flash_attention import flash_attention, flash_attention_backward, flash_attention_lse
     from .ops.fused_attention import flat_flash_attention, fused_qkv_attention, qk_prep
     from .ops.mlp_tail import mlp_tail
+    from .ops.quant import int8_matmul
 
     fns = (fused_qkv_attention, qk_prep, flat_flash_attention, flash_attention,
-           flash_attention_lse, flash_attention_backward, mlp_tail)
+           flash_attention_lse, flash_attention_backward, mlp_tail, int8_matmul)
     return {fn.__name__: fn for fn in fns}
 
 
@@ -254,8 +264,9 @@ def run_train(device, env=os.environ) -> dict:
         sys.exit(1)
     sys.stderr.write(f"# train_bench: {json.dumps(row)}\n")
     return {"metric": TRAIN_METRIC, "value": row["sec_per_step"], "unit": "sec/step",
-            "vs_baseline": None, **{k: row[k] for k in ("frames_per_sec", "compile_s",
-                                                          "build_s", "objective") if k in row}}
+            "vs_baseline": None, **{k: row[k] for k in ("frames_per_sec", "compile_s", "build_s",
+                                                          "objective", "mlp_tail", "int8",
+                                                          "token_merge") if k in row}}
 
 
 def _child_env(env) -> dict:

@@ -12,11 +12,8 @@ caller asks for the CPU) with its weights drawn from ``seed_value``, then
 loaded from ``checkpoint.model_checkpoint_path`` (and
 ``checkpoint.from_pretrained`` as the fallback) when the config names one,
 each a checkpoint of the port or of the reference (``io/checkpoint.py``).
-The fused block tails of the backbone (kernel K5) follow the reference's
-switch ``VITSLAM_MLP_TAIL`` (1 = both sites, mlp, proj; default off), and
-its int8 serving mode ``VITSLAM_INT8=1`` makes the model with ``int8=True``
-(the backbone's projections through ``ops.quant``); both are read here
-once.
+The model follows ``VITSLAM_MLP_TAIL`` and ``VITSLAM_INT8`` as every preset
+does (``models/presets.py``), read when ``build_from_config`` builds it.
 
 Several ranks: one reference command covers all of a host's devices, so
 ``--num_devices N`` makes this command a launcher that starts N ranks on
@@ -36,28 +33,18 @@ import math
 import os
 import sys
 
-# VITSLAM_MLP_TAIL -> Block(mlp_tail=...) (the reference's _tail_sites)
-MLP_TAIL_ENV = {"": "off", "0": "off", "off": "off", "xla": "off", "auto": "off",
-                "1": "both", "mlp": "mlp", "proj": "proj"}
+# the switch readers stay importable from here
+from .models.presets import int8_from_env, mlp_tail_from_env, switch_overrides  # noqa: F401
 
 
-def mlp_tail_from_env(environ=os.environ) -> str:
-    """The fused tail sites the reference would take under its
-    ``VITSLAM_MLP_TAIL`` switch (an unknown value is off, as there)."""
-    return MLP_TAIL_ENV.get(environ.get("VITSLAM_MLP_TAIL", "0"), "off")
-
-
-def int8_from_env(environ=os.environ) -> bool:
-    """The reference's int8 switch: ``VITSLAM_INT8=1`` and nothing else."""
-    return environ.get("VITSLAM_INT8", "0") == "1"
-
-
-def build_from_config(cfg, device: str = "cuda", mlp_tail: str = "off", int8: bool = False,
-                      init: bool = True):
+def build_from_config(cfg, device: str = "cuda", mlp_tail: str | None = None,
+                      int8: bool | None = None, init: bool = True):
     """Instantiate (model, loss, metrics, train_data, val/test data) from a
-    composed config; the model on ``device``, seeded from ``seed_value``
-    (unless ``init`` is False: the caller then fills every parameter),
-    then loaded from the config's checkpoint if it names one."""
+    composed config; the model on ``device``, its block switches from
+    ``VITSLAM_MLP_TAIL`` / ``VITSLAM_INT8`` unless ``mlp_tail`` / ``int8``
+    is given, seeded from ``seed_value`` (unless ``init`` is False: the
+    caller then fills every parameter), then loaded from the config's
+    checkpoint if it names one."""
     import torch
 
     from .config.loader import instantiate
@@ -65,8 +52,9 @@ def build_from_config(cfg, device: str = "cuda", mlp_tail: str = "off", int8: bo
     from .nn.layers import init_weights
 
     seed = int(cfg.get("seed_value", 42))
-    model = instantiate(cfg["model"], device=torch.device(device), mlp_tail=mlp_tail,
-                        int8=int8)
+    given = {k: v for k, v in dict(mlp_tail=mlp_tail, int8=int8).items() if v is not None}
+    model = instantiate(cfg["model"], device=torch.device(device),
+                        **{**switch_overrides(), **given})
     if init:
         init_weights(model, torch.Generator(device=device).manual_seed(seed))
     model.eval()
@@ -179,8 +167,7 @@ def main(argv=None):
     cfg = compose(args.config, args.config_dir, overrides=args.overrides)
     if args.num_devices:
         cfg["num_devices"] = args.num_devices
-    model, loss, metrics, train_data, val_data = build_from_config(
-        cfg, device=device, mlp_tail=mlp_tail_from_env(), int8=int8_from_env())
+    model, loss, metrics, train_data, val_data = build_from_config(cfg, device=device)
     try:
         trainer = Trainer(cfg, model, loss, train_data=train_data, val_data=val_data,
                           metrics=metrics, shape_buckets=cfg.get("shape_buckets"))

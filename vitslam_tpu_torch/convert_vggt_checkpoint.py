@@ -12,7 +12,10 @@ The model is the flagship preset ``--model`` names (``models/presets.py``:
 on the ``meta`` device: shapes alone, no memory. The source is read through
 a memory map (``io/from_vggt.py::load_vggt_state_dict``) and mapped onto the
 port's parameter names (``map_vggt``), so the peak host memory stays near
-one copy of the weights; nothing runs on a GPU.
+one copy of the weights; nothing runs on a GPU. The preset reads
+``VITSLAM_MLP_TAIL`` and ``VITSLAM_INT8`` as everywhere, and neither changes
+anything here: the fused tails and the int8 projections run on the same
+parameters, so the file is the same under any setting.
 
 * Without ``--no-track`` the model has the TrackHead: VGGT-1B ships
   trained track weights, and conversion keeps them. A flagship without

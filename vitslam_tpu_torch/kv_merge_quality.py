@@ -62,10 +62,12 @@ def small_kwargs(dtype=None) -> dict:
 
 def family_model(family: str, setting=None, device="cuda", dtype=None):
     """The ``family`` model ("point" or "pose") under ``setting`` ((pool,
-    stride) or None for exact), on ``device``, weights not yet drawn."""
+    stride) or None for exact), on ``device``, weights not yet drawn; its
+    blocks follow VITSLAM_MLP_TAIL and VITSLAM_INT8 as the presets' do."""
     from .models import PointAlignedVGGT, PoseAlignedVGGT
+    from .models.presets import switch_overrides
 
-    kw = small_kwargs(dtype)
+    kw = dict(small_kwargs(dtype), **switch_overrides())
     if family == "point":
         cls, kw = PointAlignedVGGT, dict(kw, enable_depth=False, enable_point=True)
     elif family == "pose":

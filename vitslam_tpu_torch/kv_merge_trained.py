@@ -14,7 +14,8 @@ Kept from the script: ``find_ckpt`` over ``<demo-dir>/ckpt`` (read with
 and the JAX package's), ``SETTINGS`` and the ``CHUNK_W`` guard (a setting
 the aggregator would run exact, pool 1 or a stride at or above the 5-frame
 chunk, raises), the demo's test config with its overrides and the merge
-keywords (``learning_loop_demo.run_test``), the metric keys, the
+keywords (``learning_loop_demo.run_test``, whose ``cli.build_from_config``
+reads ``VITSLAM_MLP_TAIL`` and ``VITSLAM_INT8``), the metric keys, the
 worst-delta lines, and the splice of the section between the TRAINED-SWEEP
 markers of the report, default ``<demo-dir>/KV_MERGE_QUALITY.md`` (never
 the JAX package's docs/KV_MERGE_QUALITY.md). The port's train state holds

@@ -15,7 +15,8 @@ dicts), the training on Scene02 with Scene01 held out, the four rows and
 the trained-against-init deltas. The fixture is written by
 ``utils.fixtures.write_vkitti_fixture`` (the reference's files, byte for
 byte). Every model is built by ``cli.build_from_config`` on ``--device``
-(the GPU unless the caller asks for the CPU), its weights seeded from the
+(the GPU unless the caller asks for the CPU; its blocks follow
+``VITSLAM_MLP_TAIL`` and ``VITSLAM_INT8``), its weights seeded from the
 port's own generator, so the numbers are not the JAX report's; the report
 puts that report's deltas beside the port's. The report goes to
 ``--report`` (default ``<workdir>/LEARNING_LOOP_DEMO.md``), never to the

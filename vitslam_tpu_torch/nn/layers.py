@@ -453,10 +453,16 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
+    def fused_sites(self, rows: int) -> frozenset:
+        """The tail sites a call over ``rows`` block-input rows takes: none
+        below ``TAIL_MIN_ROWS`` or while the projections run int8."""
+        if rows < TAIL_MIN_ROWS or self.attn.qkv.int8:
+            return frozenset()
+        return self.tail_sites
+
     def forward(self, x, pos=None, kv=None, pos_kv=None):
         kv_n = self.norm1(kv) if kv is not None else None
-        tails = x.numel() // x.shape[-1] >= TAIL_MIN_ROWS and not self.attn.qkv.int8
-        sites = self.tail_sites if tails else ()
+        sites = self.fused_sites(x.numel() // x.shape[-1])
         ls1, ls2 = (None, None) if self.ls1 is None else (self.ls1.gamma, self.ls2.gamma)
         if "proj" in sites:
             x, y = self.attn(self.norm1(x), pos, kv=kv_n, pos_kv=pos_kv,

@@ -145,7 +145,12 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, bias=None,
     """x (..., K) @ w (K, N) through int8 with the dynamic rescale, with the
     reference's gradient (module docstring). A transposed view of the
     port's (N, K) weight keeps its quantised copy column-major, the layout
-    cuBLASLt's int8 GEMM takes."""
+    cuBLASLt's int8 GEMM takes. ``int8_matmul.launches`` counts calls (one
+    int8 product each)."""
+    int8_matmul.launches += 1
     K, N = w.shape
     y = _Int8Matmul.apply(x.reshape(-1, K), w, bias, out_dtype)
     return y.reshape(*x.shape[:-1], N)
+
+
+int8_matmul.launches = 0

@@ -17,7 +17,9 @@ descent (``--descent-steps``) from step 7000, past every loss warm-up.
 Prints one JSON line per bucket: {"bucket": "w3_o1", "sec_per_step",
 "steps_per_sec", "frames_per_step", "frames_per_sec", "compile_s" (the
 first, untimed step: allocations and library autotuning; nothing is
-compiled), "build_s" (the CUDA kernels' nvcc build), "objective"}, and
+compiled), "build_s" (the CUDA kernels' nvcc build), "objective", and the
+model's "mlp_tail", "int8" and "token_merge" (``presets.model_switches``:
+the presets read VITSLAM_MLP_TAIL, VITSLAM_INT8 and VITSLAM_TOKEN_MERGE)}, and
 {"descent_objectives": [...]} after the last bucket. Each step ends with a
 host read of the objective. It needs CUDA unless ``--device cpu`` is given;
 ``--small`` is the small model at width 224 (the tests' CPU runs).
@@ -114,6 +116,7 @@ def main(argv=None) -> int:
             "steps_per_sec": round(1 / dt, 4), "frames_per_step": n_frames,
             "frames_per_sec": round(n_frames / dt, 2), "compile_s": round(compile_s, 1),
             "build_s": round(build_s, 2), "objective": round(fence(metrics), 4),
+            **presets.model_switches(model),
         }), flush=True)
 
         if (width, overlap) == buckets[-1] and args.descent_steps:
